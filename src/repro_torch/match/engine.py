@@ -1,0 +1,711 @@
+"""Streaming match executor + query compiler (port of ``repro.match.engine``).
+
+Single entry point for string matching on one device: owns a
+``PackedCorpus`` (device-resident, packed once), lowers declarative
+``MatchQuery`` objects through the ``Planner`` into ``CompiledMatch``
+programs (kernel choice + geometry + packed pattern operands, computed
+once and LRU-cached by query content), then streams corpus row chunks
+through the chosen kernel with a fused per-chunk reduction, so the full
+(R, L, Q) score tensor is never materialized unless asked for.
+
+Reductions (fused per chunk):
+  best      -- per-row argmax over alignments: (R,[Q]) locs + scores.
+  topk      -- global top-k rows by best score (running merge across
+               chunks).
+  threshold -- all (row, loc[, q]) hits with score >= threshold.
+  full      -- materialized score tensor (small problems / compat path).
+
+Predicates: exact queries ride the XOR SWAR kernel or the one-hot
+tensor-core kernel; accept-set queries (IUPAC, N wildcards, character
+classes) ride the bit-plane SWAR kernel or a multi-hot pattern matrix --
+the same resident corpus forms either way.
+
+Results keep the JAX package's layout: ``MatchResult`` fields are numpy
+arrays of the same dtypes, so the two packages compare like with like.
+This slice runs on one device without the q-gram index (the JAX
+engine's ``index=False`` configuration).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import OrderedDict
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import encoding
+from repro_torch.core.tech import CostSource
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import match_mxu as _mxu
+from repro_torch.kernels import match_swar as _swar
+from repro_torch.kernels import ref as _kref
+from repro_torch.obs import Observability
+
+from .corpus import PackedCorpus
+from .feedback import kernel_key
+from .merge import ShardMerger
+from .planner import Plan, Planner, kernel_name
+from .query import _UNSET, MatchQuery, as_query
+
+
+@dataclasses.dataclass
+class MatchResult:
+    """Outcome of one engine query (reduced unless ``scores`` requested)."""
+
+    plan: Plan
+    best_locs: np.ndarray                 # (R,) or (R, Q) int
+    best_scores: np.ndarray               # (R,) or (R, Q) int32
+    scores: Optional[np.ndarray] = None   # (R, L[, Q]) when reduction="full"
+    topk_rows: Optional[np.ndarray] = None     # (k,[Q]) best-matching rows
+    topk_scores: Optional[np.ndarray] = None
+    hits: Optional[np.ndarray] = None     # (n, 3|4): row, loc[, q], score
+    n_chunks: int = 0
+    # Filtered execution arrives with the q-gram index slice.
+    survivor_rows: Optional[np.ndarray] = None
+    survivor_frac: Optional[float] = None
+    n_shards: int = 1
+    merge_path: str = "host"
+    collective_bytes: int = 0
+    # Per-stage wall-second breakdown from the span tree (tracer on only).
+    timings: Optional[dict] = dataclasses.field(default=None, repr=False)
+
+
+def _valid_mask(P: int, wp: int) -> np.ndarray:
+    """(1, Wp) low-bit-of-lane mask of the P valid pattern positions."""
+    mask_codes = np.zeros(wp * 16, np.uint32)
+    mask_codes[:P] = 1
+    return encoding.pack_codes_u32(mask_codes[None, :])
+
+
+def _pack_patterns_swar(codes: np.ndarray, wp: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-pack (tiny) exact pattern words + valid mask (SWAR kernel)."""
+    return encoding.pack_codes_u32(codes), _valid_mask(codes.shape[-1], wp)
+
+
+def _pack_mask_planes(masks: np.ndarray, wp: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-pack accept masks into (Q, 4*Wp) uint32 bit-planes + valid mask.
+
+    Plane c has the low bit of lane i set iff code c is accepted at
+    pattern position i (``match_swar_masks`` layout).
+    """
+    planes = [encoding.pack_codes_u32(((masks >> c) & 1).astype(np.uint32))
+              for c in range(4)]
+    return (np.concatenate(planes, axis=-1),
+            _valid_mask(masks.shape[-1], wp))
+
+
+def _pack_patterns_mxu(masks: np.ndarray, p_chars: int, q_pad: int
+                       ) -> np.ndarray:
+    """Host-pack (tiny) multi-hot pattern matrix (p_chars*4, q_pad).
+
+    Column q gets a 1 at (position i, channel c) iff code c is accepted at
+    position i of pattern q -- one-hot for exact queries, multi-hot for
+    accept-set predicates.
+    """
+    Q, P = masks.shape
+    pat_mat = np.zeros((p_chars, 4, q_pad), np.float32)
+    bits = (masks[:, :, None] >> np.arange(4, dtype=np.uint8)) & 1
+    pat_mat[:P, :, :Q] = bits.astype(np.float32).transpose(1, 2, 0)
+    return pat_mat.reshape(p_chars * 4, q_pad)
+
+
+def _words(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """uint32 host words -> int32 device tensor carrying the same bits."""
+    return torch.from_numpy(
+        np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
+
+
+class CompiledMatch:
+    """One ``MatchQuery`` lowered against one engine: reusable, growth-safe.
+
+    Construction does all per-query host work once -- mode resolution
+    (pinned at compile time), planning, pattern packing, row-subset
+    validation and padding.  ``run()`` then streams the engine's
+    *current* resident corpus through the lowered program.  Plan
+    geometry is revalidated per run when the live row count moved; the
+    packed pattern operands are row-count independent and survive, unless
+    growth flips the kernel choice, in which case only they are re-packed.
+    A pinned ``per_row`` query refuses to run after growth.
+    """
+
+    __slots__ = ("engine", "query", "plan", "_packed", "_pats2d", "_sel",
+                 "_idx", "_pad_idx", "_k_eff", "_k_vec", "_thr_vec",
+                 "_empty", "_mode", "_lowered", "_fb_version", "_sel_max")
+
+    def __init__(self, engine: "MatchEngine", query: MatchQuery):
+        self.engine = engine
+        self.query = query
+        corpus = engine.corpus
+
+        sel = query.rows
+        self._sel = None if sel is None else np.asarray(sel, np.int64)
+        self._empty = self._sel is not None and self._sel.size == 0
+        self._packed = self._pats2d = self._idx = self._pad_idx = None
+        self._sel_max = -1
+        self._k_eff, self._k_vec, self._thr_vec = 0, None, None
+        self._lowered = False
+        self._fb_version = engine.planner.feedback.version
+        if self._empty:
+            self.plan = engine._empty_plan(query)
+            self._mode = self.plan.mode
+            return
+
+        if self._sel is not None:
+            if self._sel.min() < 0 or self._sel.max() >= corpus.n_rows:
+                raise IndexError(
+                    f"rows must be in [0, {corpus.n_rows}), got "
+                    f"[{self._sel.min()}, {self._sel.max()}]")
+            self._sel_max = int(self._sel.max())
+            R = len(self._sel)
+            R_pad = -(-R // corpus.row_pad) * corpus.row_pad
+            pad_idx = np.zeros(R_pad, np.int64)
+            pad_idx[:R] = self._sel
+            self._pad_idx = pad_idx
+            self._idx = torch.from_numpy(pad_idx).to(engine.device)
+
+        n_rows = len(self._sel) if self._sel is not None else corpus.n_rows
+        # Mode pinned at compile time, before any growth can happen.
+        self._mode = engine._infer_mode(query, n_rows)
+        if n_rows == 0:
+            # Reserved-but-empty corpus: geometry validated now, lowering
+            # deferred to the first run that sees live rows.
+            self.plan = engine._empty_plan(query, mode=self._mode)
+            return
+        self._lower(n_rows)
+
+    def _lower(self, n_rows: int) -> None:
+        """Plan + pack against ``n_rows`` corpus rows (pinned mode)."""
+        engine, query = self.engine, self.query
+        self.plan = engine._plan_query(query, n_rows, mode=self._mode)
+        self._fb_version = engine.planner.feedback.version
+        plan = self.plan
+
+        # Per-query reduction parameters (batched runs only).
+        k_vec = np.asarray(query.k if query.k else (10,), np.int64)
+        if k_vec.size != 1 and (plan.mode != "batched"
+                                or k_vec.size != plan.n_patterns):
+            raise ValueError("per-query k needs a batched query with one "
+                             "entry per pattern")
+        self._k_vec = k_vec
+        self._k_eff = int(k_vec.max())
+        thr_vec = None
+        if query.reduction == "threshold":
+            thr_vec = np.asarray(query.threshold, np.float64)
+            if plan.mode == "batched":
+                if thr_vec.size == 1:
+                    thr_vec = np.full(plan.n_patterns, thr_vec[0])
+                elif thr_vec.size != plan.n_patterns:
+                    raise ValueError("per-query thresholds need one entry "
+                                     "per pattern")
+            elif thr_vec.size != 1:
+                raise ValueError("per-query thresholds need a batched query")
+        self._thr_vec = thr_vec
+
+        # Pattern operands, packed and uploaded once.
+        masks2d = query.masks if len(query.shape) == 2 else \
+            query.masks[None, :]
+        if plan.predicate == "exact":
+            codes = query.codes
+            self._pats2d = codes if codes.ndim == 2 else codes[None, :]
+        else:
+            self._pats2d = masks2d
+        dev = engine.device
+        if plan.backend == "swar":
+            if plan.predicate == "accept":
+                pat_rows, valid = _pack_mask_planes(masks2d, plan.wp)
+            else:
+                pat_rows, valid = _pack_patterns_swar(self._pats2d, plan.wp)
+            self._packed = (_words(pat_rows, dev), _words(valid, dev))
+        elif plan.backend == "mxu":
+            mat = _pack_patterns_mxu(masks2d, plan.p_chars_pad, plan.q_pad)
+            self._packed = torch.from_numpy(mat).to(dev, torch.bfloat16)
+        else:
+            self._packed = None
+        self._lowered = True
+
+    def _revalidate(self, n_rows: int) -> None:
+        """Refresh plan geometry for a corpus whose live row count moved."""
+        new_plan = self.engine._plan_query(self.query, n_rows,
+                                           mode=self._mode)
+        self._fb_version = self.engine.planner.feedback.version
+        if new_plan.backend != self.plan.backend:
+            self._lower(n_rows)
+        else:
+            self.plan = new_plan
+
+    # -- execution ------------------------------------------------------------
+    def run(self) -> MatchResult:
+        """Execute against the engine's current corpus contents.
+
+        With the engine's tracer enabled the whole execution runs under a
+        ``match.run`` span (plan / pack / launch / merge / pull children)
+        and the result carries the per-stage breakdown in ``timings``.
+        """
+        tr = self.engine.obs.tracer
+        if not tr.enabled:
+            return self._run()
+        with tr.span("match.run",
+                     {"reduction": self.query.reduction}) as root:
+            res = self._run()
+        res.timings = root.stage_seconds()
+        return res
+
+    def _note_plan(self, sp) -> None:
+        """Planner-decision attributes onto an open ``plan`` span."""
+        p = self.plan
+        sp.set("kernel", kernel_name(p.backend, p.predicate))
+        sp.set("strategy", p.strategy)
+        sp.set("cost_source", p.cost_source)
+        sp.set("est_seconds", p.est_seconds)
+        sp.set("n_rows", p.n_rows)
+
+    def _run(self) -> MatchResult:
+        """The streaming executor behind ``run()`` (span-instrumented)."""
+        if self._empty:
+            return self.engine._empty_result(self.query, self.plan)
+        engine, query = self.engine, self.query
+        tr = engine.obs.tracer
+        reduction = query.reduction
+        sel = self._sel
+        # Tombstone mask: dead rows stay resident so the kernels run
+        # unchanged; the reductions below mask them out on the host.
+        dead_full = (engine.corpus.dead_mask if engine.corpus.n_dead
+                     else None)
+        if sel is not None:
+            with tr.span("plan") as sp_plan:
+                if self._sel_max >= engine.corpus.n_rows:
+                    raise IndexError(
+                        f"rows subset names row {self._sel_max} but the "
+                        f"corpus now holds {engine.corpus.n_rows} live rows "
+                        "(did compact() reclaim evicted rows?); recompile "
+                        "with current row ids")
+                R = len(sel)
+                if tr.enabled:
+                    self._note_plan(sp_plan)
+            idx, idx_log = self._idx, self._pad_idx
+            R_pad = idx.shape[0]
+        else:
+            idx = idx_log = None
+            R = engine.corpus.n_rows
+            if R == 0:
+                return engine._empty_result(query, self.plan)
+            R_pad = engine.corpus.n_rows_padded
+            with tr.span("plan") as sp_plan:
+                if not self._lowered:
+                    self._lower(R)
+                elif (self.plan.n_rows != R
+                      or engine.planner.feedback.version != self._fb_version):
+                    self._revalidate(R)
+                if tr.enabled:
+                    self._note_plan(sp_plan)
+        plan = self.plan
+        step = plan.chunk_rows
+        merger = engine.merger
+
+        best_l: List[np.ndarray] = []
+        best_s: List[np.ndarray] = []
+        full: List[np.ndarray] = []
+        hit_rows: List[np.ndarray] = []
+        topk_state = None                 # running global top-k (device)
+        n_topk_alive = 0
+        n_chunks = 0
+        thr_vec = self._thr_vec
+        thr_int = None
+        if thr_vec is not None:
+            # Integer-exact device threshold: scores are ints, so
+            # s >= t  <=>  s >= ceil(t).  The host recomputes final hits
+            # with the float threshold over the gathered block.
+            thr_int = np.clip(np.ceil(thr_vec), -(2 ** 31),
+                              2 ** 31 - 1).astype(np.int32)
+
+        t_scan0 = time.perf_counter()
+        for c0 in range(0, R_pad, step):
+            c1 = min(c0 + step, R_pad)
+            valid = min(c1, R) - c0       # rows in this chunk that are real
+            if valid <= 0:
+                break                     # pure-padding tail chunk
+            # CUDA launches are asynchronous: the launch span measures
+            # dispatch, the device wait lands in the pull spans.
+            with tr.span("launch",
+                         {"c0": c0, "rows": valid} if tr.enabled else None):
+                scores = engine._chunk_scores(plan, self._pats2d, c0, c1,
+                                              self._packed, idx, idx_log)
+            n_chunks += 1
+            alive = None
+            if dead_full is not None:
+                chunk_ids = (np.arange(c0, c0 + valid, dtype=np.int64)
+                             if sel is None
+                             else np.asarray(sel[c0:c0 + valid]))
+                alive = ~dead_full[chunk_ids]
+                if alive.all():
+                    alive = None
+            if reduction == "full":
+                sc = merger.pull(scores, kind="block")[:valid]
+                if alive is not None:
+                    # Dead rows report the -1 sentinel.
+                    sc = sc.copy()
+                    sc[~alive] = -1
+                full.append(sc)
+                continue
+            bl, bs = merger.chunk_best(scores)
+            bl_np = merger.pull(bl)[:valid]
+            bs_np = merger.pull(bs)[:valid]
+            if alive is not None:
+                bl_np, bs_np = bl_np.copy(), bs_np.copy()
+                bl_np[~alive] = 0
+                bs_np[~alive] = -1        # dead-row best-score sentinel
+            best_l.append(bl_np)
+            best_s.append(bs_np)
+            if reduction == "threshold":
+                # Two-phase sparse pull: a per-row any-hit bitmap, then a
+                # device gather of only the hot rows' score vectors.
+                hot = merger.hot_mask(scores, thr_int)
+                hot_np = merger.pull(hot)[:valid]
+                if alive is not None:
+                    hot_np = hot_np & alive
+                hot_rows = np.flatnonzero(hot_np)
+                if hot_rows.size == 0:
+                    continue
+                # Pad the gather to a power of two (the JAX engine does
+                # so to avoid recompiles; kept for identical transfers).
+                n_hot = hot_rows.size
+                pad_n = max(8, 1 << (int(n_hot) - 1).bit_length())
+                pos_pad = np.zeros(pad_n, np.int64)
+                pos_pad[:n_hot] = hot_rows
+                sc = merger.pull(merger.gather_rows(scores, pos_pad),
+                                 kind="block")[:n_hot]
+                if plan.mode == "batched":
+                    local = np.argwhere(sc >= thr_vec[None, None, :])
+                else:
+                    local = np.argwhere(sc >= float(thr_vec[0]))
+                if local.size:
+                    vals = sc[tuple(local.T)]
+                    rows_chunk = hot_rows[local[:, 0]]
+                    local[:, 0] = (sel[rows_chunk + c0] if sel is not None
+                                   else rows_chunk + c0)
+                    hit_rows.append(np.concatenate(
+                        [local, vals[:, None].astype(np.int64)], 1))
+            elif reduction == "topk":
+                if topk_state is None:
+                    topk_state = merger.topk_init(
+                        self._k_eff,
+                        plan.n_patterns if plan.mode == "batched" else 0,
+                        engine.device)
+                n_bs = int(bs.shape[0])
+                alive_chunk = np.zeros(n_bs, bool)
+                alive_chunk[:valid] = True if alive is None else alive
+                n_topk_alive += valid if alive is None else int(alive.sum())
+                rows_full = np.zeros(n_bs, np.int64)
+                rows_full[:valid] = (np.arange(c0, c0 + valid)
+                                     if sel is None else sel[c0:c0 + valid])
+                topk_state = merger.topk_update(
+                    topk_state, bs, alive_chunk=alive_chunk,
+                    rows_np=rows_full)
+
+        if n_chunks:
+            # Observed scan wall time vs. the feedback-free estimate: the
+            # plan-vs-actual registry always records, the feedback store
+            # (which mutates future plans) only when enabled.
+            base = engine.planner.backend_seconds(
+                plan.backend, R, plan.n_locs, plan.pattern_chars,
+                plan.n_patterns, plan.predicate, base=True)
+            s_key = kernel_key(kernel_name(plan.backend, plan.predicate),
+                               R, plan.pattern_chars, plan.n_patterns)
+            t_scan = time.perf_counter() - t_scan0
+            engine.obs.record_plan_actual(s_key, base, t_scan)
+            if engine.record_runtimes:
+                engine.planner.feedback.observe(s_key, base, t_scan)
+
+        if reduction == "full":
+            all_scores = np.concatenate(full, 0)
+            return MatchResult(plan=plan, best_locs=all_scores.argmax(1),
+                               best_scores=all_scores.max(1),
+                               scores=all_scores, n_chunks=n_chunks,
+                               merge_path=merger.merge_path)
+        res = MatchResult(plan=plan, best_locs=np.concatenate(best_l, 0),
+                          best_scores=np.concatenate(best_s, 0),
+                          n_chunks=n_chunks, merge_path=merger.merge_path)
+        if reduction == "threshold":
+            width = 3 + (1 if plan.mode == "batched" else 0)
+            res.hits = (np.concatenate(hit_rows, 0) if hit_rows
+                        else np.zeros((0, width), np.int64))
+        elif reduction == "topk":
+            if topk_state is None or n_topk_alive == 0:
+                # Every scanned row was tombstoned: a well-formed empty
+                # top-k.
+                shape0 = ((0, plan.n_patterns) if plan.mode == "batched"
+                          else (0,))
+                res.topk_rows = np.zeros(shape0, np.int64)
+                res.topk_scores = np.zeros(shape0, np.int32)
+            else:
+                res.topk_rows, res.topk_scores = merger.topk_finalize(
+                    topk_state, n_topk_alive, self._k_eff)
+        return res
+
+    __call__ = run
+
+
+class MatchEngine:
+    """Planner + packed corpus + query compiler + streaming executor.
+
+    ``corpus`` may be a PackedCorpus or a raw (R, F) uint8 fragment
+    matrix.  ``device=None`` means the CUDA device (or, for a
+    PackedCorpus, the device it was built on).  ``compile(query)`` is the
+    primary API; ``match`` / ``scores`` are kwarg shims that build (and
+    content-cache) the query.
+    """
+
+    def __init__(self, corpus: Union[PackedCorpus, np.ndarray], *,
+                 planner: Optional[Planner] = None,
+                 cost_source: Optional[CostSource] = None,
+                 record_runtimes: Optional[bool] = None,
+                 compile_cache_size: int = 128,
+                 index: bool = False,
+                 obs: Optional[Observability] = None,
+                 device: DeviceLike = None):
+        # The JAX engine attaches a q-gram CorpusIndex by default; the
+        # index slice of the port restores that default.  Until then only
+        # the index-free configuration exists.
+        if index is not False:
+            raise NotImplementedError(
+                "the q-gram CorpusIndex is not ported yet: use index=False")
+        self.obs = obs if obs is not None else Observability()
+        if isinstance(corpus, PackedCorpus):
+            if device is not None and resolve_device(device) != corpus.device:
+                raise ValueError(f"corpus lives on {corpus.device}, engine "
+                                 f"asked for {device}")
+            n_row_slots = corpus.capacity
+        else:
+            n_row_slots = np.asarray(corpus).shape[0]
+        if n_row_slots < 1:
+            raise ValueError("MatchEngine needs a non-empty corpus: got 0 "
+                             "fragment rows and no reserved capacity "
+                             "(PackedCorpus(..., capacity=N) to start "
+                             "empty)")
+        if isinstance(corpus, PackedCorpus):
+            self.corpus = corpus
+        else:
+            self.corpus = PackedCorpus(np.asarray(corpus, np.uint8),
+                                       device=device)
+        self.device = self.corpus.device
+        self.corpus.obs = self.obs
+        self.merger = ShardMerger(obs=self.obs)
+        if planner is None:
+            planner = Planner(cost_source=cost_source)
+        elif cost_source is not None:
+            planner.cost_source = cost_source
+        self.planner = planner
+        # Runtime feedback: on for calibrated sources, off for the static
+        # fallback, whose decisions must not drift while the engine runs.
+        if record_runtimes is None:
+            record_runtimes = self.planner.cost_source.name != "static"
+        self.record_runtimes = bool(record_runtimes)
+        self.compile_cache_size = int(compile_cache_size)
+        self._compiled: "OrderedDict[MatchQuery, CompiledMatch]" = \
+            OrderedDict()
+
+    def __repr__(self) -> str:
+        c = self.corpus
+        return (f"MatchEngine(rows={c.n_rows}, capacity={c.capacity}, "
+                f"device={self.device}, "
+                f"cost={self.planner.cost_source.tag})")
+
+    # -- compilation ----------------------------------------------------------
+    def compile(self, query: MatchQuery, *,
+                cached: bool = True) -> CompiledMatch:
+        """Lower a query once (plan + pack); LRU-cached by query content."""
+        if not isinstance(query, MatchQuery):
+            raise TypeError("compile() takes a MatchQuery; use "
+                            "MatchQuery.exact/from_masks/iupac or the "
+                            "match(patterns, ...) shim")
+        if cached:
+            hit = self._compiled.get(query)
+            if hit is not None:
+                self._compiled.move_to_end(query)
+                return hit
+        cm = CompiledMatch(self, query)
+        if cached:
+            self._compiled[query] = cm
+            while len(self._compiled) > self.compile_cache_size:
+                self._compiled.popitem(last=False)
+        return cm
+
+    # -- planning -------------------------------------------------------------
+    def _infer_mode(self, query: MatchQuery, n_rows: int) -> str:
+        if len(query.shape) == 1:
+            return "shared"
+        mode = query.mode
+        if mode is not None:
+            if mode == "per_row" and query.shape[0] != n_rows:
+                raise ValueError(
+                    "per_row patterns must have one row per corpus row: "
+                    f"got {query.shape[0]} pattern rows for {n_rows} live "
+                    "rows (did the corpus grow since the query was "
+                    "compiled?)")
+            return mode
+        # (Q, P) with Q == n_rows is ambiguous: the mxu kernel is
+        # inherently batched, everything else reads a row-count match as
+        # per-row.  Pass mode= to be explicit.
+        if query.backend == "mxu":
+            return "batched"
+        return "per_row" if query.shape[0] == n_rows else "batched"
+
+    def _plan_query(self, query: MatchQuery, n_rows: int,
+                    mode: Optional[str] = None) -> Plan:
+        if mode is None:
+            mode = self._infer_mode(query, n_rows)
+        elif mode == "per_row" and query.shape[0] != n_rows:
+            raise ValueError(
+                f"per_row query compiled for {query.shape[0]} corpus rows "
+                f"cannot run against {n_rows} live rows; per_row queries "
+                "are geometry-bound to their compile-time corpus -- "
+                "recompile with one pattern per current corpus row")
+        return self.planner.plan(
+            n_rows=n_rows,
+            fragment_chars=self.corpus.fragment_chars,
+            pattern_chars=query.pattern_chars,
+            n_patterns=query.n_patterns if mode == "batched" else None,
+            per_row=mode == "per_row", backend=query.backend,
+            chunk_rows=query.chunk_rows, predicate=query.predicate)
+
+    def plan(self, patterns, *, backend=_UNSET, mode=_UNSET, rows=_UNSET,
+             chunk_rows=_UNSET) -> Plan:
+        """Plan without executing (kwarg shim over ``_plan_query``)."""
+        query = as_query(patterns, backend=backend, mode=mode, rows=rows,
+                         chunk_rows=chunk_rows)
+        n_rows = (len(query.rows) if query.rows is not None
+                  else self.corpus.n_rows)
+        return self._plan_query(query, n_rows)
+
+    # -- kernel dispatch (one chunk, pure device) -----------------------------
+    def _swar_chunk(self, words: torch.Tensor, pat_rows: torch.Tensor,
+                    mask: torch.Tensor, plan: Plan) -> torch.Tensor:
+        kern = (_swar.match_swar_masks if plan.predicate == "accept"
+                else _swar.match_swar)
+        return kern(words, pat_rows, mask, n_locs=plan.n_locs,
+                    pattern_chars=plan.pattern_chars)
+
+    def _chunk_scores(self, plan: Plan, pats2d: np.ndarray, c0: int,
+                      c1: int, packed, idx: Optional[torch.Tensor],
+                      idx_log: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Scores for query rows [c0, c1): (rows, L) or (rows, L, Q) int32.
+
+        ``pats2d`` is the 2-D pattern operand for the ref backend -- codes
+        for exact plans, accept masks for accept plans.  ``idx`` (padded
+        row ids on the device) is set for row-subset queries: the chunk
+        is gathered from the resident forms instead of sliced;
+        ``idx_log`` carries the same ids on the host for the ref backend.
+        """
+        dev = self.device
+        if plan.backend == "ref":
+            if idx is not None:
+                rows = self.corpus.fragments[idx_log[c0:min(c1, plan.n_rows)]]
+            else:
+                rows = self.corpus.fragments[c0:min(c1, self.corpus.n_rows)]
+            frags = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+            pats = torch.from_numpy(np.array(pats2d)).to(dev)
+            fn = (_kref.match_scores_masks_ref if plan.predicate == "accept"
+                  else _kref.match_scores_ref)
+            if plan.mode == "batched":
+                return torch.stack([fn(frags, pats[q])
+                                    for q in range(plan.n_patterns)], -1)
+            return fn(frags, pats[c0:c1] if plan.mode == "per_row" else pats)
+
+        if plan.backend == "swar":
+            base = self.corpus.swar_words(plan.need_words)
+            words = base[idx[c0:c1]] if idx is not None else base[c0:c1]
+            pat_rows, mask = packed   # (Q, Wp) words or (Q, 4*Wp) planes
+            if plan.mode == "per_row":
+                r_pad = words.shape[0]
+                rows = pat_rows[c0:min(c1, pat_rows.shape[0])]
+                if rows.shape[0] < r_pad:
+                    rows = torch.cat([rows, rows.new_zeros(
+                        (r_pad - rows.shape[0], rows.shape[1]))], 0)
+                return self._swar_chunk(words, rows, mask, plan)
+            if plan.mode == "batched":
+                # Fused batched launch: tile the chunk Q times and ride
+                # each pattern as a per-row pattern -- one kernel launch
+                # for all Q queries.
+                Q = plan.n_patterns
+                Rc = words.shape[0]
+                out = self._swar_chunk(words.repeat(Q, 1),
+                                       pat_rows.repeat_interleave(Rc, 0),
+                                       mask, plan)
+                return out.reshape(Q, Rc, plan.n_locs).permute(1, 2, 0)
+            # Shared: one pattern broadcast to every row (row stride 0).
+            pw = pat_rows[0][None, :].expand(words.shape[0], -1)
+            return self._swar_chunk(words, pw, mask, plan)
+
+        # mxu
+        base = self.corpus.onehot_flat(plan.f_chars)
+        ref_flat = base[idx[c0:c1]] if idx is not None else base[c0:c1]
+        out = _mxu.match_mxu(ref_flat, packed, l_pad=plan.l_pad)
+        scores = torch.round(out[:, :plan.n_locs, :plan.n_patterns]
+                             ).to(torch.int32)
+        return scores[:, :, 0] if plan.mode != "batched" else scores
+
+    # -- empty subsets --------------------------------------------------------
+    def _empty_plan(self, query: MatchQuery,
+                    mode: Optional[str] = None) -> Plan:
+        """Zero-row plan for a query with no rows to scan (geometry checked)."""
+        P = query.pattern_chars
+        F = self.corpus.fragment_chars
+        if P < 1:
+            raise ValueError("pattern must have at least one character")
+        L = F - P + 1
+        if L <= 0:
+            raise ValueError("pattern longer than fragment")
+        if len(query.shape) == 1:
+            mode, Q = "shared", 1
+        else:
+            if mode is None:
+                mode = query.mode if query.mode is not None else "batched"
+            Q = query.n_patterns
+        return Plan(backend="ref", mode=mode, n_rows=0, fragment_chars=F,
+                    pattern_chars=P, n_patterns=Q if mode == "batched"
+                    else 1, n_locs=L, chunk_rows=0,
+                    reason="empty row subset", predicate=query.predicate)
+
+    def _empty_result(self, query: MatchQuery, plan: Plan) -> MatchResult:
+        """Well-formed all-empty MatchResult for a zero-row subset query."""
+        batched = plan.mode == "batched"
+        Q = plan.n_patterns
+        shape0 = (0, Q) if batched else (0,)
+        res = MatchResult(plan=plan,
+                          best_locs=np.zeros(shape0, np.int32),
+                          best_scores=np.zeros(shape0, np.int32),
+                          merge_path=self.merger.merge_path)
+        if query.reduction == "full":
+            res.scores = np.zeros((0, plan.n_locs, Q) if batched
+                                  else (0, plan.n_locs), np.int32)
+        elif query.reduction == "topk":
+            res.topk_rows = np.zeros(shape0, np.int32)
+            res.topk_scores = np.zeros(shape0, np.int32)
+        elif query.reduction == "threshold":
+            res.hits = np.zeros((0, 4 if batched else 3), np.int64)
+        return res
+
+    # -- execution ------------------------------------------------------------
+    def match(self, patterns, *, backend=_UNSET, mode=_UNSET, rows=_UNSET,
+              reduction=_UNSET, k=_UNSET, threshold=_UNSET,
+              chunk_rows=_UNSET) -> MatchResult:
+        """Run one query (a ``MatchQuery``, or a uint8 code array with the
+        legacy kwargs, which this shim folds into a content-cached query)."""
+        query = as_query(patterns, backend=backend, mode=mode, rows=rows,
+                         reduction=reduction, k=k, threshold=threshold,
+                         chunk_rows=chunk_rows)
+        return self.compile(query).run()
+
+    def scores(self, patterns, *, backend=_UNSET, mode=_UNSET, rows=_UNSET,
+               chunk_rows=_UNSET) -> np.ndarray:
+        """Full materialized score tensor (compat path for small problems)."""
+        query = as_query(patterns, backend=backend, mode=mode, rows=rows,
+                         chunk_rows=chunk_rows)
+        query = dataclasses.replace(query, reduction="full", k=(),
+                                    threshold=None)
+        return self.match(query).scores

@@ -27,3 +27,8 @@ _FORCE = "--xla_force_host_platform_device_count"
 if "jax" not in sys.modules and _FORCE not in os.environ.get("XLA_FLAGS", ""):
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "") + f" {_FORCE}=8").strip()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped where there is none")

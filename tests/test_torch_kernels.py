@@ -1,0 +1,232 @@
+"""Kernel parity for the PyTorch port.
+
+On the CPU: each plain version (what a kernel wrapper runs for a CPU
+tensor) is bit-identical to the JAX package's Pallas kernel, run in
+interpret mode on identical operands carried across with
+``repro_torch.convert``; the torch oracles equal the JAX oracles.
+
+On a card (``-m gpu``): each CUDA kernel equals its plain version bit for
+bit at the same edge shapes.  The JAX side is imported inside a fixture,
+not at module top, because the machine with the card has no JAX and
+collects this file for its ``gpu`` tests alone.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.kernels import _build
+from repro_torch.kernels import match_mxu as tmx
+from repro_torch.kernels import match_swar as tsw
+from repro_torch.kernels import ref as tref
+from repro_torch.match.engine import _valid_mask as valid_mask
+
+# (rows, pattern chars, alignments): sh == 0 only (L == 1); P not a
+# multiple of 16; Wp of 1, 2 and 3; R exactly 8; the main path's P = 100
+# (Wp = 7); and P > 256, the shared-memory pattern path of the kernel.
+SWAR_SHAPES = [(8, 16, 1), (8, 7, 40), (16, 23, 33), (8, 40, 17),
+               (24, 100, 50), (8, 300, 20)]
+# (rows, pattern chars, patterns): Q below 128 (zero-padded columns),
+# P4 of one and of several K chunks, and Q = 256 (two pattern tiles).
+MXU_SHAPES = [(3, 20, 5), (2, 40, 1), (5, 100, 128), (2, 33, 256)]
+
+
+@pytest.fixture(scope="module")
+def jx():
+    import jax.numpy as jnp
+    from repro.kernels import match_mxu, match_swar, ref
+    return SimpleNamespace(jnp=jnp, swar=match_swar, mxu=match_mxu, ref=ref)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def swar_operands(R, P, L, planes, seed=0):
+    """Random uint32 words over the full range (high bits set)."""
+    rng = np.random.default_rng(seed)
+    wp = -(-P // 16)
+    W = (L - 1) // 16 + wp + 2
+    ref = rng.integers(0, 2**32, (R, W), dtype=np.uint32)
+    pat = rng.integers(0, 2**32, (R, planes * wp), dtype=np.uint32)
+    return ref, pat, valid_mask(P, wp)
+
+
+def mxu_operands(R, P, Q, seed=0):
+    rng = np.random.default_rng(seed)
+    p_chars = -(-P // tmx.CHARS_PER_CHUNK) * tmx.CHARS_PER_CHUNK
+    l_pad = tmx.L_TILE
+    f_chars = l_pad + p_chars
+    codes = rng.integers(0, 4, (R, f_chars), np.uint8)
+    flat = (codes[..., None] == np.arange(4)).astype(np.float32)
+    flat = flat.reshape(R, f_chars * 4)
+    q_pad = -(-Q // 128) * 128
+    pat = np.zeros((p_chars * 4, q_pad), np.float32)
+    pat[:P * 4, :Q] = rng.integers(0, 2, (P * 4, Q))
+    return flat, pat, l_pad
+
+
+def t(a, device="cpu"):
+    return convert.swar_words_from_numpy(a, device)
+
+
+# -- CPU: plain versions against the Pallas kernels ---------------------------
+
+@pytest.mark.parametrize("R,P,L", SWAR_SHAPES)
+def test_swar_plain_matches_pallas(jx, R, P, L):
+    ref, pat, valid = swar_operands(R, P, L, 1)
+    want = np.asarray(jx.swar.match_swar(
+        jx.jnp.asarray(ref), jx.jnp.asarray(pat), jx.jnp.asarray(valid),
+        n_locs=L, pattern_chars=P, interpret=True))
+    got = tsw.match_swar(t(ref), t(pat), t(valid), n_locs=L,
+                         pattern_chars=P)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("R,P,L", SWAR_SHAPES)
+def test_swar_masks_plain_matches_pallas(jx, R, P, L):
+    ref, planes, valid = swar_operands(R, P, L, 4, seed=1)
+    want = np.asarray(jx.swar.match_swar_masks(
+        jx.jnp.asarray(ref), jx.jnp.asarray(planes), jx.jnp.asarray(valid),
+        n_locs=L, pattern_chars=P, interpret=True))
+    got = tsw.match_swar_masks(t(ref), t(planes), t(valid), n_locs=L,
+                               pattern_chars=P)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("R,P,L", SWAR_SHAPES[:4])
+def test_swar_oracle_matches_jax_oracle(jx, R, P, L):
+    ref, pat, valid = swar_operands(R, P, L, 1, seed=2)
+    want = np.asarray(jx.ref.match_scores_swar_ref(
+        jx.jnp.asarray(ref), jx.jnp.asarray(pat),
+        jx.jnp.asarray(valid[0]), L, P))
+    got = tref.match_scores_swar_ref(t(ref), t(pat), t(valid), L, P)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_swar_broadcast_pattern_equals_materialized():
+    ref, pat, valid = swar_operands(16, 23, 33, 1, seed=3)
+    one = t(pat[:1])
+    bcast = one.expand(16, -1)
+    assert bcast.stride(0) == 0
+    full = t(np.repeat(pat[:1], 16, 0))
+    a = tsw.match_swar(t(ref), bcast, t(valid), n_locs=33, pattern_chars=23)
+    b = tsw.match_swar(t(ref), full, t(valid), n_locs=33, pattern_chars=23)
+    assert torch.equal(a, b)
+
+
+def test_swar_wrapper_rejects_bad_operands():
+    ref, pat, valid = swar_operands(8, 23, 33, 1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tsw.match_swar(t(ref[:6]), t(pat[:6]), t(valid), n_locs=33,
+                       pattern_chars=23)
+    with pytest.raises(ValueError, match="too narrow"):
+        tsw.match_swar(t(ref[:, :3]), t(pat), t(valid), n_locs=33,
+                       pattern_chars=23)
+    with pytest.raises(ValueError, match="int32"):
+        tsw.match_swar(torch.from_numpy(ref.astype(np.int64)), t(pat),
+                       t(valid), n_locs=33, pattern_chars=23)
+    with pytest.raises(ValueError, match="plane"):
+        tsw.match_swar_masks(t(ref), t(pat[:, :3]), t(valid), n_locs=33,
+                             pattern_chars=23)
+
+
+@pytest.mark.parametrize("R,P,Q", MXU_SHAPES)
+def test_mxu_plain_matches_pallas(jx, R, P, Q):
+    flat, pat, l_pad = mxu_operands(R, P, Q)
+    want = np.asarray(jx.mxu.match_mxu(
+        jx.jnp.asarray(flat, jx.jnp.bfloat16),
+        jx.jnp.asarray(pat, jx.jnp.bfloat16), l_pad=l_pad, interpret=True))
+    got = tmx.match_mxu(convert.onehot_from_numpy(flat, "cpu"),
+                        convert.onehot_from_numpy(pat, "cpu"), l_pad=l_pad)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_mxu_wrapper_rejects_bad_operands():
+    flat, pat, l_pad = mxu_operands(2, 20, 5)
+    f, p = (convert.onehot_from_numpy(flat, "cpu"),
+            convert.onehot_from_numpy(pat, "cpu"))
+    with pytest.raises(ValueError, match="padded to 128"):
+        tmx.match_mxu(f, p[:, :100].contiguous(), l_pad=l_pad)
+    with pytest.raises(ValueError, match="too short"):
+        tmx.match_mxu(f[:, :-4].contiguous(), p, l_pad=l_pad)
+    with pytest.raises(ValueError, match="bf16"):
+        tmx.match_mxu(f.float(), p, l_pad=l_pad)
+
+
+def test_oracles_match_jax_oracles(jx):
+    rng = np.random.default_rng(4)
+    frags = rng.integers(0, 4, (6, 30), np.uint8)
+    pats = rng.integers(0, 4, (6, 9), np.uint8)
+    masks = rng.integers(1, 16, (6, 9), np.uint8)
+    tf = torch.from_numpy(frags)
+    for fn, arg in (("match_scores_ref", pats[0]),
+                    ("match_scores_ref", pats),
+                    ("match_scores_masks_ref", masks[0]),
+                    ("match_scores_masks_ref", masks),
+                    ("onehot_scores_ref", pats[:3])):
+        want = np.asarray(getattr(jx.ref, fn)(frags, arg))
+        got = getattr(tref, fn)(tf, torch.from_numpy(arg))
+        assert got.dtype == torch.int32, fn
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=fn)
+
+
+def test_cuda_tensor_without_toolkit_raises(monkeypatch, tmp_path):
+    """No hidden fallback: a failed build raises, it never runs the plain
+    version in the kernel's place."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("match_swar")
+
+
+# -- card: each kernel against its plain version ------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("R,P,L", SWAR_SHAPES)
+def test_swar_kernel_matches_plain(cuda, R, P, L, masks):
+    ref, pat, valid = swar_operands(R, P, L, 4 if masks else 1, seed=5)
+    args = (t(ref, cuda), t(pat, cuda), t(valid, cuda))
+    kern = tsw.match_swar_masks if masks else tsw.match_swar
+    plain = tsw.match_swar_masks_plain if masks else tsw.match_swar_plain
+    n0 = kern.n_launches
+    got = kern(*args, n_locs=L, pattern_chars=P)
+    torch.cuda.synchronize()
+    assert kern.n_launches == n0 + 1
+    want = plain(*args, n_locs=L, pattern_chars=P)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_swar_kernel_broadcast_pattern(cuda):
+    ref, pat, valid = swar_operands(64, 100, 401, 1, seed=6)
+    pw = t(pat[:1], cuda).expand(64, -1)
+    got = tsw.match_swar(t(ref, cuda), pw, t(valid, cuda), n_locs=401,
+                         pattern_chars=100)
+    want = tsw.match_swar_plain(t(ref, cuda), pw, t(valid, cuda),
+                                n_locs=401, pattern_chars=100)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,P,Q", MXU_SHAPES)
+def test_mxu_kernel_matches_plain(cuda, R, P, Q):
+    flat, pat, l_pad = mxu_operands(R, P, Q, seed=7)
+    f, p = (convert.onehot_from_numpy(flat, cuda),
+            convert.onehot_from_numpy(pat, cuda))
+    n0 = tmx.match_mxu.n_launches
+    got = tmx.match_mxu(f, p, l_pad=l_pad)
+    torch.cuda.synchronize()
+    assert tmx.match_mxu.n_launches == n0 + 1
+    assert torch.equal(got, tmx.match_mxu_plain(f, p, l_pad=l_pad))
