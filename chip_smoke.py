@@ -10,23 +10,35 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases, each
 printing its wall time:
 
 1. Environment: torch / CUDA versions, the card's name and power limit.
-2. Build: both CUDA sources with nvcc, in parallel; the ``-Xptxas -v``
-   resource summary.
+2. Build: the five CUDA sources with nvcc, in parallel; the
+   ``-Xptxas -v`` resource summary.
 3. Kernels against their plain versions at edge shapes, bit for bit.
 4. Main path at the size of GRCh38 chr1 (248,956,422 bp, seeded random
    DNA of that length folded into 500-char rows for 100-char reads):
-   ``MatchEngine`` -> ``compile(MatchQuery)`` -> ``run()`` for
-   (a) an exact read, best, SWAR; (b) an IUPAC read, threshold 95, SWAR
-   accept-set; (c) 128 batched reads with 0-3 mismatches, top-10, tensor
-   cores; (d) read (a) with the planner's own choice.  Launch counters
-   are zeroed just before and read just after; (a) and (b) are held
-   against the ``ref`` backend on the full corpus.
-5. Kernels at the main path's shapes: each kernel against its plain
-   version on >= 65,536 rows of the resident forms (its main-path
-   launch shape or more) with the compiled queries' own operands, bit
-   for bit; kernel, plain-version and library-call times (CUDA events)
-   at the launch shape beside the roofline bound.
-6. Profile: one run each of (a) and (c) under ``torch.profiler``
+   ``MatchEngine`` (q-gram index attached, the default) ->
+   ``compile(MatchQuery)`` -> ``run()`` for (a) an exact read, best,
+   SWAR; (b) an IUPAC read, threshold 95, SWAR accept-set; (c) 128
+   batched reads with 0-3 mismatches, top-10, tensor cores; (d) read (a)
+   with the planner's own choice; then, on their own counts, (e) read
+   (a) at threshold 99 with the filter forced (filter-then-verify) and
+   (f) the same with the planner's choice.  Launch counters are zeroed
+   just before each path and read just after; (a) and (b) are held
+   against the ``ref`` backend on the full corpus, (e) against the same
+   query scanned.
+4b. Standing bank: ``PatternBank(500, 100)`` with 4,096 patterns drawn
+   from the reference, scanned against 4 batches of 256 seeded 500-char
+   docs (32 planted hits each) with the prefilter forced on and off;
+   both hit sets equal, every planted hit found, sampled patterns equal
+   ad-hoc threshold queries.
+4c. Bulk ops: ``ops.popcount`` over the resident SWAR form and
+   ``ops.bitwise("XOR", ...)`` on a 256 MiB pair.
+5. Kernels at their paths' shapes: each kernel against its plain
+   version at (or beyond) its launch shape with the path's own
+   operands, bit for bit; at the launch shape, the kernel's and the
+   library call's device time with the L2 flushed before each launch
+   (``torch.profiler``), the kernel's time per call and the plain
+   version's (CUDA events, back to back), beside the roofline bound.
+6. Profile: one run each of (a), (c) and (e) under ``torch.profiler``
    (device time by kernel, device busy share) and one under the
    engine's own span tracer (host stage breakdown).
 7. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line, the
@@ -55,6 +67,12 @@ SEED = 0
 N_BATCH = 128                # batched reads of query (c)
 SUBSET_ROWS = 65_536         # rows held kernel-against-plain in phase 5
 TIMED_RUNS = 3
+# Standing bank (phase 4b): live patterns, docs per batch, batches,
+# planted hits per batch, patterns held against ad-hoc queries.
+BANK_PATTERNS, BANK_DOCS, BANK_BATCHES, BANK_PLANTED = 4096, 256, 4, 32
+BANK_SAMPLE = 24
+XOR_BYTES = 256 * 2**20      # each operand of the bulk XOR (phase 4c)
+L2_FLUSH_BYTES = 128 * 2**20  # written before each timed launch (50 MB L2)
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, 700 W): bf16
 # tensor cores, HBM bandwidth, and the CUDA-core INT32 rate (132 SMs x 64
 # INT32 ops/clock x 1.98 GHz boost, Hopper white paper).
@@ -77,7 +95,16 @@ SOURCES = {
                          "src/repro/kernels/match_swar.py:146"),
     "match_mxu": ("src/repro_torch/kernels/csrc/match_mxu.cu",
                   "src/repro/kernels/match_mxu.py:54"),
+    "filter_qgram": ("src/repro_torch/kernels/csrc/filter_qgram.cu",
+                     "src/repro/kernels/filter_qgram.py:63"),
+    "bank_prefilter": ("src/repro_torch/kernels/csrc/filter_qgram.cu",
+                       "src/repro/kernels/filter_qgram.py:131"),
+    "popcount": ("src/repro_torch/kernels/csrc/popcount.cu",
+                 "src/repro/kernels/popcount.py:41"),
+    "bitwise": ("src/repro_torch/kernels/csrc/bitwise.cu",
+                "src/repro/kernels/bitwise.py:41"),
 }
+BUILD = ("match_swar", "match_mxu", "filter_qgram", "popcount", "bitwise")
 
 
 def check(cond: bool, what: str) -> None:
@@ -116,6 +143,42 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_events(fn):
+    """``torch.profiler`` device events (key_averages) of ``fn()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int, flush) -> float:
+    """Mean device milliseconds per call over ``reps`` calls, each after
+    ``flush()`` (which overwrites more than the 50 MB L2, so every call
+    reads its inputs from HBM, as the path's single call does): the CUDA
+    kernels' own time from ``torch.profiler``, the flush's kernels left
+    out by their names.  A kernel of a few microseconds finishes before
+    the next call is issued, so CUDA events around back-to-back calls time
+    the host's issue rate instead."""
+    flush_keys = {ev.key for ev in _device_events(flush)}
+    fn()
+
+    def run():
+        for _ in range(reps):
+            flush()
+            fn()
+    return sum(_device_us(ev) for ev in _device_events(run)
+               if ev.key not in flush_keys) / reps / 1e3
+
+
+def _device_us(ev) -> float:
+    us = getattr(ev, "self_device_time_total", None)
+    return ev.self_cuda_time_total if us is None else us
+
+
 def profile_runs(engine, queries) -> None:
     """Device time by kernel and host stage seconds for one run each."""
     import torch
@@ -134,13 +197,11 @@ def profile_runs(engine, queries) -> None:
             # host event carries its kernels' time again.
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = ev.self_cuda_time_total
+            us = _device_us(ev)
             if us > 0:
                 by_kernel[ev.key] = (us / 1e3, ev.count)
         dev_ms = sum(ms for ms, _ in by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
         print(f"  ({key}) profiled wall {wall_ms:.3f} ms, device busy "
               f"{dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}%)")
         for name, (ms, n) in top:
@@ -151,6 +212,14 @@ def profile_runs(engine, queries) -> None:
         engine.obs.tracer.clear()
         print(f"  ({key}) span stages (s): " + json.dumps(
             {k: round(v, 6) for k, v in res.timings.items()}))
+
+
+def bound(nbytes: float, ops: float, ops_rate: float):
+    """(bound ms, what bounds it): the larger of bytes over HBM bandwidth
+    and operations over their peak rate."""
+    t_ops, t_bytes = ops / ops_rate, nbytes / HBM_BW
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def main() -> int:
@@ -164,19 +233,37 @@ def main() -> int:
     from repro_torch.convert import swar_words_from_numpy
     from repro_torch.core import encoding
     from repro_torch.kernels import _build
+    from repro_torch.kernels import bitwise as kbw
+    from repro_torch.kernels import filter_qgram as kfq
     from repro_torch.kernels import match_mxu as kmx
     from repro_torch.kernels import match_swar as ksw
-    from repro_torch.match import MatchEngine, MatchQuery, PackedCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import popcount as kpc
+    from repro_torch.kernels.ref import as_u32, popcount_words
+    from repro_torch.match import (MatchEngine, MatchQuery, PackedCorpus,
+                                   PatternBank)
     from repro_torch.match.corpus import one_hot_flat
     from repro_torch.match.engine import _valid_mask
+    from repro_torch.match.index import signature_words
 
     dev = torch.device("cuda")
     wrappers = {"match_swar": ksw.match_swar,
                 "match_swar_masks": ksw.match_swar_masks,
-                "match_mxu": kmx.match_mxu}
+                "match_mxu": kmx.match_mxu,
+                "filter_qgram": kfq.filter_qgram,
+                "bank_prefilter": kfq.bank_prefilter,
+                "popcount": kpc.popcount,
+                "bitwise": kbw.bitwise}
     plains = {"match_swar": ksw.match_swar_plain,
               "match_swar_masks": ksw.match_swar_masks_plain,
               "match_mxu": kmx.match_mxu_plain}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.n_launches = 0
+
+    def read_counts():
+        return {n: w.n_launches for n, w in wrappers.items()}
 
     # -- 1. environment ---------------------------------------------------
     with Phase("phase 1: environment"):
@@ -191,8 +278,8 @@ def main() -> int:
 
     # -- 2. build ---------------------------------------------------------
     with Phase("phase 2: build (nvcc, sm_90a)"):
-        _build.build(["match_swar", "match_mxu"])
-        for name in ("match_swar", "match_mxu"):
+        _build.build(BUILD)
+        for name in BUILD:
             for line in _build.build_log(name).splitlines():
                 if "Used" in line or "spill" in line or "entry" in line:
                     print(f"  {name}: {line.strip()}")
@@ -201,6 +288,9 @@ def main() -> int:
     def words(a):
         return swar_words_from_numpy(a, dev)
 
+    def u32(rng, shape):
+        return rng.integers(0, 2**32, shape, dtype=np.uint32)
+
     with Phase("phase 3: kernels vs plain versions, edge shapes"):
         rng = np.random.default_rng(SEED)
         # sh == 0 only; P % 16 != 0; Wp 1-3; R exactly 8; P = 100; P > 256.
@@ -208,11 +298,10 @@ def main() -> int:
                         (24, 100, 50), (8, 300, 20), (64, 100, 401)]:
             wp = -(-P // 16)
             W = (L - 1) // 16 + wp + 2
-            ref = words(rng.integers(0, 2**32, (R, W), dtype=np.uint32))
+            ref = words(u32(rng, (R, W)))
             val = words(_valid_mask(P, wp))
             for name, planes in (("match_swar", 1), ("match_swar_masks", 4)):
-                pat = words(rng.integers(0, 2**32, (R, planes * wp),
-                                         dtype=np.uint32))
+                pat = words(u32(rng, (R, planes * wp)))
                 for p in (pat, pat[:1].expand(R, -1)):
                     got = wrappers[name](ref, p, val, n_locs=L,
                                          pattern_chars=P)
@@ -237,10 +326,56 @@ def main() -> int:
             check(torch.equal(torch.round(got).to(torch.int32),
                               torch.round(want).to(torch.int32)),
                   f"match_mxu R={R} P={P} Q={Q}")
+        # filter_qgram: dense rows (few absent bits) beside random ones.
+        for wb in (1, 8, 16):
+            sigs = u32(rng, (128, wb))
+            sigs[64:] |= u32(rng, (64, wb)) | u32(rng, (64, wb))
+            ts, tq = words(sigs), words(u32(rng, (1, wb)))
+            for slack in (-1, 0, 3, wb * 32):
+                check(torch.equal(
+                    kfq.filter_qgram(ts, tq, slack=slack),
+                    kfq.filter_qgram_plain(ts, tq, slack=slack)),
+                    f"filter_qgram Wb={wb} slack={slack}")
+        # bank_prefilter: D of one doc, a few, and three shared-memory
+        # tiles; -1 pad rows; an all-zero doc; Wb beyond the register path.
+        for wb, D in ((8, 1), (8, 8), (8, 700), (40, 50)):
+            ps = words(u32(rng, (256, wb)) & u32(rng, (256, wb)))
+            docs = u32(rng, (D, wb)) | u32(rng, (D, wb))
+            if D > 1:
+                docs[D // 2] = 0
+            sl = rng.integers(-1, 30, (256, 1)).astype(np.int32)
+            sl[-64:] = -1
+            ds, tsl = words(docs), torch.from_numpy(sl).to(dev)
+            got = kfq.bank_prefilter(ps, ds, tsl)
+            check(torch.equal(got, kfq.bank_prefilter_plain(ps, ds, tsl))
+                  and int(got[-64:].sum()) == 0,
+                  f"bank_prefilter Wb={wb} D={D}")
+        for w in (1, 33):
+            x = words(u32(rng, (512, w)))
+            check(torch.equal(kpc.popcount(x), kpc.popcount_plain(x)),
+                  f"popcount W={w}")
+        a, b = words(u32(rng, (256, 37))), words(u32(rng, (256, 37)))
+        for op in kbw.OPS:
+            for x, y in ((a, b), (a.view(-1)[1:1 + 256 * 36].view(256, 36),
+                                  b.view(-1)[:256 * 36].view(256, 36))):
+                check(torch.equal(kbw.bitwise(op, x, y),
+                                  kbw.bitwise_plain(op, x, y)),
+                      f"bitwise {op}")
         torch.cuda.synchronize()
         print("  all edge shapes bit-identical")
 
     # -- 4. main path at chr1 scale ----------------------------------------
+    def drive(engine, q, reps=TIMED_RUNS):
+        cm = engine.compile(q)
+        cm.run()                                  # warm-up
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            res = cm.run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return res, times
+
     with Phase("phase 4: main path, chr1-sized reference"):
         t0 = time.perf_counter()
         rng = np.random.default_rng(SEED)
@@ -286,27 +421,19 @@ def main() -> int:
         qc = MatchQuery.exact(queries_c, mode="batched", reduction="topk",
                               k=10, backend="mxu")
         qd = MatchQuery.exact(read_a, reduction="best")
-
-        def drive(q):
-            cm = engine.compile(q)
-            cm.run()                                  # warm-up
-            times = []
-            for _ in range(TIMED_RUNS):
-                t = time.perf_counter()
-                res = cm.run()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t)
-            return res, times
+        qe = MatchQuery.exact(read_a, reduction="threshold", threshold=99,
+                              filter=True)
+        qf = dataclasses.replace(qe, filter=None)
+        qe_scan = dataclasses.replace(qe, filter=False)
 
         torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
-            w.n_launches = 0
+        zero_counts()
         results, timings = {}, {}
         for key, q in (("a", qa), ("b", qb), ("c", qc), ("d", qd)):
-            results[key], timings[key] = drive(q)
-        launches = {n: w.n_launches for n, w in wrappers.items()}
+            results[key], timings[key] = drive(engine, q)
+        launches = read_counts()
         peak_mem = torch.cuda.max_memory_allocated()
-        print(f"  launches on the main path: {launches}")
+        print(f"  launches on the (a)-(d) path: {launches}")
 
         ra, rb, rc, rd = (results[k] for k in "abcd")
         check(int(ra.best_scores[rows[0]]) == READ
@@ -318,40 +445,82 @@ def main() -> int:
         check((int(rows[1]), int(locs[1]), READ) in hits_b,
               "(b) planted IUPAC hit reported")
         check(rb.plan.predicate == "accept", "(b) ran the accept predicate")
+        print(f"  (b) strategy {rb.plan.strategy}: {rb.plan.reason}")
         check(np.array_equal(rc.topk_rows[0], rows[2:2 + N_BATCH])
               and np.array_equal(rc.topk_scores[0], READ - n_mism),
               "(c) every query's top row is its planted row")
         print(f"  (d) planner chose {rd.plan.backend}: {rd.plan.reason}")
         check(np.array_equal(rd.best_scores, ra.best_scores),
               "(d) agrees with (a)")
-        for name, n in launches.items():
-            check(n > 0, f"{name} launched on the main path")
+        for name in ("match_swar", "match_swar_masks", "match_mxu"):
+            check(launches[name] > 0, f"{name} launched on the main path")
+
+        # (e), (f): filter-then-verify through the q-gram index.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.index.signatures()
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t
+        print(f"  q-gram index built on the card in {index_s:.3f} s "
+              f"({engine.index.stats()})")
+        zero_counts()
+        for key, q in (("e", qe), ("f", qf)):
+            results[key], timings[key] = drive(engine, q)
+        launches_ef = read_counts()
+        print(f"  launches on the (e)-(f) path: {launches_ef}")
+        results["e_scan"], timings["e_scan"] = drive(engine, qe_scan)
+        re_, rf, rs = results["e"], results["f"], results["e_scan"]
+        check(re_.plan.strategy == "filter", "(e) ran filter-then-verify")
+        check(rs.plan.strategy == "scan", "(e) scanned with filter=False")
+        check(np.array_equal(re_.hits, rs.hits)
+              and np.array_equal(rf.hits, rs.hits),
+              "(e), (f) hits equal the scan's")
+        check((int(rows[0]), int(locs[0]), READ) in
+              {tuple(h) for h in re_.hits.tolist()},
+              "(e) planted hit reported")
+        check(int(rows[0]) in set(re_.survivor_rows.tolist()),
+              "(e) planted row survived the filter")
+        check(engine.index.sig_pack_count == 1, "(e) one signature pack")
+        check(launches_ef["filter_qgram"] > 0,
+              "filter_qgram launched on the (e)-(f) path")
+        print(f"  (e) survivors {len(re_.survivor_rows)} rows "
+              f"({re_.survivor_frac:.6f} of {n_rows}), "
+              f"{re_.hits.shape[0]} hits; (f) planner chose "
+              f"{rf.plan.strategy}: {rf.plan.reason}")
 
         main_path = {}
-        for key, q in (("a", qa), ("b", qb), ("c", qc), ("d", qd)):
+        for key, q in (("a", qa), ("b", qb), ("c", qc), ("d", qd),
+                       ("e", qe), ("f", qf), ("e_scan", qe_scan)):
             res, ts = results[key], timings[key]
             best = min(ts)
             main_path[key] = {
                 "backend": res.plan.backend, "predicate": res.plan.predicate,
+                "strategy": res.plan.strategy,
                 "reduction": q.reduction, "n_patterns": res.plan.n_patterns,
                 "chunk_rows": res.plan.chunk_rows, "n_chunks": res.n_chunks,
+                "survivor_frac": res.survivor_frac,
                 "ms": [t * 1e3 for t in ts], "best_ms": best * 1e3,
                 "rows_per_s": n_rows / best,
                 "row_patterns_per_s": n_rows * res.plan.n_patterns / best}
             print(f"  ({key}) {res.plan.backend}/{res.plan.predicate} "
-                  f"{q.reduction}: runs {[round(t * 1e3, 3) for t in ts]} "
-                  f"ms, {n_rows / best:.4g} rows/s, "
+                  f"{q.reduction} {res.plan.strategy}: runs "
+                  f"{[round(t * 1e3, 3) for t in ts]} ms, "
+                  f"{n_rows / best:.4g} rows/s, "
                   f"{res.n_chunks} chunks of {res.plan.chunk_rows}")
-        print(f"  peak device memory {peak_mem / 2**30:.3f} GiB")
+        main_path["index_build_s"] = index_s
+        print(f"  peak device memory over (a)-(d) {peak_mem / 2**30:.3f} GiB")
 
-        # (a) and (b) against the ref backend on the full corpus.
+        # (a) and (b) against the ref backend on the full corpus (the same
+        # strategy as the kernel run, so the best arrays cover the same
+        # rows).
         for key, q in (("a", qa), ("b", qb)):
-            qr = dataclasses.replace(q, backend="ref")
+            res = results[key]
+            qr = dataclasses.replace(
+                q, backend="ref", filter=(res.plan.strategy == "filter"))
             t = time.perf_counter()
             rr = engine.compile(qr).run()
             torch.cuda.synchronize()
             main_path[key]["ref_ms"] = (time.perf_counter() - t) * 1e3
-            res = results[key]
             check(np.array_equal(rr.best_locs, res.best_locs)
                   and np.array_equal(rr.best_scores, res.best_scores),
                   f"({key}) best arrays equal the ref backend's")
@@ -362,9 +531,133 @@ def main() -> int:
               "rows")
         print("main_path " + json.dumps(main_path))
 
-    # -- 5. kernels at the main path's shapes -------------------------------
-    with Phase("phase 5: kernels at the main path's shapes"):
+    # -- 4b. standing bank ----------------------------------------------------
+    with Phase("phase 4b: standing bank, 4,096 patterns x 256-doc batches"):
+        t0 = time.perf_counter()
+        brng = np.random.default_rng(SEED + 1)
+        starts = rng.integers(0, CHR1_BP - READ, BANK_PATTERNS)
+        bank_pats = np.stack([ref[s:s + READ] for s in starts])
+        thresholds = np.where(np.arange(BANK_PATTERNS) % 4 == 3, READ - 1,
+                              READ)
+        bank = PatternBank(FRAG, READ)
+        pids = np.array([bank.register(p, threshold=float(t))
+                         for p, t in zip(bank_pats, thresholds)])
+        batches, planted = [], []
+        for _ in range(BANK_BATCHES):
+            docs = brng.integers(0, 4, (BANK_DOCS, FRAG), np.uint8)
+            d_sel = brng.choice(BANK_DOCS, BANK_PLANTED, replace=False)
+            p_sel = brng.choice(BANK_PATTERNS, BANK_PLANTED, replace=False)
+            l_sel = brng.integers(0, FRAG - READ + 1, BANK_PLANTED)
+            for d, p, lo in zip(d_sel, p_sel, l_sel):
+                docs[d, lo:lo + READ] = bank_pats[p]
+            batches.append(docs)
+            planted.append({(int(d), int(lo), int(pids[p]), READ)
+                            for d, p, lo in zip(d_sel, p_sel, l_sel)})
+        print(f"  {bank.n_live} patterns registered, "
+              f"{BANK_BATCHES} batches made "
+              f"(set-up {time.perf_counter() - t0:.1f} s)")
+        for docs in batches[:1]:                  # warm-up, both modes
+            for mode in (True, False):
+                bank.filter = mode
+                bank.scan(docs)
+        torch.cuda.synchronize()
+        n0_scans, n0_bank = bank.n_scans, bank.n_bank_launches
+        zero_counts()
+        tickets = {True: [], False: []}
+        bank_ms = {True: [], False: []}
+        verify_peak = 0
+        for docs in batches:
+            for mode in (True, False):
+                bank.filter = mode
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t = time.perf_counter()
+                tk = bank.scan(docs)
+                torch.cuda.synchronize()
+                bank_ms[mode].append((time.perf_counter() - t) * 1e3)
+                if not mode:
+                    verify_peak = max(verify_peak,
+                                      torch.cuda.max_memory_allocated()
+                                      - base)
+                tickets[mode].append(tk)
+        launches_bank = read_counts()
+        n_scans = bank.n_scans - n0_scans
+        print(f"  launches on the bank path: {launches_bank}")
+        check(bank.n_bank_launches - n0_bank == n_scans
+              == 2 * BANK_BATCHES, "one verify launch per scan")
+        check(launches_bank["bank_prefilter"] == BANK_BATCHES,
+              "bank_prefilter launched once per filtered scan")
+        check(launches_bank["match_swar_masks"] == n_scans,
+              "one match_swar_masks launch per scan")
+        for i, docs in enumerate(batches):
+            tf, ts = tickets[True][i], tickets[False][i]
+            check(np.array_equal(tf.hits, ts.hits),
+                  f"bank batch {i}: filtered hits equal the full scan's")
+            check(planted[i] <= {tuple(h) for h in tf.hits.tolist()},
+                  f"bank batch {i}: every planted hit found")
+        # Per pattern, the bank's hits equal an ad-hoc threshold query
+        # over the batch (index-free engine), on a sample that includes
+        # planted patterns.
+        docs, tk = batches[0], tickets[True][0]
+        adhoc = MatchEngine(docs, index=False)
+        sample = sorted({h[2] for h in planted[0]})[:BANK_SAMPLE // 2]
+        sample += [int(p) for p in brng.choice(pids, BANK_SAMPLE // 2,
+                                                replace=False)]
+        for pid in sample:
+            want = adhoc.match(bank.pattern(pid).query).hits
+            mine = tk.hits[tk.hits[:, 2] == pid][:, [0, 1, 3]]
+            check(np.array_equal(mine, want),
+                  f"bank pattern {pid} equals its ad-hoc query")
+        surv = [t.survivor_frac for t in tickets[True]]
+        bank_info = {
+            "n_patterns": bank.n_live, "n_docs": BANK_DOCS,
+            "filter_ms": bank_ms[True], "scan_ms": bank_ms[False],
+            "survivor_frac": surv,
+            "n_hits": [int(t.hits.shape[0]) for t in tickets[True]],
+            "verify_peak_bytes": verify_peak,
+            "plan": tickets[True][0].plan.reason}
+        print(f"  filtered scans {[round(m, 3) for m in bank_ms[True]]} ms, "
+              f"full scans {[round(m, 3) for m in bank_ms[False]]} ms; "
+              f"survivor fractions {[round(f, 4) for f in surv]}; "
+              f"verify peak {verify_peak / 2**30:.3f} GiB above the "
+              f"resident forms; {len(sample)} sampled patterns equal "
+              "their ad-hoc queries")
+        print("bank " + json.dumps(bank_info))
+
+    # -- 4c. bulk ops ---------------------------------------------------------
+    with Phase("phase 4c: bulk popcount and XOR"):
+        swar = corpus.swar_words(1)
+        n_xor = XOR_BYTES // 4 // 256
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        xa, xb = (torch.randint(-2**31, 2**31, (n_xor, 256),
+                                dtype=torch.int32, device=dev,
+                                generator=gen) for _ in range(2))
+        zero_counts()
+        pc = ops.popcount(swar)
+        xo = ops.bitwise("XOR", xa, xb)
+        torch.cuda.synchronize()
+        launches_bulk = read_counts()
+        print(f"  launches on the bulk path: {launches_bulk}")
+        want_pc = popcount_words(as_u32(swar)).sum(-1).to(torch.int32)
+        check(torch.equal(pc, want_pc), "ops.popcount equals its plain "
+              f"version over the SWAR form {tuple(swar.shape)}")
+        check(torch.equal(xo, torch.bitwise_xor(xa, xb)),
+              f"ops.bitwise XOR equals torch.bitwise_xor on {n_xor} x 256")
+        check(launches_bulk["popcount"] == 1
+              and launches_bulk["bitwise"] == 1, "bulk kernels launched")
+        print(f"  popcount of {tuple(swar.shape)} words: "
+              f"{int(pc.sum())} bits set; XOR of two {XOR_BYTES >> 20} MiB "
+              "operands bit-identical")
+
+    # -- 5. kernels at their paths' shapes ----------------------------------
+    with Phase("phase 5: kernels at their paths' shapes"):
         kernels = []
+        l2 = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+        def flush():
+            l2.zero_()
         for name, key in (("match_swar", "a"), ("match_swar_masks", "b")):
             cm = engine.compile(qa if key == "a" else qb)
             plan = cm.plan
@@ -383,19 +676,20 @@ def main() -> int:
                   "rows")
             R = plan.chunk_rows           # the main path's launch shape
             a = args(R)
-            ms = cuda_ms(lambda: kern(*a, **kw), 20)
+            ms = device_ms(lambda: kern(*a, **kw), 20, flush)
+            event_ms = cuda_ms(lambda: kern(*a, **kw), 20)
             plain_ms = cuda_ms(lambda: plain(*a, **kw), 2)
             W = base.shape[1]
             n_planes = pat_rows.shape[1]
-            words = R * plan.n_locs * plan.wp
+            n_words = R * plan.n_locs * plan.wp
             nbytes = (R * W * 4 + n_planes * 4 + plan.wp * 4
                       + R * plan.n_locs * 4)
-            t_ops = max(words * SWAR_INT_OPS_PER_WORD[name] / PEAK_INT32,
-                        words / PEAK_POPC)
+            t_ops = max(n_words * SWAR_INT_OPS_PER_WORD[name] / PEAK_INT32,
+                        n_words / PEAK_POPC)
             t_bytes = nbytes / HBM_BW
             kernels.append(dict(
-                name=name, rows=R, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_ops, t_bytes) * 1e3,
+                name=name, rows=R, ms=ms, event_ms=event_ms,
+                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None, max_abs_err=err))
 
@@ -414,7 +708,10 @@ def main() -> int:
         check(err == 0, f"match_mxu equals its plain version on "
               f"{SUBSET_ROWS} rows")
         chunk = base[:R]
-        ms = cuda_ms(lambda: kmx.match_mxu(chunk, pat, l_pad=plan.l_pad), 10)
+        ms = device_ms(lambda: kmx.match_mxu(chunk, pat, l_pad=plan.l_pad),
+                       10, flush)
+        event_ms = cuda_ms(lambda: kmx.match_mxu(chunk, pat,
+                                                 l_pad=plan.l_pad), 10)
         plain_ms = cuda_ms(
             lambda: kmx.match_mxu_plain(chunk, pat, l_pad=plan.l_pad), 2)
         # Library yardstick (never used by the port): cuDNN conv1d of the
@@ -430,36 +727,143 @@ def main() -> int:
         check(torch.equal(
             torch.round(conv[:, :, :plan.l_pad].float()).permute(0, 2, 1),
             torch.round(out)), "conv1d yardstick agrees with match_mxu")
-        library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(x, w), 10)
+        library_ms = device_ms(lambda: torch.nn.functional.conv1d(x, w), 10,
+                               flush)
         F4, P4, Q = chunk.shape[1], pat.shape[0], pat.shape[1]
         flops = R * plan.l_pad * P4 * 2 * Q
         nbytes = R * F4 * 2 + P4 * Q * 2 + R * plan.l_pad * Q * 4
-        t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BW
+        bms, bby = bound(nbytes, flops, PEAK_BF16)
         kernels.append(dict(
-            name="match_mxu", rows=R, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            name="match_mxu", rows=R, ms=ms, event_ms=event_ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
             library_ms=library_ms, max_abs_err=err))
-        for k in kernels:
-            print(f"  {k['name']}: {k['rows']} rows, kernel {k['ms']:.4f} ms,"
-                  f" plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} "
-                  f"ms ({k['bound_by']}), library {k['library_ms']}")
 
-    with Phase("phase 6: profile of one run of (a) and (c)"):
-        profile_runs(engine, {"a": qa, "c": qc})
+        # filter_qgram at (e)'s launch: every live row's signature.
+        cm = engine.compile(qe)
+        sigs = engine.index.signatures()
+        tile = kfq.FILTER_ROW_TILE
+        rows_f = sigs[:-(-n_rows // tile) * tile]
+        qsig, slack = cm._filter_dev[0:1], cm._filter_ops.slacks[0]
+        got = kfq.filter_qgram(rows_f, qsig, slack=slack)
+        want = kfq.filter_qgram_plain(rows_f, qsig, slack=slack)
+        err = int((got - want).abs().max())
+        check(err == 0, f"filter_qgram equals its plain version on "
+              f"{rows_f.shape[0]} rows")
+        ms = device_ms(lambda: kfq.filter_qgram(rows_f, qsig, slack=slack),
+                       50, flush)
+        event_ms = cuda_ms(lambda: kfq.filter_qgram(rows_f, qsig,
+                                                    slack=slack), 50)
+        plain_ms = cuda_ms(lambda: kfq.filter_qgram_plain(rows_f, qsig,
+                                                          slack=slack), 3)
+        Rf, Wb = rows_f.shape
+        # Per word: one and-not (INT32 issue) and one popcount.
+        t_ops = max(Rf * Wb / PEAK_POPC, 2 * Rf * Wb / PEAK_INT32)
+        nbytes = Rf * Wb * 4 + Wb * 4 + Rf * 4
+        kernels.append(dict(
+            name="filter_qgram", rows=Rf, ms=ms, event_ms=event_ms,
+            plain_ms=plain_ms,
+            bound_ms=max(t_ops, nbytes / HBM_BW) * 1e3,
+            bound_by="operations" if t_ops >= nbytes / HBM_BW else "bytes",
+            library_ms=None, max_abs_err=err))
+
+        # bank_prefilter at the bank's launch: all pattern slots against
+        # one batch's doc signatures.  Its work depends on the data: a
+        # pattern stops at its first admitting doc, and slack -1 rows test
+        # none, so the bound counts the (pattern, doc) tests this batch
+        # needs.
+        psigs, pslacks = bank.filter_operands()
+        dsigs, _ = signature_words(
+            torch.from_numpy(batches[0]).to(dev), bank.q, bank.n_bits)
+        got = kfq.bank_prefilter(psigs, dsigs, pslacks)
+        want = kfq.bank_prefilter_plain(psigs, dsigs, pslacks)
+        err = int((got - want).abs().max())
+        check(err == 0, "bank_prefilter equals its plain version")
+        ms = device_ms(lambda: kfq.bank_prefilter(psigs, dsigs, pslacks),
+                       50, flush)
+        event_ms = cuda_ms(lambda: kfq.bank_prefilter(psigs, dsigs,
+                                                      pslacks), 50)
+        plain_ms = cuda_ms(
+            lambda: kfq.bank_prefilter_plain(psigs, dsigs, pslacks), 3)
+        absent = popcount_words(as_u32(psigs)[:, None, :]
+                                & ~as_u32(dsigs)[None]).sum(-1)
+        fits = absent <= pslacks.to(torch.int64)
+        D = dsigs.shape[0]
+        tested = torch.where(fits.any(1), fits.int().argmax(1) + 1, D)
+        tested = torch.where(pslacks[:, 0] < 0, 0, tested)
+        n_tests = int(tested.sum())
+        Qb, Wb = psigs.shape
+        t_ops = max(n_tests * Wb / PEAK_POPC, 2 * n_tests * Wb / PEAK_INT32)
+        nbytes = (Qb + D) * Wb * 4 + Qb * 8
+        kernels.append(dict(
+            name="bank_prefilter", rows=Qb, ms=ms, event_ms=event_ms,
+            plain_ms=plain_ms,
+            bound_ms=max(t_ops, nbytes / HBM_BW) * 1e3,
+            bound_by="operations" if t_ops >= nbytes / HBM_BW else "bytes",
+            library_ms=None, max_abs_err=err, pair_tests=n_tests))
+
+        # popcount at the bulk path's launch: the padded SWAR form.
+        pcin = swar if swar.shape[0] % kpc.N_TILE == 0 else torch.cat(
+            [swar, swar.new_zeros((-swar.shape[0] % kpc.N_TILE,
+                                   swar.shape[1]))])
+        got = kpc.popcount(pcin)
+        err = int((got - kpc.popcount_plain(pcin)).abs().max())
+        check(err == 0, "popcount equals its plain version")
+        ms = device_ms(lambda: kpc.popcount(pcin), 50, flush)
+        event_ms = cuda_ms(lambda: kpc.popcount(pcin), 50)
+        plain_ms = cuda_ms(lambda: kpc.popcount_plain(pcin), 3)
+        Np, Wp_ = pcin.shape
+        bms, bby = bound(Np * Wp_ * 4 + Np * 4, Np * Wp_, PEAK_POPC)
+        kernels.append(dict(
+            name="popcount", rows=Np, ms=ms, event_ms=event_ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
+            max_abs_err=err))
+
+        # bitwise at the bulk path's launch: XOR of the 256 MiB pair.
+        got = kbw.bitwise("XOR", xa, xb)
+        err = int((got != kbw.bitwise_plain("XOR", xa, xb)).sum())
+        check(err == 0, "bitwise equals its plain version")
+        ms = device_ms(lambda: kbw.bitwise("XOR", xa, xb), 20, flush)
+        event_ms = cuda_ms(lambda: kbw.bitwise("XOR", xa, xb), 20)
+        plain_ms = cuda_ms(lambda: kbw.bitwise_plain("XOR", xa, xb), 20)
+        library_ms = device_ms(lambda: torch.bitwise_xor(xa, xb), 20, flush)
+        bms, bby = bound(3 * xa.numel() * 4, xa.numel(), PEAK_INT32)
+        kernels.append(dict(
+            name="bitwise", rows=xa.shape[0], ms=ms, event_ms=event_ms,
+            plain_ms=plain_ms,
+            bound_ms=bms, bound_by=bby, library_ms=library_ms,
+            max_abs_err=err))
+        for k in kernels:
+            print(f"  {k['name']}: {k['rows']} rows, kernel {k['ms']:.4f} ms "
+                  f"on the device ({k['event_ms']:.4f} ms per call by "
+                  f"events), plain {k['plain_ms']:.4f} ms, bound "
+                  f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "
+                  f"{k['library_ms']}")
+
+    with Phase("phase 6: profile of one run of (a), (c) and (e)"):
+        profile_runs(engine, {"a": qa, "c": qc, "e": qe})
 
     # -- 7. summary ---------------------------------------------------------
+    # Each kernel's launches come from its own path's run.
+    path_launches = dict(launches)
+    path_launches["filter_qgram"] = launches_ef["filter_qgram"]
+    path_launches["bank_prefilter"] = launches_bank["bank_prefilter"]
+    path_launches["popcount"] = launches_bulk["popcount"]
+    path_launches["bitwise"] = launches_bulk["bitwise"]
     rows_out = []
     for k in kernels:
         src, replaces = SOURCES[k["name"]]
+        n = path_launches[k["name"]]
+        check(n > 0, f"{k['name']} launched on its path")
         rows_out.append({
             "name": k["name"], "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[k["name"]],
+            "replaces": replaces, "launches": n,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-            "shape_rows": k["rows"], "n_launches": launches[k["name"]],
+            "event_ms": k["event_ms"],
+            "shape_rows": k["rows"], "n_launches": n,
             "matches_plain": k["max_abs_err"] == 0})
+    check(len(rows_out) == len(SOURCES), "every kernel measured")
     print("kernels " + json.dumps([
         {"name": r["name"], "n_launches": r["n_launches"],
          "matches_plain": r["matches_plain"]} for r in rows_out]))

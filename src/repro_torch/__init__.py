@@ -9,9 +9,11 @@ kernel of the ported path is a hand-written CUDA C++ kernel for Hopper
 (``kernels/csrc``), built with ``nvcc`` at first use and bound with
 ``ctypes`` (``kernels/_build.py``).
 
-Ported so far: the match engine on one device without the q-gram index
-(``MatchEngine(..., index=False)``) and its three match kernels
-``match_swar``, ``match_swar_masks`` and ``match_mxu``.
+Ported so far, on one device: the match engine with its q-gram filter
+index (``MatchEngine``, ``CorpusIndex``), the standing-query
+``PatternBank``, and all seven kernels of the JAX package -- ``match_swar``,
+``match_swar_masks``, ``match_mxu``, ``filter_qgram``, ``bank_prefilter``,
+``popcount`` and ``bitwise``.
 """
 
 from .device import resolve_device

@@ -1,15 +1,21 @@
-"""Hand-written Hopper kernels of the match path, with their plain versions.
+"""Hand-written Hopper kernels of the port, with their plain versions.
 
-* ``match_swar``  -- SWAR sliding match, exact (``match_swar``) and
+* ``match_swar``   -- SWAR sliding match, exact (``match_swar``) and
   accept-set (``match_swar_masks``); CUDA C++ in ``csrc/match_swar.cu``.
-* ``match_mxu``   -- one-hot correlation on the tensor cores (WMMA);
+* ``match_mxu``    -- one-hot correlation on the tensor cores (WMMA);
   CUDA C++ in ``csrc/match_mxu.cu``.
+* ``filter_qgram`` -- q-gram signature filters: the corpus filter
+  (``filter_qgram``) and the standing bank's prefilter
+  (``bank_prefilter``); CUDA C++ in ``csrc/filter_qgram.cu``.
+* ``popcount`` / ``bitwise`` -- bulk per-row popcount and bulk bitwise
+  ops; CUDA C++ in ``csrc/popcount.cu`` and ``csrc/bitwise.cu``.
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel (or raises) for a CUDA tensor; ``<wrapper>.n_launches``
 counts kernel launches.  ``_build`` compiles ``csrc/`` with nvcc at first
 use.  ``ref`` holds the plain-torch oracles that the planner's ``ref``
-backend runs; ``ops`` keeps the one-shot ``match_scores`` shim.  The
-module names mirror ``repro.kernels`` (so ``match_swar`` here is the
-module, as there).
+backend runs and the shared ``popcount_words`` helper; ``ops`` keeps the
+one-shot ``match_scores`` shim and the padded bulk ``popcount`` /
+``bitwise`` entry points.  The module names mirror ``repro.kernels`` (so
+``match_swar`` here is the module, as there).
 """

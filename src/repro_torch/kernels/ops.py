@@ -1,19 +1,31 @@
-"""One-shot ``match_scores`` shim over the match engine (port of the
-``match_scores`` half of ``repro.kernels.ops``).
+"""Thin wrappers over the match engine and the bulk kernels (port of
+``repro.kernels.ops``).
 
-Kept for callers that match once against a throwaway fragment set; all
-packing, padding and kernel selection live in ``repro_torch.match``.
-Long-lived callers hold a ``MatchEngine`` so the corpus stays resident.
-The bulk ``popcount`` / ``bitwise`` wrappers wait for their kernels.
+``match_scores`` is a one-shot shim for callers that match once against a
+throwaway fragment set; all packing, padding and kernel selection live in
+``repro_torch.match``.  Long-lived callers hold a ``MatchEngine`` so the
+corpus stays resident.
+
+``popcount`` and ``bitwise`` are direct kernel wrappers: they pad rows
+to the kernels' ``N_TILE`` and slice back, as the JAX ops do.  Their
+operands are uint32 words: a numpy uint32 array (uploaded to ``device``,
+``None`` meaning the card) or an int32 tensor carrying the bits, which
+stays on its own device.  Results are int32 tensors on that device.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
+import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
+
+from . import bitwise as _bitwise
+from . import popcount as _popcount
+
+Words = Union[np.ndarray, torch.Tensor]
 
 
 def match_scores(fragments: np.ndarray, patterns, *,
@@ -32,3 +44,39 @@ def match_scores(fragments: np.ndarray, patterns, *,
     kw = {} if backend is None else {"backend": backend}
     return eng.scores(patterns if hasattr(patterns, "masks_b")
                       else np.asarray(patterns, np.uint8), **kw)
+
+
+def _words(x: Words, device: DeviceLike) -> torch.Tensor:
+    """uint32 words -> contiguous int32 bit-carrier tensor."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.int32:
+            raise ValueError(f"word tensors carry uint32 bits in int32, got "
+                             f"{x.dtype}")
+        return x.contiguous()
+    a = np.ascontiguousarray(np.asarray(x, np.uint32))
+    return torch.from_numpy(a.view(np.int32)).to(resolve_device(device))
+
+
+def _pad_rows(x: torch.Tensor, mult: int) -> torch.Tensor:
+    r = (-x.shape[0]) % mult
+    if r:
+        x = torch.cat([x, x.new_zeros((r,) + tuple(x.shape[1:]))], 0)
+    return x
+
+
+def popcount(words: Words, *, device: DeviceLike = None) -> torch.Tensor:
+    """(N, W) uint32 words -> (N,) int32 per-row bit counts."""
+    w = _words(words, device)
+    n = w.shape[0]
+    return _popcount.popcount(_pad_rows(w, _popcount.N_TILE))[:n, 0]
+
+
+def bitwise(op: str, a: Words, b: Optional[Words] = None, *,
+            device: DeviceLike = None) -> torch.Tensor:
+    """Bulk bitwise op over (N, W) uint32 operands -> (N, W) int32 bits."""
+    at = _words(a, device)
+    n = at.shape[0]
+    ap = _pad_rows(at, _bitwise.N_TILE)
+    bp = None if b is None else _pad_rows(_words(b, at.device),
+                                          _bitwise.N_TILE)
+    return _bitwise.bitwise(op, ap, bp)[:n]

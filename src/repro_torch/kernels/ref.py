@@ -28,6 +28,19 @@ def as_u32(words: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int64) & U32
 
 
+def popcount_words(v: torch.Tensor) -> torch.Tensor:
+    """Branch-free SWAR popcount per word (the JAX ``popcount_words``).
+
+    ``v`` holds unsigned words in int64 (``as_u32``); the counts come back
+    as int64.  The plain versions of the filter and popcount kernels use
+    it.
+    """
+    v = v - ((v >> 1) & M1)
+    v = (v & M2) + ((v >> 2) & M2)
+    v = (v + (v >> 4)) & M4
+    return ((v * MUL) & U32) >> 24
+
+
 def match_scores_ref(fragments: torch.Tensor,
                      patterns: torch.Tensor) -> torch.Tensor:
     """Character-level sliding similarity scores (Algorithm 1 semantics).

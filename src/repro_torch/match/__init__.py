@@ -8,10 +8,15 @@
   priced against the H100, plus all tile/pad geometry for one query.
 * ``MatchEngine`` / ``CompiledMatch`` / ``MatchResult`` -- query compiler
   over a streaming executor with fused best / top-k / threshold
-  reductions per row chunk.
+  reductions per row chunk, and filter-then-verify for selective
+  threshold queries.
+* ``CorpusIndex`` -- device-resident q-gram row signatures (the filter
+  stage's operand), attached to an engine by default.
+* ``PatternBank`` / ``HitTicket`` / ``StandingPattern`` -- standing
+  queries: thousands of resident patterns scanned against each document
+  batch in one verify launch, behind a pattern-side prefilter.
 
-Later slices add ``CorpusIndex``, ``MatchService``, ``PatternBank`` and
-calibration.
+Later slices add ``MatchService`` and calibration.
 """
 
 from repro_torch.obs import MetricsRegistry, Observability, Tracer
@@ -19,10 +24,14 @@ from repro_torch.obs import MetricsRegistry, Observability, Tracer
 from .corpus import PackedCorpus
 from .engine import CompiledMatch, MatchEngine, MatchResult
 from .feedback import EwmaRatio, FeedbackStore, kernel_key
-from .planner import Plan, Planner
+from .index import CorpusIndex, FilterOperands, build_query_filter
+from .planner import BankPlan, FilterContext, Plan, Planner
 from .query import MatchQuery, as_masks, as_query
+from .standing import HitTicket, PatternBank, StandingPattern
 
-__all__ = ["PackedCorpus", "Planner", "Plan", "MatchQuery", "as_query",
-           "as_masks", "CompiledMatch", "MatchEngine", "MatchResult",
-           "EwmaRatio", "FeedbackStore", "kernel_key", "Observability",
-           "Tracer", "MetricsRegistry"]
+__all__ = ["PackedCorpus", "Planner", "Plan", "FilterContext", "BankPlan",
+           "MatchQuery", "as_query", "as_masks", "CompiledMatch",
+           "MatchEngine", "MatchResult", "CorpusIndex", "FilterOperands",
+           "build_query_filter", "PatternBank", "HitTicket",
+           "StandingPattern", "EwmaRatio", "FeedbackStore", "kernel_key",
+           "Observability", "Tracer", "MetricsRegistry"]

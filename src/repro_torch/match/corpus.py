@@ -23,9 +23,12 @@ dead without moving anything (the engine masks them out), and
 ``compact`` shifts the live tail down and rewrites only the moved rows.
 ``generation`` bumps on every content mutation.
 
-Single device: the mesh layout (``shard_rows``), per-host packing and the
-q-gram index observer hooks of the JAX corpus arrive with the multi-GPU
-and index slices.
+Derived forms (the q-gram ``CorpusIndex``) attach as observers
+(``attach_index``) and ride the same mutation events: row splices,
+capacity growth and ``invalidate``.
+
+Single device: the mesh layout (``shard_rows``) and per-host packing of
+the JAX corpus arrive with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -117,6 +120,9 @@ class PackedCorpus:
         self._dead = np.zeros(self.capacity, bool)
         self.n_dead = 0
         self.n_compactions = 0
+        # Derived-form observers (CorpusIndex), notified on every row
+        # splice, capacity growth and invalidate.
+        self._indexes: list = []
 
     # -- geometry ------------------------------------------------------------
     @property
@@ -160,6 +166,23 @@ class PackedCorpus:
         m = self._dead[:self._n_rows]
         m.flags.writeable = False
         return m
+
+    def attach_index(self, index) -> None:
+        """Register a derived-form observer (see ``match.index``).
+
+        The observer must expose ``_on_rows_written(start, rows)``,
+        ``_on_capacity()`` and ``_on_invalidate()``.
+        """
+        self._indexes.append(index)
+
+    def detach_index(self, index) -> None:
+        """Stop notifying (and so stop updating) an attached observer.
+
+        An abandoned index otherwise keeps re-deriving signatures on every
+        row splice and pins its device form; detaching one that is not
+        attached is a no-op.
+        """
+        self._indexes = [ix for ix in self._indexes if ix is not index]
 
     @classmethod
     def from_reference(cls, ref_codes: np.ndarray, fragment_len: int,
@@ -263,6 +286,8 @@ class PackedCorpus:
             self._swar = self._grow_rows(self._swar, c_pad)
         if self._onehot is not None and self._onehot.shape[0] < c_pad:
             self._onehot = self._grow_rows(self._onehot, c_pad)
+        for ix in self._indexes:
+            ix._on_capacity()
 
     def append_rows(self, rows: np.ndarray) -> int:
         """Append live rows in place; returns the first new row's index.
@@ -314,6 +339,8 @@ class PackedCorpus:
             if self._onehot is not None:
                 self._onehot[start:start + n] = one_hot_flat(
                     codes, self._onehot.shape[1])
+            for ix in self._indexes:
+                ix._on_rows_written(start, rows)
             self.row_update_count += n
         self.obs.metrics.counter("corpus.splice_rows").inc(rows.shape[0])
 
@@ -393,4 +420,6 @@ class PackedCorpus:
         """Drop cached device forms (next query repacks)."""
         self._swar = None
         self._onehot = None
+        for ix in self._indexes:
+            ix._on_invalidate()
         self.generation += 1

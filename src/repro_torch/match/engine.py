@@ -20,10 +20,17 @@ tensor-core kernel; accept-set queries (IUPAC, N wildcards, character
 classes) ride the bit-plane SWAR kernel or a multi-hot pattern matrix --
 the same resident corpus forms either way.
 
+Filter-then-verify: an engine attaches a q-gram ``CorpusIndex`` by
+default (``index=True``, as the JAX engine does).  A selective
+``threshold`` query can then run two-stage: ``filter_qgram`` scans the
+device-resident row signatures (one launch per pattern, the flags OR-ed
+on the device, one pull), and only the surviving rows verify through the
+row-gather path that serves ``rows=`` subsets -- ``hits`` are
+bit-identical to a full scan because the filter is conservative.
+
 Results keep the JAX package's layout: ``MatchResult`` fields are numpy
 arrays of the same dtypes, so the two packages compare like with like.
-This slice runs on one device without the q-gram index (the JAX
-engine's ``index=False`` configuration).
+Single device.
 """
 
 from __future__ import annotations
@@ -39,15 +46,18 @@ import torch
 from repro_torch.core import encoding
 from repro_torch.core.tech import CostSource
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import filter_qgram as _fq
 from repro_torch.kernels import match_mxu as _mxu
 from repro_torch.kernels import match_swar as _swar
 from repro_torch.kernels import ref as _kref
 from repro_torch.obs import Observability
 
+from . import index as _ix
 from .corpus import PackedCorpus
 from .feedback import kernel_key
+from .index import CorpusIndex, FilterOperands, build_query_filter
 from .merge import ShardMerger
-from .planner import Plan, Planner, kernel_name
+from .planner import FilterContext, Plan, Planner, kernel_name
 from .query import _UNSET, MatchQuery, as_query
 
 
@@ -63,9 +73,12 @@ class MatchResult:
     topk_scores: Optional[np.ndarray] = None
     hits: Optional[np.ndarray] = None     # (n, 3|4): row, loc[, q], score
     n_chunks: int = 0
-    # Filtered execution arrives with the q-gram index slice.
-    survivor_rows: Optional[np.ndarray] = None
-    survivor_frac: Optional[float] = None
+    # Filtered execution (plan.strategy == "filter"): the verify stage ran
+    # on these corpus rows only; per-row arrays (best_locs/best_scores)
+    # cover survivors in ascending corpus-row order, while ``hits`` stays
+    # bit-identical to a full scan.
+    survivor_rows: Optional[np.ndarray] = None  # (n_surv,) corpus row ids
+    survivor_frac: Optional[float] = None       # n_surv / live rows
     n_shards: int = 1
     merge_path: str = "host"
     collective_bytes: int = 0
@@ -135,7 +148,8 @@ class CompiledMatch:
 
     __slots__ = ("engine", "query", "plan", "_packed", "_pats2d", "_sel",
                  "_idx", "_pad_idx", "_k_eff", "_k_vec", "_thr_vec",
-                 "_empty", "_mode", "_lowered", "_fb_version", "_sel_max")
+                 "_empty", "_mode", "_lowered", "_filter_ops",
+                 "_filter_dev", "_fb_version", "_sel_max")
 
     def __init__(self, engine: "MatchEngine", query: MatchQuery):
         self.engine = engine
@@ -148,6 +162,8 @@ class CompiledMatch:
         self._packed = self._pats2d = self._idx = self._pad_idx = None
         self._sel_max = -1
         self._k_eff, self._k_vec, self._thr_vec = 0, None, None
+        self._filter_ops: Optional[FilterOperands] = None
+        self._filter_dev: Optional[torch.Tensor] = None
         self._lowered = False
         self._fb_version = engine.planner.feedback.version
         if self._empty:
@@ -181,7 +197,13 @@ class CompiledMatch:
     def _lower(self, n_rows: int) -> None:
         """Plan + pack against ``n_rows`` corpus rows (pinned mode)."""
         engine, query = self.engine, self.query
-        self.plan = engine._plan_query(query, n_rows, mode=self._mode)
+        # Filter operands depend on the query content and the index
+        # parameters only: built once, they survive growth and strategy
+        # changes; the plan decides whether run() uses them.
+        ctx, self._filter_ops = engine._filter_context(
+            query, self._mode, ops=self._filter_ops)
+        self.plan = engine._plan_query(query, n_rows, mode=self._mode,
+                                       filter_ctx=ctx)
         self._fb_version = engine.planner.feedback.version
         plan = self.plan
 
@@ -229,9 +251,16 @@ class CompiledMatch:
         self._lowered = True
 
     def _revalidate(self, n_rows: int) -> None:
-        """Refresh plan geometry for a corpus whose live row count moved."""
+        """Refresh plan geometry for a corpus whose live row count moved.
+
+        The filter strategy is re-decided too (scale and measured
+        selectivity move the two-stage trade-off); the cached filter
+        operands are passed back so only the survivor estimate refreshes.
+        """
+        ctx, self._filter_ops = self.engine._filter_context(
+            self.query, self._mode, ops=self._filter_ops)
         new_plan = self.engine._plan_query(self.query, n_rows,
-                                           mode=self._mode)
+                                           mode=self._mode, filter_ctx=ctx)
         self._fb_version = self.engine.planner.feedback.version
         if new_plan.backend != self.plan.backend:
             self._lower(n_rows)
@@ -241,6 +270,11 @@ class CompiledMatch:
     # -- execution ------------------------------------------------------------
     def run(self) -> MatchResult:
         """Execute against the engine's current corpus contents.
+
+        A ``plan.strategy == "filter"`` query runs two stages: the q-gram
+        filter kernel prunes rows that provably cannot reach the
+        threshold, then the survivors verify through the row-gather path
+        of ``rows=`` subsets.
 
         With the engine's tracer enabled the whole execution runs under a
         ``match.run`` span (plan / pack / launch / merge / pull children)
@@ -272,6 +306,7 @@ class CompiledMatch:
         tr = engine.obs.tracer
         reduction = query.reduction
         sel = self._sel
+        survivor_frac = None
         # Tombstone mask: dead rows stay resident so the kernels run
         # unchanged; the reductions below mask them out on the host.
         dead_full = (engine.corpus.dead_mask if engine.corpus.n_dead
@@ -303,6 +338,46 @@ class CompiledMatch:
                     self._revalidate(R)
                 if tr.enabled:
                     self._note_plan(sp_plan)
+            if self.plan.strategy == "filter":
+                with tr.span("filter") as sp_fil:
+                    t0 = time.perf_counter()
+                    flags = engine._run_filter(self, R)
+                    t_fil = time.perf_counter() - t0
+                    sel = np.flatnonzero(flags).astype(np.int64)
+                    if dead_full is not None:
+                        # Tombstoned rows can pass the signature test but
+                        # must reach neither the verify stage nor the hits.
+                        sel = sel[~dead_full[sel]]
+                    survivor_frac = len(sel) / R
+                    if tr.enabled:
+                        sp_fil.set("survivor_frac", survivor_frac)
+                ops = self._filter_ops
+                engine.index.record_selectivity(
+                    engine.index.estimate_survivor_frac(
+                        ops.n_bits, ops.slacks, calibrated=False),
+                    survivor_frac)
+                # Plan-vs-actual: one record per executed filter stage,
+                # the same key and floats as the feedback observation.
+                p0 = self.plan
+                f_key = kernel_key("filter", p0.n_rows, p0.filter_words,
+                                   ops.qsig_words.shape[0])
+                engine.obs.record_plan_actual(
+                    f_key, p0.est_filter_base_seconds, t_fil)
+                if engine.record_runtimes:
+                    engine.planner.feedback.observe(
+                        f_key, p0.est_filter_base_seconds, t_fil)
+                if len(sel) == 0:
+                    res = engine._empty_result(query, self.plan)
+                    res.survivor_rows = sel
+                    res.survivor_frac = 0.0
+                    return res
+                R = len(sel)
+                R_pad = -(-R // engine.corpus.row_pad) * \
+                    engine.corpus.row_pad
+                pad_idx = np.zeros(R_pad, np.int64)
+                pad_idx[:R] = sel
+                idx_log = pad_idx
+                idx = torch.from_numpy(pad_idx).to(engine.device)
         plan = self.plan
         step = plan.chunk_rows
         merger = engine.merger
@@ -430,6 +505,9 @@ class CompiledMatch:
         res = MatchResult(plan=plan, best_locs=np.concatenate(best_l, 0),
                           best_scores=np.concatenate(best_s, 0),
                           n_chunks=n_chunks, merge_path=merger.merge_path)
+        if survivor_frac is not None:
+            res.survivor_rows = sel
+            res.survivor_frac = survivor_frac
         if reduction == "threshold":
             width = 3 + (1 if plan.mode == "batched" else 0)
             res.hits = (np.concatenate(hit_rows, 0) if hit_rows
@@ -455,9 +533,12 @@ class MatchEngine:
 
     ``corpus`` may be a PackedCorpus or a raw (R, F) uint8 fragment
     matrix.  ``device=None`` means the CUDA device (or, for a
-    PackedCorpus, the device it was built on).  ``compile(query)`` is the
-    primary API; ``match`` / ``scores`` are kwarg shims that build (and
-    content-cache) the query.
+    PackedCorpus, the device it was built on).  ``index`` attaches the
+    q-gram filter index: ``True`` (the default) shares the corpus's
+    existing ``CorpusIndex`` or creates one, a ``CorpusIndex`` instance
+    overrides its (q, n_bits), ``False`` disables the two-stage strategy.
+    ``compile(query)`` is the primary API; ``match`` / ``scores`` are
+    kwarg shims that build (and content-cache) the query.
     """
 
     def __init__(self, corpus: Union[PackedCorpus, np.ndarray], *,
@@ -465,15 +546,9 @@ class MatchEngine:
                  cost_source: Optional[CostSource] = None,
                  record_runtimes: Optional[bool] = None,
                  compile_cache_size: int = 128,
-                 index: bool = False,
+                 index: Union[bool, CorpusIndex] = True,
                  obs: Optional[Observability] = None,
                  device: DeviceLike = None):
-        # The JAX engine attaches a q-gram CorpusIndex by default; the
-        # index slice of the port restores that default.  Until then only
-        # the index-free configuration exists.
-        if index is not False:
-            raise NotImplementedError(
-                "the q-gram CorpusIndex is not ported yet: use index=False")
         self.obs = obs if obs is not None else Observability()
         if isinstance(corpus, PackedCorpus):
             if device is not None and resolve_device(device) != corpus.device:
@@ -508,6 +583,21 @@ class MatchEngine:
         self.compile_cache_size = int(compile_cache_size)
         self._compiled: "OrderedDict[MatchQuery, CompiledMatch]" = \
             OrderedDict()
+        # Q-gram filter index: attached up front (the signature pack is
+        # lazy, so an engine that never filters pays nothing).  Engines
+        # sharing a corpus share its index -- resident signatures and
+        # selectivity calibration -- instead of stacking observers.
+        if isinstance(index, CorpusIndex):
+            if index.corpus is not self.corpus:
+                raise ValueError("index is attached to a different corpus")
+            self.index: Optional[CorpusIndex] = index
+        elif index and self.corpus.fragment_chars >= _ix.DEFAULT_Q:
+            self.index = next(
+                (ix for ix in self.corpus._indexes
+                 if isinstance(ix, CorpusIndex)), None) \
+                or CorpusIndex(self.corpus)
+        else:
+            self.index = None
 
     def __repr__(self) -> str:
         c = self.corpus
@@ -556,7 +646,8 @@ class MatchEngine:
         return "per_row" if query.shape[0] == n_rows else "batched"
 
     def _plan_query(self, query: MatchQuery, n_rows: int,
-                    mode: Optional[str] = None) -> Plan:
+                    mode: Optional[str] = None,
+                    filter_ctx: Optional[FilterContext] = None) -> Plan:
         if mode is None:
             mode = self._infer_mode(query, n_rows)
         elif mode == "per_row" and query.shape[0] != n_rows:
@@ -571,7 +662,76 @@ class MatchEngine:
             pattern_chars=query.pattern_chars,
             n_patterns=query.n_patterns if mode == "batched" else None,
             per_row=mode == "per_row", backend=query.backend,
-            chunk_rows=query.chunk_rows, predicate=query.predicate)
+            chunk_rows=query.chunk_rows, predicate=query.predicate,
+            filter_ctx=filter_ctx)
+
+    # -- q-gram filter stage ----------------------------------------------------
+    def _filter_context(self, query: MatchQuery, mode: Optional[str],
+                        ops: Optional[FilterOperands] = None
+                        ) -> Tuple[Optional[FilterContext],
+                                   Optional[FilterOperands]]:
+        """Filter eligibility + pricing inputs + operands for one query.
+
+        ``(None, None)`` when the two-stage strategy is not legal: the
+        filter prunes whole rows, so only the ``threshold`` reduction
+        (whose ``hits`` provably lose nothing) qualifies; explicit row
+        subsets keep their own gather path; per-row patterns have no
+        shared signature.  Ineligible or unprunable queries scan -- the
+        filter is an optimization, never a semantic change.  ``ops``
+        short-circuits the operand build (they derive from the query
+        content and the index parameters only).
+        """
+        if (self.index is None or query.filter is False
+                or query.reduction != "threshold"
+                or query.rows_b is not None or mode == "per_row"
+                or query.pattern_chars < self.index.q):
+            return None, None
+        masks2d = query.masks if len(query.shape) == 2 else \
+            query.masks[None, :]
+        if ops is None:
+            thr = query.threshold
+            if len(thr) == 1 and masks2d.shape[0] > 1:
+                thr = thr * masks2d.shape[0]
+            ops = build_query_filter(masks2d, thr, self.index.q,
+                                     self.index.n_bits)
+        # A query whose slack covers all its required bits passes every
+        # row (so does one with no fully-exact q-grams): in a survivor
+        # union one such member makes the whole filter pointless.  The
+        # operands are still returned, so a held query does not rebuild
+        # them on every revalidation.
+        prunable = all(s < 0 or (b > 0 and s < b)
+                       for b, s in zip(ops.n_bits, ops.slacks))
+        if not prunable:
+            return None, ops
+        frac = self.index.estimate_survivor_frac(ops.n_bits, ops.slacks)
+        ctx = FilterContext(sig_words=self.index.sig_words,
+                            n_queries=masks2d.shape[0], prunable=True,
+                            survivor_frac=frac,
+                            force=query.filter is True)
+        return ctx, ops
+
+    def _run_filter(self, cm: CompiledMatch, n_rows: int) -> np.ndarray:
+        """Filter stage: (n_rows,) bool candidate flags for one query.
+
+        One ``filter_qgram`` launch per pattern over the resident
+        signatures; a row survives if any pattern admits it (the batched
+        union, OR-ed on the device); one pull of the final bitmap.  The
+        exact scan's data is never touched for pruned rows.
+        """
+        ops = cm._filter_ops
+        if cm._filter_dev is None:
+            cm._filter_dev = torch.from_numpy(
+                np.ascontiguousarray(ops.qsig_words).view(np.int32)).to(
+                    self.device)
+        sigs = self.index.signatures()
+        tile = _fq.FILTER_ROW_TILE
+        rows = sigs[:-(-n_rows // tile) * tile]
+        flags = None
+        for qi in range(ops.qsig_words.shape[0]):
+            f = _fq.filter_qgram(rows, cm._filter_dev[qi:qi + 1],
+                                 slack=ops.slacks[qi])
+            flags = f if flags is None else self.merger.or_(flags, f)
+        return self.merger.survivor_union(flags, n_rows)
 
     def plan(self, patterns, *, backend=_UNSET, mode=_UNSET, rows=_UNSET,
              chunk_rows=_UNSET) -> Plan:

@@ -12,6 +12,8 @@ collective counters arrive with the multi-GPU slice.
   locations are cast to int32, ``jnp.argmax``'s type with x64 off.
 * ``hot_mask`` / ``gather_rows`` -- the threshold reduction's sparse
   two-phase pull (integer-exact ``s >= ceil(t)``).
+* ``or_`` / ``survivor_union`` -- the filter stage's union across
+  patterns (on the device) and its one pull of the final bitmap.
 * ``topk_*`` -- running global top-k under the total order (score desc,
   row asc); dead and padding entries carry the (-1, INT32_MAX) sentinel
   pair and sort last.  torch has no ``lexsort``: one int64 key
@@ -148,3 +150,13 @@ class ShardMerger:
         scores = self.pull(st_s, kind="reduced")
         kk = min(int(k), int(n_alive))
         return rows[:kk], scores[:kk]
+
+    # -- filter survivor union -------------------------------------------------
+    def survivor_union(self, flags: torch.Tensor, n_rows: int) -> np.ndarray:
+        """(R_pad, 1) candidate flags -> (n_rows,) bool, in one pull.
+
+        On one device the union across patterns already happened on the
+        device (``or_``); only the final bitmap crosses to the host.
+        """
+        out = self.pull(flags, kind="reduced")
+        return out[:n_rows, 0].astype(bool)

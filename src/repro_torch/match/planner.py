@@ -16,14 +16,22 @@ planner), the ``mxu`` backend on the tensor cores' bf16 rate.  Backend
 (``_swar_geometry``, ``_mxu_geometry``, padding, chunking) is identical,
 so a forced backend yields the same ``Plan`` geometry fields.
 
-Not in this slice: the filter-then-verify pricing (``FilterContext``),
-``plan_batch`` (the service slice), ``plan_bank`` (the standing-query
-slice) and shard-aware pricing (multi-GPU slice).
+Two-stage pricing: for an eligible threshold query the engine hands
+``plan`` a ``FilterContext`` and the planner weighs the q-gram filter
+plus an estimated-survivor verify against the full scan
+(``Plan.strategy``); ``plan_bank`` makes the same call for a standing
+pattern bank against one document batch.  Both filter kernels are
+priced on this card's roofline (``FILTER_OPS_PER_WORD``), not on the
+TPU's vector-unit count.
+
+Not in this slice: ``plan_batch`` (the service slice) and shard-aware
+pricing (multi-GPU slice).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 from repro_torch.core.tech import (H100, CostSource, GPURoofline,
@@ -47,6 +55,14 @@ SWAR_OPS_PER_WORD_MASKS = 30
 # Plain torch reference throughput: only has to rank the ref backend
 # sanely against the kernels.
 REF_OPS_PER_S = 1e9
+# INT32 issue slots per signature word in the filter kernels
+# (csrc/filter_qgram.cu): one and-not (LOP3), one popcount at a quarter of
+# the INT32 rate (4 slots), one add.  On that basis the corpus filter is
+# bound by bytes: a row of 8 words is 36 B (10.7 ps at 3.35 TB/s) against
+# 48 slots (2.9 ps at the INT32 rate); the bank prefilter, which reads
+# each signature once and tests every (pattern, doc) pair, is bound by
+# these operations.
+FILTER_OPS_PER_WORD = 6
 
 
 def kernel_name(backend: str, predicate: str = "exact") -> str:
@@ -93,6 +109,25 @@ def analytic_ref_seconds(roofline: GPURoofline, R: int, L: int, P: int,
     return Q * R * L * P / REF_OPS_PER_S
 
 
+def analytic_filter_seconds(roofline: GPURoofline, R: int, sig_words: int,
+                            n_queries: int = 1) -> float:
+    """Roofline seconds for Q ``filter_qgram`` launches over R signatures:
+    each reads every row's words and writes one int32 flag per row."""
+    ops = n_queries * R * sig_words * FILTER_OPS_PER_WORD
+    bytes_hbm = n_queries * (R * sig_words * 4 + R * 4)
+    return max(ops / roofline.peak_int32_ops, bytes_hbm / roofline.hbm_bw)
+
+
+def analytic_bank_prefilter_seconds(roofline: GPURoofline, Q: int,
+                                    sig_words: int, D: int) -> float:
+    """Roofline seconds for one ``bank_prefilter`` launch: Q pattern and D
+    doc signatures read once, Q slacks read and Q flags written, every
+    (pattern, doc) pair tested (no early exit assumed)."""
+    ops = Q * D * sig_words * FILTER_OPS_PER_WORD
+    bytes_hbm = (Q + D) * sig_words * 4 + Q * 8
+    return max(ops / roofline.peak_int32_ops, bytes_hbm / roofline.hbm_bw)
+
+
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """Everything the executor needs to run one query (same fields as the
@@ -118,10 +153,10 @@ class Plan:
     est_seconds: float = 0.0    # roofline estimate for the whole query
     reason: str = ""            # human-readable selection rationale
     predicate: str = "exact"    # "exact" | "accept" (accept-set masks)
-    # Two-stage execution: always "scan" until the filter slice lands.
+    # Two-stage execution: "scan" | "filter" (filter-then-verify).
     strategy: str = "scan"
-    filter_words: int = 0
-    est_survivor_frac: float = 1.0
+    filter_words: int = 0       # signature words per row (filter plans)
+    est_survivor_frac: float = 1.0  # estimated post-filter row fraction
     n_shards: int = 1
     est_collective_bytes: float = 0.0
     cost_source: str = "static"
@@ -142,6 +177,45 @@ def _mxu_geometry(P: int, L: int, Q: int) -> tuple[int, int, int, int]:
     l_pad = max(-(-L // _mxu.L_TILE) * _mxu.L_TILE, _mxu.L_TILE)
     q_pad = -(-Q // 128) * 128
     return l_pad, p_chars, q_pad, l_pad + p_chars
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterContext:
+    """Filter-stage pricing inputs for one eligible threshold query.
+
+    Built by the engine (``MatchEngine._filter_context``) from the query
+    content and the corpus index configuration; the planner prices the
+    two-stage pipeline (filter + estimated-survivor verify) against the
+    full scan and records the verdict in ``Plan.strategy``.
+    """
+
+    sig_words: int              # uint32 signature words per row
+    n_queries: int              # filter-kernel launches (1 per pattern)
+    prunable: bool              # every query can exclude rows
+    survivor_frac: float        # estimated post-filter row fraction
+    force: bool = False         # query hint filter=True: skip the pricing
+
+
+@dataclasses.dataclass(frozen=True)
+class BankPlan:
+    """Pricing verdict for one document batch against a standing bank.
+
+    ``strategy == "scan"`` verifies every live pattern against the batch
+    in one fused accept-set SWAR launch; ``"filter"`` first runs one
+    ``bank_prefilter`` launch and verifies only the surviving patterns.
+    Either way the batch costs exactly one verify launch.
+    """
+
+    strategy: str               # "scan" | "filter"
+    n_docs: int                 # arriving batch size D
+    n_patterns: int             # live bank slots Qp
+    est_seconds: float          # chosen-path estimate
+    est_scan_seconds: float     # full bank scan estimate
+    est_filter_seconds: float   # prefilter stage share (0 for scan)
+    est_survivor_frac: float    # estimated surviving-pattern fraction
+    est_verify_patterns: int    # pattern axis priced into the verify
+    reason: str
+    cost_source: str = "static"
 
 
 class Planner:
@@ -181,6 +255,14 @@ class Planner:
         analytic = analytic_ref_seconds(self.roofline, R, L, P, Q)
         return self._price("ref", analytic, Q, R, P, Q, base)
 
+    def filter_seconds(self, R: int, sig_words: int, n_queries: int = 1,
+                       *, base: bool = False) -> float:
+        """Q filter-kernel launches over R row signatures."""
+        analytic = analytic_filter_seconds(self.roofline, R, sig_words,
+                                           n_queries)
+        return self._price("filter", analytic, n_queries,
+                           R, sig_words, n_queries, base)
+
     def mxu_seconds(self, R: int, L: int, P: int, Q: int = 1,
                     *, base: bool = False) -> float:
         """One batched tensor-core pass over all Q patterns (identical for
@@ -216,7 +298,8 @@ class Planner:
              n_patterns: Optional[int] = None, per_row: bool = False,
              backend: Optional[str] = None,
              chunk_rows: Optional[int] = None,
-             predicate: str = "exact") -> Plan:
+             predicate: str = "exact",
+             filter_ctx: Optional[FilterContext] = None) -> Plan:
         R, F, P = n_rows, fragment_chars, pattern_chars
         if R < 1:
             raise ValueError("corpus has no rows")
@@ -280,11 +363,101 @@ class Planner:
             est_base = self.ref_seconds(R, L, P, Q, base=True)
         chunk = self._chunk_rows(R_pad, bytes_per_row, row_tile, chunk_rows)
 
+        # Two-stage pricing: for an eligible threshold query, compare
+        # filter + estimated-survivor verify against the full scan just
+        # chosen.  The verify stage keeps the scan's kernel; the survivor
+        # estimate carries the index's measured-selectivity calibration.
+        # A query-level filter=True hint skips the pricing (never the
+        # prunability requirement).
+        strategy, filter_words, surv = "scan", 0, 1.0
+        est_fil = est_fil_base = 0.0
+        if filter_ctx is not None and filter_ctx.prunable:
+            frac = filter_ctx.survivor_frac
+            r_surv = max(1, math.ceil(frac * R))
+            t_fil = self.filter_seconds(R, filter_ctx.sig_words,
+                                        filter_ctx.n_queries)
+            t_ver = self.backend_seconds(chosen, r_surv, L, P, Q, predicate)
+            if filter_ctx.force or t_fil + t_ver < est:
+                strategy = "filter"
+                filter_words = filter_ctx.sig_words
+                surv = frac
+                reason += (f"; filter+verify {t_fil + t_ver:.3g}s "
+                           f"{'forced' if filter_ctx.force else '<'} scan "
+                           f"{est:.3g}s (est survivors {frac:.3g})")
+                est = t_fil + t_ver
+                est_fil = t_fil
+                est_fil_base = self.filter_seconds(
+                    R, filter_ctx.sig_words, filter_ctx.n_queries, base=True)
+                est_base = self.backend_seconds(chosen, r_surv, L, P, Q,
+                                                predicate, base=True)
+
         reason += f" [cost={self.cost_source.tag}]"
         return Plan(backend=chosen, mode=mode, n_rows=R, fragment_chars=F,
                     pattern_chars=P, n_patterns=Q, n_locs=L, wp=wp,
                     need_words=need, l_pad=l_pad, p_chars_pad=p_chars,
                     q_pad=q_pad, f_chars=f_chars, chunk_rows=chunk,
                     est_seconds=est, reason=reason, predicate=predicate,
+                    strategy=strategy, filter_words=filter_words,
+                    est_survivor_frac=surv,
                     cost_source=self.cost_source.tag,
-                    est_base_seconds=est_base)
+                    est_base_seconds=est_base,
+                    est_filter_seconds=est_fil,
+                    est_filter_base_seconds=est_fil_base)
+
+    # -- standing-bank pricing ------------------------------------------------
+    def plan_bank(self, *, n_docs: int, fragment_chars: int,
+                  pattern_chars: int, n_patterns: int, sig_words: int,
+                  survivor_frac: float, prunable: bool = True,
+                  force: Optional[bool] = None) -> BankPlan:
+        """Price one document batch against the bank: prefilter or scan.
+
+        The roles are swapped relative to ``plan``: the batch's docs ride
+        the row axis, the bank's live slots the pattern axis, and the
+        backend is always the accept-set SWAR kernel (the bank's resident
+        operands are bit planes).  ``force=True`` pins the filtered
+        strategy whenever the bank is prunable; ``force=False`` pins the
+        full scan.
+        """
+        D, F, P, Qp = int(n_docs), int(fragment_chars), int(pattern_chars), \
+            int(n_patterns)
+        if D < 1:
+            raise ValueError("batch has no documents")
+        if Qp < 1:
+            raise ValueError("bank has no live patterns")
+        L = F - P + 1
+        if L <= 0:
+            raise ValueError("pattern longer than fragment")
+        t_scan = self.swar_seconds(D, L, P, Qp, "accept")
+        strategy, est, t_fil, q_surv = "scan", t_scan, 0.0, Qp
+        frac = min(1.0, max(float(survivor_frac), 0.0))
+        if prunable and force is not False:
+            q_surv_est = max(1, math.ceil(frac * Qp))
+            analytic = analytic_bank_prefilter_seconds(self.roofline, Qp,
+                                                       sig_words, D)
+            t_fil = self._price("bank_prefilter", analytic, 1, Qp,
+                                sig_words, D, False)
+            t_ver = self.swar_seconds(D, L, P, q_surv_est, "accept")
+            if force or t_fil + t_ver < t_scan:
+                strategy = "filter"
+                est = t_fil + t_ver
+                q_surv = q_surv_est
+                reason = (f"bank prefilter+verify {est:.3g}s "
+                          f"{'forced' if force else '<'} scan "
+                          f"{t_scan:.3g}s (est survivors {frac:.3g} of "
+                          f"{Qp})")
+            else:
+                reason = (f"bank scan {t_scan:.3g}s <= prefilter+verify "
+                          f"{t_fil + t_ver:.3g}s")
+                t_fil = 0.0
+        elif force is False:
+            reason = f"bank scan forced ({Qp} patterns x {D} docs)"
+        else:
+            reason = f"bank scan: no prunable patterns ({Qp} x {D} docs)"
+        reason += f" [cost={self.cost_source.tag}]"
+        return BankPlan(strategy=strategy, n_docs=D, n_patterns=Qp,
+                        est_seconds=est, est_scan_seconds=t_scan,
+                        est_filter_seconds=t_fil,
+                        est_survivor_frac=frac if strategy == "filter"
+                        else 1.0,
+                        est_verify_patterns=q_surv, reason=reason,
+                        cost_source=self.cost_source.tag)

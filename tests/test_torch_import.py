@@ -45,6 +45,24 @@ def test_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 15
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.match.index", "repro_torch.match.standing",
+    "repro_torch.kernels.filter_qgram", "repro_torch.kernels.popcount",
+    "repro_torch.kernels.bitwise"])
+def test_slice_modules_import_with_jax_blocked(module):
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m == 'repro' or\n"
+        "       m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
@@ -70,7 +88,7 @@ def no_cuda(monkeypatch):
 def test_entry_points_need_a_device_without_cuda(no_cuda):
     from repro_torch import convert, resolve_device
     from repro_torch.kernels import ops
-    from repro_torch.match import MatchEngine, PackedCorpus
+    from repro_torch.match import MatchEngine, PackedCorpus, PatternBank
     frags = np.zeros((8, 16), np.uint8)
     calls = [lambda: resolve_device(),
              lambda: resolve_device("cuda"),
@@ -82,7 +100,10 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
              lambda: convert.swar_words_from_numpy(
                  np.zeros((8, 2), np.uint32)),
              lambda: convert.onehot_from_numpy(np.zeros((8, 4), np.float32)),
-             lambda: ops.match_scores(frags, frags[0, :4])]
+             lambda: ops.match_scores(frags, frags[0, :4]),
+             lambda: ops.popcount(np.zeros((8, 2), np.uint32)),
+             lambda: ops.bitwise("NOT", np.zeros((8, 2), np.uint32)),
+             lambda: PatternBank(16, 4)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -92,11 +113,18 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
 
 
 def test_engine_adopts_the_corpus_device_and_refuses_the_index():
-    from repro_torch.match import MatchEngine, PackedCorpus
+    """The engine runs where its corpus lives, shares the corpus's q-gram
+    index, and refuses an index attached to another corpus."""
+    from repro_torch.match import CorpusIndex, MatchEngine, PackedCorpus
     corpus = PackedCorpus(np.zeros((8, 16), np.uint8), device="cpu")
-    assert MatchEngine(corpus).device == corpus.device
-    with pytest.raises(NotImplementedError, match="index=False"):
-        MatchEngine(corpus, index=True)
+    engine = MatchEngine(corpus)
+    assert engine.device == corpus.device
+    assert isinstance(engine.index, CorpusIndex)
+    assert MatchEngine(corpus).index is engine.index
+    assert MatchEngine(corpus, index=False).index is None
+    other = PackedCorpus(np.zeros((8, 16), np.uint8), device="cpu")
+    with pytest.raises(ValueError, match="different corpus"):
+        MatchEngine(corpus, index=CorpusIndex(other))
 
 
 def test_unsupported_device_is_rejected():

@@ -230,3 +230,76 @@ def test_mxu_kernel_matches_plain(cuda, R, P, Q):
     torch.cuda.synchronize()
     assert tmx.match_mxu.n_launches == n0 + 1
     assert torch.equal(got, tmx.match_mxu_plain(f, p, l_pad=l_pad))
+
+
+# -- card: the filter and bulk kernels against their plain versions -----------
+
+def _u32(rng, shape):
+    """Random words over the full uint32 range (high bits set)."""
+    return rng.integers(0, 2**32, shape, dtype=np.uint32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wb", [1, 8, 16])
+@pytest.mark.parametrize("slack", [-1, 0, 3, 16 * 32])
+def test_filter_qgram_kernel_matches_plain(cuda, wb, slack):
+    from repro_torch.kernels import filter_qgram as tfq
+    rng = np.random.default_rng(wb)
+    sigs = t(_u32(rng, (256, wb)), cuda)
+    qsig = t(_u32(rng, (1, wb)), cuda)
+    # Dense rows (few absent bits), so small slacks pass some rows too.
+    dense = sigs | t(_u32(rng, (256, wb)), cuda) | t(_u32(rng, (256, wb)),
+                                                     cuda)
+    for rows in (sigs, dense):
+        n0 = tfq.filter_qgram.n_launches
+        got = tfq.filter_qgram(rows, qsig, slack=slack)
+        torch.cuda.synchronize()
+        assert tfq.filter_qgram.n_launches == n0 + 1
+        assert torch.equal(got, tfq.filter_qgram_plain(rows, qsig,
+                                                       slack=slack))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wb", [1, 8, 16, 40])
+@pytest.mark.parametrize("n_docs", [1, 8, 600])
+def test_bank_prefilter_kernel_matches_plain(cuda, wb, n_docs):
+    from repro_torch.kernels import filter_qgram as tfq
+    rng = np.random.default_rng(n_docs + wb)
+    pats = _u32(rng, (256, wb)) & _u32(rng, (256, wb))
+    docs = _u32(rng, (n_docs, wb)) | _u32(rng, (n_docs, wb))
+    docs[n_docs // 2] = 0                       # an all-zero (pad) doc
+    slacks = rng.integers(-1, 12, (256, 1)).astype(np.int32)
+    slacks[200:] = -1                           # pad rows
+    got_ = tfq.bank_prefilter(t(pats, cuda), t(docs, cuda),
+                              torch.from_numpy(slacks).to(cuda))
+    torch.cuda.synchronize()
+    want = tfq.bank_prefilter_plain(t(pats, cuda), t(docs, cuda),
+                                    torch.from_numpy(slacks).to(cuda))
+    assert torch.equal(got_, want)
+    assert int(got_[200:].sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 33])
+def test_popcount_kernel_matches_plain(cuda, w):
+    from repro_torch.kernels import popcount as tpc
+    words = t(_u32(np.random.default_rng(w), (512, w)), cuda)
+    n0 = tpc.popcount.n_launches
+    got = tpc.popcount(words)
+    torch.cuda.synchronize()
+    assert tpc.popcount.n_launches == n0 + 1
+    assert torch.equal(got, tpc.popcount_plain(words))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["NOT", "OR", "AND", "NAND", "NOR", "XOR"])
+def test_bitwise_kernel_matches_plain(cuda, op):
+    from repro_torch.kernels import bitwise as tbw
+    rng = np.random.default_rng(3)
+    a, b = (t(_u32(rng, (256, 37)), cuda) for _ in range(2))
+    # An odd offset exercises the unaligned (scalar) path.
+    for x, y in ((a, b), (a.view(-1)[1:1 + 256 * 36].view(256, 36),
+                          b.view(-1)[:256 * 36].view(256, 36))):
+        got = tbw.bitwise(op, x, y)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tbw.bitwise_plain(op, x, y))
