@@ -18,13 +18,15 @@ printing its wall time:
    ``MatchEngine`` (q-gram index attached, the default) ->
    ``compile(MatchQuery)`` -> ``run()`` for (a) an exact read, best,
    SWAR; (b) an IUPAC read, threshold 95, SWAR accept-set; (c) 128
-   batched reads with 0-3 mismatches, top-10, tensor cores; (d) read (a)
-   with the planner's own choice; then, on their own counts, (e) read
-   (a) at threshold 99 with the filter forced (filter-then-verify) and
-   (f) the same with the planner's choice.  Launch counters are zeroed
-   just before each path and read just after; (a) and (b) are held
-   against the ``ref`` backend on the full corpus, (e) against the same
-   query scanned.
+   batched reads with 0-3 mismatches, top-10, tensor cores with the best
+   reduction in the kernel's epilogue (``match_mxu_best``); (d) read (a)
+   with the planner's own choice; (c') (c)'s reads at threshold 97 on the
+   tensor cores over a 16,384-row subset holding the planted rows (the
+   full-block ``match_mxu``); then (e) read (a) at threshold 99 with the
+   filter forced (filter-then-verify) and (f) the same with the planner's
+   choice.  Launch counters are zeroed just before each query and read
+   just after; (a) and (b) are held against the ``ref`` backend on the
+   full corpus, (e) against the same query scanned.
 4b. Standing bank: ``PatternBank(500, 100)`` with 4,096 patterns drawn
    from the reference, scanned against 4 batches of 256 seeded 500-char
    docs (32 planted hits each) with the prefilter forced on and off;
@@ -34,10 +36,13 @@ printing its wall time:
    ``ops.bitwise("XOR", ...)`` on a 256 MiB pair.
 5. Kernels at their paths' shapes: each kernel against its plain
    version at (or beyond) its launch shape with the path's own
-   operands, bit for bit; at the launch shape, the kernel's and the
-   library call's device time with the L2 flushed before each launch
-   (``torch.profiler``), the kernel's time per call and the plain
-   version's (CUDA events, back to back), beside the roofline bound.
+   operands, bit for bit; ``match_mxu_best`` also against the full-block
+   kernel plus ``argmax``/``amax`` on every corpus row, and (c)'s top-10
+   against the top-10 of those best scores; at the launch shape, the
+   kernel's and the library call's device time with the L2 flushed
+   before each launch (``torch.profiler``, kernel and library timed in
+   turns), the kernel's time per call and the plain version's (CUDA
+   events, back to back), beside the roofline bound.
 6. Profile: one run each of (a), (c) and (e) under ``torch.profiler``
    (device time by kernel, device busy share) and one under the
    engine's own span tracer (host stage breakdown).
@@ -65,6 +70,8 @@ CHR1_BP = 248_956_422        # GRCh38 chr1 length
 FRAG, READ = 500, 100        # benchmarks/fig5_throughput.py MR_FRAG / MR_PAT
 SEED = 0
 N_BATCH = 128                # batched reads of query (c)
+SUBSET_C2 = 16_384           # rows of query (c'), the planted rows among them
+THRESHOLD_C2 = 97            # (c'): every read has at most 3 mismatches
 SUBSET_ROWS = 65_536         # rows held kernel-against-plain in phase 5
 TIMED_RUNS = 3
 # Standing bank (phase 4b): live patterns, docs per batch, batches,
@@ -95,6 +102,8 @@ SOURCES = {
                          "src/repro/kernels/match_swar.py:146"),
     "match_mxu": ("src/repro_torch/kernels/csrc/match_mxu.cu",
                   "src/repro/kernels/match_mxu.py:54"),
+    "match_mxu_best": ("src/repro_torch/kernels/csrc/match_mxu.cu",
+                       "src/repro/kernels/match_mxu.py:54"),
     "filter_qgram": ("src/repro_torch/kernels/csrc/filter_qgram.cu",
                      "src/repro/kernels/filter_qgram.py:63"),
     "bank_prefilter": ("src/repro_torch/kernels/csrc/filter_qgram.cu",
@@ -214,6 +223,16 @@ def profile_runs(engine, queries) -> None:
             {k: round(v, 6) for k, v in res.timings.items()}))
 
 
+def device_ms_turns(fns, reps: int, flush, rounds: int = 2):
+    """``device_ms`` of each function, timed in turns (a, b, a, b): the
+    mean per function over ``rounds`` and every round's reading."""
+    runs = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            runs[k].append(device_ms(fn, reps, flush))
+    return {k: sum(v) / len(v) for k, v in runs.items()}, runs
+
+
 def bound(nbytes: float, ops: float, ops_rate: float):
     """(bound ms, what bounds it): the larger of bytes over HBM bandwidth
     and operations over their peak rate."""
@@ -250,13 +269,15 @@ def main() -> int:
     wrappers = {"match_swar": ksw.match_swar,
                 "match_swar_masks": ksw.match_swar_masks,
                 "match_mxu": kmx.match_mxu,
+                "match_mxu_best": kmx.match_mxu_best,
                 "filter_qgram": kfq.filter_qgram,
                 "bank_prefilter": kfq.bank_prefilter,
                 "popcount": kpc.popcount,
                 "bitwise": kbw.bitwise}
     plains = {"match_swar": ksw.match_swar_plain,
               "match_swar_masks": ksw.match_swar_masks_plain,
-              "match_mxu": kmx.match_mxu_plain}
+              "match_mxu": kmx.match_mxu_plain,
+              "match_mxu_best": kmx.match_mxu_best_plain}
 
     def zero_counts():
         for w in wrappers.values():
@@ -326,6 +347,29 @@ def main() -> int:
             check(torch.equal(torch.round(got).to(torch.int32),
                               torch.round(want).to(torch.int32)),
                   f"match_mxu R={R} P={P} Q={Q}")
+        # match_mxu_best: n_locs off the 64 grid, an odd char count (rows
+        # alternately 16- and 8-byte aligned), Q = 1 in a 128 pad, P4 =
+        # 1,024 (the halved pattern tile), Q = 256.
+        for R, P, Q, n_locs, extra in [(3, 20, 5, 201, 0),
+                                       (4, 40, 128, 150, 1),
+                                       (2, 33, 1, 77, 0),
+                                       (2, 256, 130, 300, 0),
+                                       (9, 100, 130, 401, 1)]:
+            p_chars = -(-P // kmx.CHARS_PER_CHUNK) * kmx.CHARS_PER_CHUNK
+            f_chars = kmx.best_l_pad(n_locs) + p_chars + extra
+            flat = one_hot_flat(torch.from_numpy(rng.integers(
+                0, 4, (R, f_chars), np.uint8)).to(dev), 4 * f_chars)
+            q_pad = -(-Q // 128) * 128
+            pat = torch.zeros((p_chars * 4, q_pad), dtype=torch.bfloat16,
+                              device=dev)
+            pat[:P * 4, :Q] = torch.from_numpy(
+                rng.integers(0, 2, (P * 4, Q))).to(dev, torch.bfloat16)
+            got = kmx.match_mxu_best(flat, pat, n_locs=n_locs, n_k=4 * P)
+            want = kmx.match_mxu_best_plain(flat, pat, n_locs=n_locs,
+                                            n_k=4 * P)
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"match_mxu_best R={R} P={P} Q={Q} n_locs={n_locs} "
+                  f"F4={4 * f_chars}")
         # filter_qgram: dense rows (few absent bits) beside random ones.
         for wb in (1, 8, 16):
             sigs = u32(rng, (128, wb))
@@ -425,13 +469,24 @@ def main() -> int:
                               filter=True)
         qf = dataclasses.replace(qe, filter=None)
         qe_scan = dataclasses.replace(qe, filter=False)
+        # (c'): a row subset that holds (c)'s planted rows.
+        planted_c = rows[2:2 + N_BATCH]
+        others = rng.choice(n_rows, 2 * SUBSET_C2, replace=False)
+        others = others[~np.isin(others, planted_c)][:SUBSET_C2 - N_BATCH]
+        rows_c2 = np.sort(np.concatenate([planted_c, others]))
+        qc2 = MatchQuery.exact(queries_c, mode="batched",
+                               reduction="threshold", threshold=THRESHOLD_C2,
+                               backend="mxu", rows=rows_c2, filter=False)
+        runs = TIMED_RUNS + 1                     # warm-up + timed runs
 
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        results, timings = {}, {}
+        results, timings, per_query = {}, {}, {}
         for key, q in (("a", qa), ("b", qb), ("c", qc), ("d", qd)):
+            zero_counts()
             results[key], timings[key] = drive(engine, q)
-        launches = read_counts()
+            per_query[key] = read_counts()
+        launches = {n: sum(c[n] for c in per_query.values())
+                    for n in wrappers}
         peak_mem = torch.cuda.max_memory_allocated()
         print(f"  launches on the (a)-(d) path: {launches}")
 
@@ -449,11 +504,32 @@ def main() -> int:
         check(np.array_equal(rc.topk_rows[0], rows[2:2 + N_BATCH])
               and np.array_equal(rc.topk_scores[0], READ - n_mism),
               "(c) every query's top row is its planted row")
+        check(per_query["c"]["match_mxu_best"] == runs * rc.n_chunks
+              and per_query["c"]["match_mxu"] == 0,
+              "(c) launches match_mxu_best once per chunk, match_mxu never")
         print(f"  (d) planner chose {rd.plan.backend}: {rd.plan.reason}")
         check(np.array_equal(rd.best_scores, ra.best_scores),
               "(d) agrees with (a)")
-        for name in ("match_swar", "match_swar_masks", "match_mxu"):
+        for name in ("match_swar", "match_swar_masks", "match_mxu_best"):
             check(launches[name] > 0, f"{name} launched on the main path")
+
+        # (c'): the full-block kernel and the threshold reduction.
+        zero_counts()
+        results["c2"], timings["c2"] = drive(engine, qc2)
+        launches_c2 = read_counts()
+        rc2 = results["c2"]
+        print(f"  launches on the (c') path: {launches_c2}")
+        check(launches_c2["match_mxu"] == runs * rc2.n_chunks
+              and launches_c2["match_mxu_best"] == 0,
+              "(c') launches match_mxu once per chunk")
+        hits_c2 = {tuple(h) for h in rc2.hits.tolist()}
+        missing = [q for q in range(N_BATCH)
+                   if (int(rows[2 + q]), int(locs[2 + q]), q,
+                       READ - int(n_mism[q])) not in hits_c2]
+        check(not missing, f"(c') every planted hit reported "
+              f"(missing reads {missing})")
+        print(f"  (c') {rc2.hits.shape[0]} hits at >= {THRESHOLD_C2} over "
+              f"{len(rows_c2)} rows, all {N_BATCH} planted hits among them")
 
         # (e), (f): filter-then-verify through the q-gram index.
         torch.cuda.synchronize()
@@ -490,9 +566,11 @@ def main() -> int:
 
         main_path = {}
         for key, q in (("a", qa), ("b", qb), ("c", qc), ("d", qd),
-                       ("e", qe), ("f", qf), ("e_scan", qe_scan)):
+                       ("c2", qc2), ("e", qe), ("f", qf),
+                       ("e_scan", qe_scan)):
             res, ts = results[key], timings[key]
             best = min(ts)
+            scanned = len(rows_c2) if key == "c2" else n_rows
             main_path[key] = {
                 "backend": res.plan.backend, "predicate": res.plan.predicate,
                 "strategy": res.plan.strategy,
@@ -500,12 +578,12 @@ def main() -> int:
                 "chunk_rows": res.plan.chunk_rows, "n_chunks": res.n_chunks,
                 "survivor_frac": res.survivor_frac,
                 "ms": [t * 1e3 for t in ts], "best_ms": best * 1e3,
-                "rows_per_s": n_rows / best,
-                "row_patterns_per_s": n_rows * res.plan.n_patterns / best}
+                "rows": scanned, "rows_per_s": scanned / best,
+                "row_patterns_per_s": scanned * res.plan.n_patterns / best}
             print(f"  ({key}) {res.plan.backend}/{res.plan.predicate} "
                   f"{q.reduction} {res.plan.strategy}: runs "
                   f"{[round(t * 1e3, 3) for t in ts]} ms, "
-                  f"{n_rows / best:.4g} rows/s, "
+                  f"{scanned / best:.4g} rows/s, "
                   f"{res.n_chunks} chunks of {res.plan.chunk_rows}")
         main_path["index_build_s"] = index_s
         print(f"  peak device memory over (a)-(d) {peak_mem / 2**30:.3f} GiB")
@@ -698,22 +776,50 @@ def main() -> int:
         base = corpus.onehot_flat(plan.f_chars)
         pat = cm._packed
         R = plan.chunk_rows
-        err = 0
+        Qn = plan.n_patterns
+        bkw = dict(n_locs=plan.n_locs, n_k=4 * plan.pattern_chars)
+        err = err_best = 0
         for r0 in range(0, SUBSET_ROWS, R):
             rows_ = base[r0:min(r0 + R, SUBSET_ROWS)]
             got = torch.round(kmx.match_mxu(rows_, pat, l_pad=plan.l_pad))
             want = torch.round(kmx.match_mxu_plain(rows_, pat,
                                                    l_pad=plan.l_pad))
             err = max(err, int((got - want).abs().max()))
+            for x, y in zip(kmx.match_mxu_best(rows_, pat, **bkw),
+                            kmx.match_mxu_best_plain(rows_, pat, **bkw)):
+                err_best = max(err_best, int((x - y).abs().max()))
         check(err == 0, f"match_mxu equals its plain version on "
               f"{SUBSET_ROWS} rows")
+        check(err_best == 0, f"match_mxu_best equals its plain version on "
+              f"{SUBSET_ROWS} rows")
+        # Every corpus row: the fused best against the full block +
+        # argmax/amax (the engine's epilogue before the fusion), and (c)'s
+        # top-10 against the top-10 of those best scores under (score
+        # desc, row asc).
+        n_pad = corpus.n_rows_padded
+        store_bs = torch.empty((n_pad, Qn), dtype=torch.int32, device=dev)
+        n_diff = 0
+        for r0 in range(0, n_pad, R):
+            rows_ = base[r0:min(r0 + R, n_pad)]
+            sc = torch.round(kmx.match_mxu(rows_, pat, l_pad=plan.l_pad)[
+                :, :plan.n_locs, :Qn]).to(torch.int32)
+            fl, fs = kmx.match_mxu_best(rows_, pat, **bkw)
+            n_diff += int((fl[:, :Qn] != sc.argmax(1)).sum()
+                          + (fs[:, :Qn] != sc.amax(1)).sum())
+            store_bs[r0:r0 + rows_.shape[0]] = sc.amax(1)
+        check(n_diff == 0, "match_mxu_best equals match_mxu + argmax/amax "
+              f"on all {n_pad} rows")
+        ids = torch.arange(n_rows, dtype=torch.int64, device=dev)[:, None]
+        key = torch.sort((-store_bs[:n_rows].to(torch.int64) << 32) | ids,
+                         dim=0).values[:rc.topk_rows.shape[0]]
+        check(np.array_equal(rc.topk_rows, (key & 0xFFFFFFFF).cpu().numpy())
+              and np.array_equal(rc.topk_scores,
+                                 (-(key >> 32)).cpu().numpy()),
+              "(c)'s top-10 equals the full-block kernel's")
+        print(f"  match_mxu_best equals match_mxu + argmax/amax on all "
+              f"{n_pad} rows; (c)'s top-10 rows and scores equal theirs")
+
         chunk = base[:R]
-        ms = device_ms(lambda: kmx.match_mxu(chunk, pat, l_pad=plan.l_pad),
-                       10, flush)
-        event_ms = cuda_ms(lambda: kmx.match_mxu(chunk, pat,
-                                                 l_pad=plan.l_pad), 10)
-        plain_ms = cuda_ms(
-            lambda: kmx.match_mxu_plain(chunk, pat, l_pad=plan.l_pad), 2)
         # Library yardstick (never used by the port): cuDNN conv1d of the
         # one-hot rows against the patterns, TF32 off.
         torch.backends.cudnn.allow_tf32 = False
@@ -727,16 +833,38 @@ def main() -> int:
         check(torch.equal(
             torch.round(conv[:, :, :plan.l_pad].float()).permute(0, 2, 1),
             torch.round(out)), "conv1d yardstick agrees with match_mxu")
-        library_ms = device_ms(lambda: torch.nn.functional.conv1d(x, w), 10,
-                               flush)
+        del conv, out
+        times, turns = device_ms_turns(
+            {"kernel": lambda: kmx.match_mxu(chunk, pat, l_pad=plan.l_pad),
+             "library": lambda: torch.nn.functional.conv1d(x, w)}, 10, flush)
+        event_ms = cuda_ms(lambda: kmx.match_mxu(chunk, pat,
+                                                 l_pad=plan.l_pad), 10)
+        plain_ms = cuda_ms(
+            lambda: kmx.match_mxu_plain(chunk, pat, l_pad=plan.l_pad), 2)
         F4, P4, Q = chunk.shape[1], pat.shape[0], pat.shape[1]
         flops = R * plan.l_pad * P4 * 2 * Q
         nbytes = R * F4 * 2 + P4 * Q * 2 + R * plan.l_pad * Q * 4
         bms, bby = bound(nbytes, flops, PEAK_BF16)
         kernels.append(dict(
-            name="match_mxu", rows=R, ms=ms, event_ms=event_ms,
+            name="match_mxu", rows=R, ms=times["kernel"], event_ms=event_ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-            library_ms=library_ms, max_abs_err=err))
+            library_ms=times["library"], max_abs_err=err, turns=turns))
+
+        # match_mxu_best at (c)'s launch.  No one PyTorch call computes the
+        # best alignment; the bound counts the unpadded work (n_locs
+        # alignments, 4P rows, the query's patterns).
+        ms = device_ms(lambda: kmx.match_mxu_best(chunk, pat, **bkw), 20,
+                       flush)
+        event_ms = cuda_ms(lambda: kmx.match_mxu_best(chunk, pat, **bkw), 20)
+        plain_ms = cuda_ms(
+            lambda: kmx.match_mxu_best_plain(chunk, pat, **bkw), 2)
+        flops = R * plan.n_locs * bkw["n_k"] * 2 * Qn
+        nbytes = R * F4 * 2 + P4 * Q * 2 + 2 * R * Q * 4
+        bms, bby = bound(nbytes, flops, PEAK_BF16)
+        kernels.append(dict(
+            name="match_mxu_best", rows=R, ms=ms, event_ms=event_ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
+            max_abs_err=err_best))
 
         # filter_qgram at (e)'s launch: every live row's signature.
         cm = engine.compile(qe)
@@ -822,22 +950,24 @@ def main() -> int:
         got = kbw.bitwise("XOR", xa, xb)
         err = int((got != kbw.bitwise_plain("XOR", xa, xb)).sum())
         check(err == 0, "bitwise equals its plain version")
-        ms = device_ms(lambda: kbw.bitwise("XOR", xa, xb), 20, flush)
+        times, turns = device_ms_turns(
+            {"kernel": lambda: kbw.bitwise("XOR", xa, xb),
+             "library": lambda: torch.bitwise_xor(xa, xb)}, 20, flush)
         event_ms = cuda_ms(lambda: kbw.bitwise("XOR", xa, xb), 20)
         plain_ms = cuda_ms(lambda: kbw.bitwise_plain("XOR", xa, xb), 20)
-        library_ms = device_ms(lambda: torch.bitwise_xor(xa, xb), 20, flush)
         bms, bby = bound(3 * xa.numel() * 4, xa.numel(), PEAK_INT32)
         kernels.append(dict(
-            name="bitwise", rows=xa.shape[0], ms=ms, event_ms=event_ms,
-            plain_ms=plain_ms,
-            bound_ms=bms, bound_by=bby, library_ms=library_ms,
-            max_abs_err=err))
+            name="bitwise", rows=xa.shape[0], ms=times["kernel"],
+            event_ms=event_ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=bby, library_ms=times["library"],
+            max_abs_err=err, turns=turns))
         for k in kernels:
             print(f"  {k['name']}: {k['rows']} rows, kernel {k['ms']:.4f} ms "
                   f"on the device ({k['event_ms']:.4f} ms per call by "
                   f"events), plain {k['plain_ms']:.4f} ms, bound "
                   f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "
-                  f"{k['library_ms']}")
+                  f"{k['library_ms']}"
+                  + (f", in turns {k['turns']}" if "turns" in k else ""))
 
     with Phase("phase 6: profile of one run of (a), (c) and (e)"):
         profile_runs(engine, {"a": qa, "c": qc, "e": qe})
@@ -845,6 +975,7 @@ def main() -> int:
     # -- 7. summary ---------------------------------------------------------
     # Each kernel's launches come from its own path's run.
     path_launches = dict(launches)
+    path_launches["match_mxu"] = launches_c2["match_mxu"]
     path_launches["filter_qgram"] = launches_ef["filter_qgram"]
     path_launches["bank_prefilter"] = launches_bank["bank_prefilter"]
     path_launches["popcount"] = launches_bulk["popcount"]
@@ -860,7 +991,7 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-            "event_ms": k["event_ms"],
+            "event_ms": k["event_ms"], "turns_ms": k.get("turns"),
             "shape_rows": k["rows"], "n_launches": n,
             "matches_plain": k["max_abs_err"] == 0})
     check(len(rows_out) == len(SOURCES), "every kernel measured")

@@ -2,8 +2,10 @@
 
 * ``match_swar``   -- SWAR sliding match, exact (``match_swar``) and
   accept-set (``match_swar_masks``); CUDA C++ in ``csrc/match_swar.cu``.
-* ``match_mxu``    -- one-hot correlation on the tensor cores (WMMA);
-  CUDA C++ in ``csrc/match_mxu.cu``.
+* ``match_mxu``    -- one-hot correlation on the tensor cores
+  (``wgmma``): the full score block (``match_mxu``) or the best
+  alignment per (row, pattern) reduced in the kernel's epilogue
+  (``match_mxu_best``); CUDA C++ in ``csrc/match_mxu.cu``.
 * ``filter_qgram`` -- q-gram signature filters: the corpus filter
   (``filter_qgram``) and the standing bank's prefilter
   (``bank_prefilter``); CUDA C++ in ``csrc/filter_qgram.cu``.

@@ -16,14 +16,22 @@ matrix.  Same contract as the JAX kernel:
                                  Q % 128 == 0 (zero columns pad Q).
   out      (R, l_pad, Q) f32  -- scores; the caller trims to L and rounds.
 
+``match_mxu_best`` is the same contraction with the ``best`` reduction in
+the kernel's epilogue: per (row, pattern) the best rounded score over the
+first ``n_locs`` alignments and the first alignment attaining it, as
+``round`` + slice + ``argmax``/``amax`` over the full block give them, so
+the (R, l_pad, Q) block never leaves the chip.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(``csrc/match_mxu.cu``) or raises.  ``match_mxu.n_launches`` counts
-kernel launches only.
+(``csrc/match_mxu.cu``, one mainloop with a store and a best epilogue)
+or raises.  ``match_mxu.n_launches`` and ``match_mxu_best.n_launches``
+count kernel launches only.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -38,6 +46,10 @@ PLAIN_ROW_BLOCK = 256
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p]
+_BEST_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _check(ref_flat: torch.Tensor, pat_mat: torch.Tensor, l_pad: int) -> None:
@@ -72,11 +84,7 @@ def match_mxu(ref_flat: torch.Tensor, pat_mat: torch.Tensor, *,
         return match_mxu_plain(ref_flat, pat_mat, l_pad=l_pad)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    # The kernel reads the rows in 8-byte and the patterns in 16-byte
-    # vectors.
-    if ref_flat.data_ptr() % 8 or pat_mat.data_ptr() % 16:
-        raise ValueError("match_mxu operands must be 8-byte (ref_flat) and "
-                         "16-byte (pat_mat) aligned")
+    _check_aligned(ref_flat, pat_mat)
     R, F4 = ref_flat.shape
     P4, Q = pat_mat.shape
     out = torch.empty((R, l_pad, Q), dtype=torch.float32, device=dev)
@@ -93,6 +101,64 @@ def match_mxu(ref_flat: torch.Tensor, pat_mat: torch.Tensor, *,
 
 
 match_mxu.n_launches = 0
+
+
+def _check_aligned(ref_flat: torch.Tensor, pat_mat: torch.Tensor) -> None:
+    # The kernel's bulk copies read 16-byte aligned spans (a row that
+    # starts only 8 bytes aligned is copied from 8 bytes earlier, which
+    # stays inside the tensor when its first row is 16-byte aligned).
+    if ref_flat.data_ptr() % 16 or pat_mat.data_ptr() % 16:
+        raise ValueError("match_mxu operands must be 16-byte aligned")
+
+
+def best_l_pad(n_locs: int) -> int:
+    """The ``l_pad`` (multiple of L_TILE) that covers ``n_locs``."""
+    return max(-(-n_locs // L_TILE) * L_TILE, L_TILE)
+
+
+def _check_best(ref_flat: torch.Tensor, pat_mat: torch.Tensor, n_locs: int,
+                n_k: int) -> None:
+    if n_locs < 1:
+        raise ValueError(f"n_locs must be >= 1, got {n_locs}")
+    _check(ref_flat, pat_mat, best_l_pad(n_locs))
+    if not 1 <= n_k <= pat_mat.shape[0]:
+        raise ValueError(f"n_k must be in [1, {pat_mat.shape[0]}], got {n_k}")
+
+
+def match_mxu_best(ref_flat: torch.Tensor, pat_mat: torch.Tensor, *,
+                   n_locs: int, n_k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ref_flat (R, F4) bf16, pat_mat (P4, Q) bf16 -> (best_loc, best_score),
+    each (R, Q) int32, over alignments l < n_locs.
+
+    Pattern rows at and past ``n_k`` (= 4P) must be zero: the kernel does
+    not read them.
+    """
+    _check_best(ref_flat, pat_mat, n_locs, n_k)
+    dev = ref_flat.device
+    if dev.type == "cpu":
+        return match_mxu_best_plain(ref_flat, pat_mat, n_locs=n_locs, n_k=n_k)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_aligned(ref_flat, pat_mat)
+    R, F4 = ref_flat.shape
+    P4, Q = pat_mat.shape
+    best_loc = torch.empty((R, Q), dtype=torch.int32, device=dev)
+    best_score = torch.empty((R, Q), dtype=torch.int32, device=dev)
+    lib = _build.load("match_mxu")
+    fn = lib.match_mxu_best_launch
+    fn.argtypes, fn.restype = _BEST_ARGTYPES, ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(ref_flat.data_ptr(), R, F4, pat_mat.data_ptr(), P4, Q, n_k,
+                 n_locs, best_l_pad(n_locs), best_loc.data_ptr(),
+                 best_score.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "match_mxu_best_launch", lib)
+    match_mxu_best.n_launches += 1
+    return best_loc, best_score
+
+
+match_mxu_best.n_launches = 0
 
 
 def match_mxu_plain(ref_flat: torch.Tensor, pat_mat: torch.Tensor, *,
@@ -114,3 +180,15 @@ def match_mxu_plain(ref_flat: torch.Tensor, pat_mat: torch.Tensor, *,
         win = flat.as_strided((r1 - r0, l_pad, P4), (F4, 4, 1))
         out[r0:r1] = torch.matmul(win, pat)
     return out
+
+
+def match_mxu_best_plain(ref_flat: torch.Tensor, pat_mat: torch.Tensor, *,
+                         n_locs: int, n_k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``match_mxu_plain``, rounded, sliced to ``n_locs``, then the first
+    argmax and the max over alignments, in int32.  Reads all P4 pattern
+    rows (``n_k`` only bounds what the kernel reads)."""
+    del n_k
+    out = match_mxu_plain(ref_flat, pat_mat, l_pad=best_l_pad(n_locs))
+    scores = torch.round(out[:, :n_locs, :]).to(torch.int32)
+    return scores.argmax(dim=1).to(torch.int32), scores.amax(dim=1)

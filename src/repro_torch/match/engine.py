@@ -398,6 +398,9 @@ class CompiledMatch:
             thr_int = np.clip(np.ceil(thr_vec), -(2 ** 31),
                               2 ** 31 - 1).astype(np.int32)
 
+        # best / top-k on the tensor cores: the reduction runs in the
+        # kernel's epilogue, so no (rows, L, Q) block is materialized.
+        fused_best = plan.backend == "mxu" and reduction in ("best", "topk")
         t_scan0 = time.perf_counter()
         for c0 in range(0, R_pad, step):
             c1 = min(c0 + step, R_pad)
@@ -408,8 +411,12 @@ class CompiledMatch:
             # dispatch, the device wait lands in the pull spans.
             with tr.span("launch",
                          {"c0": c0, "rows": valid} if tr.enabled else None):
-                scores = engine._chunk_scores(plan, self._pats2d, c0, c1,
-                                              self._packed, idx, idx_log)
+                if fused_best:
+                    best = engine._chunk_best_mxu(plan, c0, c1, self._packed,
+                                                  idx)
+                else:
+                    scores = engine._chunk_scores(plan, self._pats2d, c0, c1,
+                                                  self._packed, idx, idx_log)
             n_chunks += 1
             alive = None
             if dead_full is not None:
@@ -427,7 +434,11 @@ class CompiledMatch:
                     sc[~alive] = -1
                 full.append(sc)
                 continue
-            bl, bs = merger.chunk_best(scores)
+            if fused_best:
+                bl, bs = merger.slice_best(*best, plan.n_patterns,
+                                           batched=plan.mode == "batched")
+            else:
+                bl, bs = merger.chunk_best(scores)
             bl_np = merger.pull(bl)[:valid]
             bs_np = merger.pull(bs)[:valid]
             if alive is not None:
@@ -808,6 +819,16 @@ class MatchEngine:
         scores = torch.round(out[:, :plan.n_locs, :plan.n_patterns]
                              ).to(torch.int32)
         return scores[:, :, 0] if plan.mode != "batched" else scores
+
+    def _chunk_best_mxu(self, plan: Plan, c0: int, c1: int,
+                        packed: torch.Tensor, idx: Optional[torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(best_loc, best_score), each (rows, q_pad) int32, for query rows
+        [c0, c1) of an mxu plan: one ``match_mxu_best`` launch."""
+        base = self.corpus.onehot_flat(plan.f_chars)
+        ref_flat = base[idx[c0:c1]] if idx is not None else base[c0:c1]
+        return _mxu.match_mxu_best(ref_flat, packed, n_locs=plan.n_locs,
+                                   n_k=4 * plan.pattern_chars)
 
     # -- empty subsets --------------------------------------------------------
     def _empty_plan(self, query: MatchQuery,

@@ -10,6 +10,8 @@ collective counters arrive with the multi-GPU slice.
 * ``chunk_best``  -- per-row argmax / max over alignments.  Both
   ``torch.argmax`` and ``jnp.argmax`` return the first maximal index; the
   locations are cast to int32, ``jnp.argmax``'s type with x64 off.
+  ``slice_best`` takes the same pair from a kernel that reduced in its
+  epilogue (``match_mxu_best``) and only trims the padded columns.
 * ``hot_mask`` / ``gather_rows`` -- the threshold reduction's sparse
   two-phase pull (integer-exact ``s >= ceil(t)``).
 * ``or_`` / ``survivor_union`` -- the filter stage's union across
@@ -71,6 +73,17 @@ class ShardMerger:
         with tr.span("merge", {"op": "best"} if tr.enabled else None):
             return (scores.argmax(dim=1).to(torch.int32),
                     scores.amax(dim=1))
+
+    def slice_best(self, best_loc: torch.Tensor, best_score: torch.Tensor,
+                   n_patterns: int, *, batched: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A fused kernel's (rows, q_pad) best pair -> the ``chunk_best``
+        shapes: (rows, n_patterns) batched, else column 0 as (rows,)."""
+        tr = self.obs.tracer
+        with tr.span("merge", {"op": "best"} if tr.enabled else None):
+            if batched:
+                return best_loc[:, :n_patterns], best_score[:, :n_patterns]
+            return best_loc[:, 0], best_score[:, 0]
 
     def hot_mask(self, scores: torch.Tensor,
                  thr_int: np.ndarray) -> torch.Tensor:

@@ -114,6 +114,30 @@ def test_matrix(engines, data, backend, reduction, mode, predicate):
         assert rt.hits.shape[0] > 0
 
 
+@pytest.mark.parametrize("reduction,mode", itertools.product(
+    ("best", "topk", "threshold", "full"), ("shared", "batched")))
+def test_mxu_reduction_picks_kernel(engines, data, monkeypatch, reduction,
+                                    mode):
+    """best and top-k reduce in ``match_mxu_best``'s epilogue, one call per
+    chunk; threshold and full take the full score block of ``match_mxu``.
+    Results stay equal to the JAX engine's either way."""
+    from repro_torch.kernels import match_mxu as tmx
+    calls = {"match_mxu": 0, "match_mxu_best": 0}
+    for name in calls:
+        def spy(*a, _name=name, _fn=getattr(tmx, name), **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tmx, name, spy)
+    spec = dict(backend="mxu", reduction=reduction, chunk_rows=CHUNK,
+                threshold=THRESHOLD, k=K)
+    if mode != "shared":
+        spec["mode"] = mode
+    _, rt = run_both(engines, data[1]["exact", mode], **spec)
+    fused = reduction in ("best", "topk")
+    assert calls == {"match_mxu": 0 if fused else rt.n_chunks,
+                     "match_mxu_best": rt.n_chunks if fused else 0}
+
+
 @pytest.mark.parametrize("backend", ("swar", "mxu", "ref"))
 def test_batched_per_query_k_and_thresholds(engines, data, backend):
     _, pats = data

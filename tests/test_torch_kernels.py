@@ -72,6 +72,48 @@ def mxu_operands(R, P, Q, seed=0):
     return flat, pat, l_pad
 
 
+# match_mxu_best cases: (name, rows, pattern chars, patterns, n_locs,
+# extra chars per row).  An odd char count makes F4 % 8 == 4, so odd rows
+# start 8 but not 16 bytes aligned.
+MXU_BEST_CASES = [
+    ("n_locs_not_64", 3, 20, 5, 201, 0),
+    ("row_8_byte_aligned", 4, 40, 128, 150, 1),
+    ("q1_in_128_pad", 2, 33, 1, 77, 0),
+    ("p4_1024", 2, 256, 130, 300, 0),
+    ("tie_first_wins", 3, 24, 7, 256, 1),
+    ("zero_padding_row", 3, 100, 128, 401, 0),
+]
+
+
+def mxu_best_operands(case, seed=0):
+    """Flat one-hot rows, pattern matrix, n_locs and n_k for a best case.
+
+    The tie case uses exact (one-hot) patterns and plants pattern 0 at two
+    alignments of row 0, so both score P; the zero-row case zeroes the
+    last row (every score 0, best loc 0).
+    """
+    name, R, P, Q, n_locs, extra = case
+    rng = np.random.default_rng(seed)
+    p_chars = -(-P // tmx.CHARS_PER_CHUNK) * tmx.CHARS_PER_CHUNK
+    f_chars = tmx.best_l_pad(n_locs) + p_chars + extra
+    codes = rng.integers(0, 4, (R, f_chars), np.uint8)
+    q_pad = -(-Q // 128) * 128
+    pat = np.zeros((p_chars * 4, q_pad), np.float32)
+    if name == "tie_first_wins":
+        pcodes = rng.integers(0, 4, (Q, P), np.uint8)
+        for q in range(Q):
+            pat[np.arange(P) * 4 + pcodes[q], q] = 1
+        for loc in (17, 130):
+            codes[0, loc:loc + P] = pcodes[0]
+    else:
+        pat[:P * 4, :Q] = rng.integers(0, 2, (P * 4, Q))
+    flat = (codes[..., None] == np.arange(4)).astype(np.float32)
+    flat = flat.reshape(R, f_chars * 4)
+    if name == "zero_padding_row":
+        flat[-1] = 0
+    return flat, pat, n_locs, 4 * P
+
+
 def t(a, device="cpu"):
     return convert.swar_words_from_numpy(a, device)
 
@@ -162,6 +204,53 @@ def test_mxu_wrapper_rejects_bad_operands():
         tmx.match_mxu(f.float(), p, l_pad=l_pad)
 
 
+@pytest.mark.parametrize("case", MXU_BEST_CASES, ids=lambda c: c[0])
+def test_mxu_best_plain_matches_pallas(jx, case):
+    flat, pat, n_locs, n_k = mxu_best_operands(case)
+    jnp = jx.jnp
+    block = jx.mxu.match_mxu(
+        jnp.asarray(flat, jnp.bfloat16), jnp.asarray(pat, jnp.bfloat16),
+        l_pad=tmx.best_l_pad(n_locs), interpret=True)
+    scores = jnp.round(block)[:, :n_locs, :].astype(jnp.int32)
+    want_loc = np.asarray(jnp.argmax(scores, axis=1).astype(jnp.int32))
+    want_score = np.asarray(jnp.max(scores, axis=1))
+    loc, score = tmx.match_mxu_best(convert.onehot_from_numpy(flat, "cpu"),
+                                    convert.onehot_from_numpy(pat, "cpu"),
+                                    n_locs=n_locs, n_k=n_k)
+    assert loc.dtype == score.dtype == torch.int32
+    np.testing.assert_array_equal(loc.numpy(), want_loc)
+    np.testing.assert_array_equal(score.numpy(), want_score)
+    if case[0] == "tie_first_wins":
+        assert (int(loc[0, 0]), int(score[0, 0])) == (17, case[2])
+    if case[0] == "zero_padding_row":
+        assert not loc[-1].any() and not score[-1].any()
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("n_locs", "n_locs must be"), ("n_k_zero", "n_k must be"),
+    ("n_k_deep", "n_k must be"), ("short", "too short"), ("dtype", "bf16"),
+    ("q_pad", "padded to 128")])
+def test_mxu_best_wrapper_rejects_bad_operands(bad, match):
+    flat, pat, n_locs, n_k = mxu_best_operands(MXU_BEST_CASES[0])
+    f, p = (convert.onehot_from_numpy(flat, "cpu"),
+            convert.onehot_from_numpy(pat, "cpu"))
+    kw = dict(n_locs=n_locs, n_k=n_k)
+    if bad == "n_locs":
+        kw["n_locs"] = 0
+    elif bad == "n_k_zero":
+        kw["n_k"] = 0
+    elif bad == "n_k_deep":
+        kw["n_k"] = p.shape[0] + 1
+    elif bad == "short":
+        f = f[:, :-4].contiguous()
+    elif bad == "dtype":
+        f = f.float()
+    else:
+        p = p[:, :100].contiguous()
+    with pytest.raises(ValueError, match=match):
+        tmx.match_mxu_best(f, p, **kw)
+
+
 def test_oracles_match_jax_oracles(jx):
     rng = np.random.default_rng(4)
     frags = rng.integers(0, 4, (6, 30), np.uint8)
@@ -232,6 +321,48 @@ def test_mxu_kernel_matches_plain(cuda, R, P, Q):
     assert torch.equal(got, tmx.match_mxu_plain(f, p, l_pad=l_pad))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [128, 256])
+def test_mxu_kernel_matches_plain_large_p(cuda, P):
+    """P4 = 512 and 1,024: the second takes the halved pattern tile."""
+    flat, pat, l_pad = mxu_operands(16, P, 256, seed=P)
+    f, p = (convert.onehot_from_numpy(flat, cuda),
+            convert.onehot_from_numpy(pat, cuda))
+    got = tmx.match_mxu(f, p, l_pad=l_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tmx.match_mxu_plain(f, p, l_pad=l_pad))
+
+
+def _mxu_best_on_card(cuda, flat, pat, n_locs, n_k):
+    f, p = (convert.onehot_from_numpy(flat, cuda),
+            convert.onehot_from_numpy(pat, cuda))
+    n0 = tmx.match_mxu_best.n_launches
+    loc, score = tmx.match_mxu_best(f, p, n_locs=n_locs, n_k=n_k)
+    torch.cuda.synchronize()
+    assert tmx.match_mxu_best.n_launches == n0 + 1
+    want_loc, want_score = tmx.match_mxu_best_plain(f, p, n_locs=n_locs,
+                                                    n_k=n_k)
+    assert torch.equal(score, want_score)
+    assert torch.equal(loc, want_loc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MXU_BEST_CASES, ids=lambda c: c[0])
+def test_mxu_best_kernel_matches_plain(cuda, case):
+    _mxu_best_on_card(cuda, *mxu_best_operands(case, seed=8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 1], ids=["rows_16_byte", "rows_8_byte"])
+def test_mxu_best_kernel_chunk_shape(cuda, extra):
+    """Query (c)'s launch shape (P = 100, 128 patterns, 401 alignments) at
+    64 rows, rows 16-byte aligned, then every other row 8-byte aligned."""
+    case = ("chunk", 64, 100, 128, 401, extra)
+    flat, pat, n_locs, n_k = mxu_best_operands(case, seed=9)
+    assert (flat.shape[1] * 2) % 16 == (8 if extra else 0)
+    _mxu_best_on_card(cuda, flat, pat, n_locs, n_k)
+
+
 # -- card: the filter and bulk kernels against their plain versions -----------
 
 def _u32(rng, shape):
@@ -289,6 +420,33 @@ def test_popcount_kernel_matches_plain(cuda, w):
     torch.cuda.synchronize()
     assert tpc.popcount.n_launches == n0 + 1
     assert torch.equal(got, tpc.popcount_plain(words))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["NOT", "OR", "AND", "NAND", "NOR", "XOR"])
+def test_bitwise_kernel_ragged_length(cuda, op):
+    """The launcher at a word count that is no multiple of 16 (the wrapper
+    only passes multiples of 256 rows): the last, partial block of vectors
+    and the scalar tail; words past the count stay untouched."""
+    import ctypes
+
+    from repro_torch.kernels import bitwise as tbw
+    rng = np.random.default_rng(4)
+    n = 256 * 37 - 7
+    a, b = (t(_u32(rng, (1, 256 * 37)), cuda).view(-1) for _ in range(2))
+    out = torch.full_like(a, 12345)
+    lib = _build.load("bitwise")
+    fn = lib.bitwise_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(tbw.OP_CODES[op], a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "bitwise", lib)
+    torch.cuda.synchronize()
+    want = tbw.bitwise_plain(op, a[:n], b[:n])
+    assert torch.equal(out[:n], want)
+    assert bool((out[n:] == 12345).all())
 
 
 @pytest.mark.gpu
