@@ -40,8 +40,9 @@ printing its wall time:
    kernel plus ``argmax``/``amax`` on every corpus row, and (c)'s top-10
    against the top-10 of those best scores; at the launch shape, the
    kernel's and the library call's device time with the L2 flushed
-   before each launch (``torch.profiler``, kernel and library timed in
-   turns), the kernel's time per call and the plain version's (CUDA
+   before each launch (``torch.profiler`` through ``obs.device_time``,
+   which retakes a reading with device events lost; kernel and library
+   timed in turns), the kernel's time per call and the plain version's (CUDA
    events, back to back), beside the roofline bound.
 6. Profile: one run each of (a), (c) and (e) under ``torch.profiler``
    (device time by kernel, device busy share) and one under the
@@ -152,46 +153,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_events(fn):
-    """``torch.profiler`` device events (key_averages) of ``fn()``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [ev for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def device_ms(fn, reps: int, flush) -> float:
-    """Mean device milliseconds per call over ``reps`` calls, each after
-    ``flush()`` (which overwrites more than the 50 MB L2, so every call
-    reads its inputs from HBM, as the path's single call does): the CUDA
-    kernels' own time from ``torch.profiler``, the flush's kernels left
-    out by their names.  A kernel of a few microseconds finishes before
-    the next call is issued, so CUDA events around back-to-back calls time
-    the host's issue rate instead."""
-    flush_keys = {ev.key for ev in _device_events(flush)}
-    fn()
-
-    def run():
-        for _ in range(reps):
-            flush()
-            fn()
-    return sum(_device_us(ev) for ev in _device_events(run)
-               if ev.key not in flush_keys) / reps / 1e3
-
-
-def _device_us(ev) -> float:
-    us = getattr(ev, "self_device_time_total", None)
-    return ev.self_cuda_time_total if us is None else us
-
-
 def profile_runs(engine, queries) -> None:
     """Device time by kernel and host stage seconds for one run each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.device_time import device_us
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for key, q in queries.items():
         cm = engine.compile(q)
@@ -206,7 +173,7 @@ def profile_runs(engine, queries) -> None:
             # host event carries its kernels' time again.
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            us = _device_us(ev)
+            us = device_us(ev)
             if us > 0:
                 by_kernel[ev.key] = (us / 1e3, ev.count)
         dev_ms = sum(ms for ms, _ in by_kernel.values())
@@ -226,6 +193,7 @@ def profile_runs(engine, queries) -> None:
 def device_ms_turns(fns, reps: int, flush, rounds: int = 2):
     """``device_ms`` of each function, timed in turns (a, b, a, b): the
     mean per function over ``rounds`` and every round's reading."""
+    from repro_torch.obs.device_time import device_ms
     runs = {k: [] for k in fns}
     for _ in range(rounds):
         for k, fn in fns.items():
@@ -264,6 +232,7 @@ def main() -> int:
     from repro_torch.match.corpus import one_hot_flat
     from repro_torch.match.engine import _valid_mask
     from repro_torch.match.index import signature_words
+    from repro_torch.obs.device_time import device_ms
 
     dev = torch.device("cuda")
     wrappers = {"match_swar": ksw.match_swar,

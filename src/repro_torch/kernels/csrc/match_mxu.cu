@@ -35,10 +35,12 @@
 //  * Persistent warpgroups.  Each owns a (row, QT-pattern tile) task and
 //    walks all of the row's alignment tiles of 64 itself.  Each tile's
 //    row segment, 4 * 64 + n_k bf16, is prefetched by cp.async.bulk into
-//    the warpgroup's second buffer while the current one computes.  A
-//    row of the one-hot form may start only 8 bytes aligned (its width is
-//    4 * chars); a bulk copy wants 16, so such a segment is copied from 8
-//    bytes earlier and read at an offset of 4 bf16.
+//    the warpgroup's second buffer while the current one computes.  The
+//    wrapper takes any row width F4 % 4 == 0, so a row may start only 8
+//    bytes aligned; a bulk copy wants 16, so such a segment is copied
+//    from 8 bytes earlier and read at an offset of 4 bf16.  The engine's
+//    rows are always 16-byte aligned (f_chars = l_pad + p_chars is even
+//    and above F), so only direct callers take that branch.
 //  * BEST folds each alignment tile into a per-column (score, loc) pair
 //    in registers, ascending l with a strict >, reduces across lanes
 //    under (score desc, loc asc) with shuffles and across the 4 warps in
@@ -259,7 +261,8 @@ mxu_kernel(const bf16* __restrict__ ref, long long R, int F4, const bf16* __rest
 
   // Start of the (row, m-tile) segment in global memory, and its read
   // offset in the buffer: 4 bf16 when the row segment is only 8-byte
-  // aligned, which is then copied from 8 bytes earlier.
+  // aligned, which is then copied from 8 bytes earlier (an odd F4 / 4 of
+  // a direct caller; the engine's rows are 16-byte aligned).
   auto seg_src = [&](long long r, int mt, int& shift) {
     const bf16* src = ref + r * F4 + (size_t)mt * MT * 4;
     shift = (reinterpret_cast<uintptr_t>(src) & 15) ? 4 : 0;

@@ -450,6 +450,21 @@ def test_bitwise_kernel_ragged_length(cuda, op):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", [(v, h, w) for v in (1, 2, 4)
+                                     for h in (0, 1) for w in (0, 1)])
+def test_bitwise_xor_variants_ragged_length(cuda, variant):
+    """Every timed design variant of the XOR kernel at a word count that
+    is no multiple of 16: partial trips and the scalar tail."""
+    from repro_torch.kernels import bitwise_variants as bv
+    rng = np.random.default_rng(5)
+    n = 256 * 37 - 7
+    a, b = (t(_u32(rng, (1, 256 * 37)), cuda).view(-1) for _ in range(2))
+    got = bv.xor_variant(a[:n], b[:n], *variant)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.bitwise_xor(a[:n], b[:n]))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("op", ["NOT", "OR", "AND", "NAND", "NOR", "XOR"])
 def test_bitwise_kernel_matches_plain(cuda, op):
     from repro_torch.kernels import bitwise as tbw
