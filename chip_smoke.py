@@ -12,18 +12,23 @@ printing its wall time:
 1. Environment: torch / CUDA versions, the card's name and power limit.
 2. Build: the five CUDA sources with nvcc, in parallel; the
    ``-Xptxas -v`` resource summary.
-3. Kernels against their plain versions at edge shapes, bit for bit.
+3. Kernels against their plain versions at edge shapes, bit for bit
+   (``match_swar_best`` also on a read planted at two alignments and an
+   all-zero row).
 4. Main path at the size of GRCh38 chr1 (248,956,422 bp, seeded random
    DNA of that length folded into 500-char rows for 100-char reads):
    ``MatchEngine`` (q-gram index attached, the default) ->
    ``compile(MatchQuery)`` -> ``run()`` for (a) an exact read, best,
-   SWAR; (b) an IUPAC read, threshold 95, SWAR accept-set; (c) 128
+   SWAR with the best reduction in the kernel's epilogue
+   (``match_swar_best``); (b) an IUPAC read, threshold 95, SWAR
+   accept-set; (c) 128
    batched reads with 0-3 mismatches, top-10, tensor cores with the best
    reduction in the kernel's epilogue (``match_mxu_best``); (d) read (a)
    with the planner's own choice; (c') (c)'s reads at threshold 97 on the
    tensor cores over a 16,384-row subset holding the planted rows (the
    full-block ``match_mxu``); then (e) read (a) at threshold 99 with the
-   filter forced (filter-then-verify) and (f) the same with the planner's
+   filter forced (filter-then-verify, the survivors through the
+   full-block ``match_swar``) and (f) the same with the planner's
    choice.  Launch counters are zeroed just before each query and read
    just after; (a) and (b) are held against the ``ref`` backend on the
    full corpus, (e) against the same query scanned.
@@ -36,7 +41,8 @@ printing its wall time:
    ``ops.bitwise("XOR", ...)`` on a 256 MiB pair.
 5. Kernels at their paths' shapes: each kernel against its plain
    version at (or beyond) its launch shape with the path's own
-   operands, bit for bit; ``match_mxu_best`` also against the full-block
+   operands, bit for bit (``match_swar`` and ``match_swar_best`` both at
+   (a)'s launch); ``match_mxu_best`` also against the full-block
    kernel plus ``argmax``/``amax`` on every corpus row, and (c)'s top-10
    against the top-10 of those best scores; at the launch shape, the
    kernel's and the library call's device time with the L2 flushed
@@ -91,14 +97,20 @@ HBM_BW = 3.35e12
 # C++ Programming Guide, arithmetic instruction throughput).
 PEAK_POPC = 132 * 16 * 1.98e9
 # INT32 logic/shift operations per (row, alignment, pattern word) as the
-# SWAR kernels' SASS issues them (cuobjdump of the sm_90a build): exact =
-# funnel shift, xor, shift, fold-and-mask (LOP3); accept-set = 3 shifts,
-# 8 LOP3.  Each word also takes one popcount, and one add that the
-# compiler issues on the FMA pipe (IMAD), not counted.
-SWAR_INT_OPS_PER_WORD = {"match_swar": 4, "match_swar_masks": 11}
+# SWAR kernels' first sm_90a build issued them (cuobjdump): exact = funnel
+# shift, xor, shift, fold-and-mask (LOP3); accept-set = 3 shifts, 8 LOP3.
+# Each word also takes one popcount, and one add that the compiler issues
+# on the FMA pipe (IMAD), not counted.  Kept as the bound's count so rows
+# compare across builds; the exact kernel's word pairs now issue half the
+# popcounts (``python -m repro_torch.kernels.match_swar_variants --sass``
+# prints the current opcode counts).
+SWAR_INT_OPS_PER_WORD = {"match_swar": 4, "match_swar_best": 4,
+                         "match_swar_masks": 11}
 SOURCES = {
     "match_swar": ("src/repro_torch/kernels/csrc/match_swar.cu",
                    "src/repro/kernels/match_swar.py:82"),
+    "match_swar_best": ("src/repro_torch/kernels/csrc/match_swar.cu",
+                        "src/repro/kernels/match_swar.py:82"),
     "match_swar_masks": ("src/repro_torch/kernels/csrc/match_swar.cu",
                          "src/repro/kernels/match_swar.py:146"),
     "match_mxu": ("src/repro_torch/kernels/csrc/match_mxu.cu",
@@ -236,6 +248,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     wrappers = {"match_swar": ksw.match_swar,
+                "match_swar_best": ksw.match_swar_best,
                 "match_swar_masks": ksw.match_swar_masks,
                 "match_mxu": kmx.match_mxu,
                 "match_mxu_best": kmx.match_mxu_best,
@@ -244,6 +257,7 @@ def main() -> int:
                 "popcount": kpc.popcount,
                 "bitwise": kbw.bitwise}
     plains = {"match_swar": ksw.match_swar_plain,
+              "match_swar_best": ksw.match_swar_best_plain,
               "match_swar_masks": ksw.match_swar_masks_plain,
               "match_mxu": kmx.match_mxu_plain,
               "match_mxu_best": kmx.match_mxu_best_plain}
@@ -281,6 +295,11 @@ def main() -> int:
     def u32(rng, shape):
         return rng.integers(0, 2**32, shape, dtype=np.uint32)
 
+    def same(got, want):
+        if isinstance(got, tuple):
+            return all(torch.equal(x, y) for x, y in zip(got, want))
+        return torch.equal(got, want)
+
     with Phase("phase 3: kernels vs plain versions, edge shapes"):
         rng = np.random.default_rng(SEED)
         # sh == 0 only; P % 16 != 0; Wp 1-3; R exactly 8; P = 100; P > 256.
@@ -290,15 +309,40 @@ def main() -> int:
             W = (L - 1) // 16 + wp + 2
             ref = words(u32(rng, (R, W)))
             val = words(_valid_mask(P, wp))
-            for name, planes in (("match_swar", 1), ("match_swar_masks", 4)):
+            for name, planes in (("match_swar", 1), ("match_swar_best", 1),
+                                 ("match_swar_masks", 4)):
                 pat = words(u32(rng, (R, planes * wp)))
                 for p in (pat, pat[:1].expand(R, -1)):
                     got = wrappers[name](ref, p, val, n_locs=L,
                                          pattern_chars=P)
                     want = plains[name](ref, p, val, n_locs=L,
                                         pattern_chars=P)
-                    check(torch.equal(got, want),
-                          f"{name} R={R} P={P} L={L}")
+                    check(same(got, want), f"{name} R={R} P={P} L={L}")
+        # match_swar_best: a read planted at two alignments of row 0 (the
+        # first wins) and an all-zero padding row (every alignment ties).
+        R, P, L = 16, READ, 401
+        wp = -(-P // 16)
+        W = (L - 1) // 16 + wp + 2
+        codes = rng.integers(0, 4, (R, 16 * W), np.uint8)
+        pcodes = np.zeros(16 * wp, np.uint8)
+        pcodes[:P] = rng.integers(0, 4, P)
+        for loc in (17, 130):
+            codes[0, loc:loc + P] = pcodes[:P]
+        codes[:, -16:] = 0
+        codes[-1] = 0
+
+        def pack(c):
+            lanes = c.reshape(c.shape[0], -1, 16).astype(np.uint32)
+            return (lanes << (2 * np.arange(16, dtype=np.uint32))).sum(
+                -1, dtype=np.uint32)
+        ref, val = words(pack(codes)), words(_valid_mask(P, wp))
+        pat = words(pack(pcodes[None])).expand(R, -1)
+        got = ksw.match_swar_best(ref, pat, val, n_locs=L, pattern_chars=P)
+        check(same(got, ksw.match_swar_best_plain(ref, pat, val, n_locs=L,
+                                                   pattern_chars=P))
+              and (int(got[0][0]), int(got[1][0])) == (17, P)
+              and int(got[0][-1]) == 0,
+              "match_swar_best planted tie and zero row")
         for R, P, Q in [(3, 20, 5), (2, 40, 1), (5, 100, 128), (2, 33, 256),
                         (8, 100, 130)]:
             p_chars = -(-P // kmx.CHARS_PER_CHUNK) * kmx.CHARS_PER_CHUNK
@@ -477,9 +521,17 @@ def main() -> int:
               and per_query["c"]["match_mxu"] == 0,
               "(c) launches match_mxu_best once per chunk, match_mxu never")
         print(f"  (d) planner chose {rd.plan.backend}: {rd.plan.reason}")
-        check(np.array_equal(rd.best_scores, ra.best_scores),
+        check(rd.plan.backend == "swar", "(d) planner chose SWAR")
+        check(np.array_equal(rd.best_scores, ra.best_scores)
+              and np.array_equal(rd.best_locs, ra.best_locs),
               "(d) agrees with (a)")
-        for name in ("match_swar", "match_swar_masks", "match_mxu_best"):
+        for key, res in (("a", ra), ("d", rd)):
+            check(per_query[key]["match_swar_best"] == runs * res.n_chunks
+                  and per_query[key]["match_swar"] == 0,
+                  f"({key}) launches match_swar_best once per chunk, "
+                  "match_swar never")
+        for name in ("match_swar_best", "match_swar_masks",
+                     "match_mxu_best"):
             check(launches[name] > 0, f"{name} launched on the main path")
 
         # (c'): the full-block kernel and the threshold reduction.
@@ -528,6 +580,8 @@ def main() -> int:
         check(engine.index.sig_pack_count == 1, "(e) one signature pack")
         check(launches_ef["filter_qgram"] > 0,
               "filter_qgram launched on the (e)-(f) path")
+        check(launches_ef["match_swar"] > 0,
+              "match_swar launched on the (e)-(f) path (verify)")
         print(f"  (e) survivors {len(re_.survivor_rows)} rows "
               f"({re_.survivor_frac:.6f} of {n_rows}), "
               f"{re_.hits.shape[0]} hits; (f) planner chose "
@@ -705,7 +759,12 @@ def main() -> int:
 
         def flush():
             l2.zero_()
-        for name, key in (("match_swar", "a"), ("match_swar_masks", "b")):
+        # The SWAR kernels at (a)'s and (b)'s launch: one chunk of rows
+        # against the query's broadcast pattern.  Bound: the INT32 ops and
+        # popcounts per (row, alignment, pattern word); bytes: the rows
+        # read once, and the (R, L) block or BEST's (R,) pairs written.
+        for name, key in (("match_swar", "a"), ("match_swar_best", "a"),
+                          ("match_swar_masks", "b")):
             cm = engine.compile(qa if key == "a" else qb)
             plan = cm.plan
             base = corpus.swar_words(plan.need_words)
@@ -718,9 +777,11 @@ def main() -> int:
             n_cmp = max(plan.chunk_rows, SUBSET_ROWS)
             got = kern(*args(n_cmp), **kw)
             want = plain(*args(n_cmp), **kw)
-            err = int((got - want).abs().max())
+            err = max(int((x - y).abs().max()) for x, y in (
+                zip(got, want) if isinstance(got, tuple) else [(got, want)]))
             check(err == 0, f"{name} equals its plain version on {n_cmp} "
                   "rows")
+            del got, want
             R = plan.chunk_rows           # the main path's launch shape
             a = args(R)
             ms = device_ms(lambda: kern(*a, **kw), 20, flush)
@@ -729,8 +790,9 @@ def main() -> int:
             W = base.shape[1]
             n_planes = pat_rows.shape[1]
             n_words = R * plan.n_locs * plan.wp
-            nbytes = (R * W * 4 + n_planes * 4 + plan.wp * 4
-                      + R * plan.n_locs * 4)
+            out_bytes = R * 8 if name == "match_swar_best" \
+                else R * plan.n_locs * 4
+            nbytes = R * W * 4 + n_planes * 4 + plan.wp * 4 + out_bytes
             t_ops = max(n_words * SWAR_INT_OPS_PER_WORD[name] / PEAK_INT32,
                         n_words / PEAK_POPC)
             t_bytes = nbytes / HBM_BW
@@ -945,6 +1007,7 @@ def main() -> int:
     # Each kernel's launches come from its own path's run.
     path_launches = dict(launches)
     path_launches["match_mxu"] = launches_c2["match_mxu"]
+    path_launches["match_swar"] = launches_ef["match_swar"]
     path_launches["filter_qgram"] = launches_ef["filter_qgram"]
     path_launches["bank_prefilter"] = launches_bank["bank_prefilter"]
     path_launches["popcount"] = launches_bulk["popcount"]

@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
-* ``match_swar``   -- SWAR sliding match, exact (``match_swar``) and
-  accept-set (``match_swar_masks``); CUDA C++ in ``csrc/match_swar.cu``.
+* ``match_swar``   -- SWAR sliding match, exact: the full score block
+  (``match_swar``) or the best alignment per row reduced in the kernel's
+  epilogue (``match_swar_best``); accept-set (``match_swar_masks``);
+  CUDA C++ in ``csrc/match_swar.cu``.
 * ``match_mxu``    -- one-hot correlation on the tensor cores
   (``wgmma``): the full score block (``match_mxu``) or the best
   alignment per (row, pattern) reduced in the kernel's epilogue

@@ -7,7 +7,11 @@ words, compared lane-wise with the pattern, and the mismatching lanes
 counted.  ``match_swar_masks`` is the accept-set variant: the pattern is
 four bit-planes (plane c has the low bit of lane i set iff code c is
 accepted at pattern position i), which IUPAC codes, N wildcards and
-character classes all lower to.
+character classes all lower to.  ``match_swar_best`` is ``match_swar``
+with the ``best`` reduction in the kernel's epilogue: per row the best
+score over the ``n_locs`` alignments and the first alignment attaining
+it, as ``argmax``/``amax`` over ``match_swar``'s block give them, so the
+(R, L) block never leaves the chip.
 
 Data layout (the JAX package's contract; uint32 bits carried in int32
 tensors, ``torch.from_numpy(a.view(np.int32))``):
@@ -18,22 +22,26 @@ tensors, ``torch.from_numpy(a.view(np.int32))``):
   pat_planes (R, 4*Wp) int32 -- plane c in columns [c*Wp, (c+1)*Wp).
   valid_mask (1, Wp)   int32 -- low-bit-of-lane mask of valid pattern chars.
   out        (R, L)    int32 -- P - mismatches per alignment.
+  best_loc, best_score (R,) int32 -- ``match_swar_best``'s pair.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(``csrc/match_swar.cu``) or raises.  ``match_swar.n_launches`` /
-``match_swar_masks.n_launches`` count kernel launches only.
+(``csrc/match_swar.cu``: one exact mainloop with a store and a best
+epilogue, and the accept-set loop) or raises.  ``match_swar.n_launches``,
+``match_swar_best.n_launches`` and ``match_swar_masks.n_launches`` count
+kernel launches only.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from . import _build
 from .ref import M1, M2, M4, MUL, U32, as_u32
 
-ROW_TILE = 8  # rows per block; callers pad rows to a multiple of it
+ROW_TILE = 8  # callers pad rows to a multiple of it (the Pallas row tile)
 # Rows per step of the plain versions (bounds their int64 temporaries).
 PLAIN_ROW_BLOCK = 4096
 # Code c replicated into every 2-bit lane (lane equality test operand).
@@ -43,6 +51,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p]
+_BEST_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _check(ref_words: torch.Tensor, pat_words: torch.Tensor,
@@ -87,22 +96,26 @@ def _check(ref_words: torch.Tensor, pat_words: torch.Tensor,
 
 def _launch(symbol: str, ref_words: torch.Tensor, pat_words: torch.Tensor,
             valid_mask: torch.Tensor, wp: int, n_locs: int,
-            pattern_chars: int) -> torch.Tensor:
+            pattern_chars: int, outs: Tuple[torch.Size, ...]
+            ) -> Tuple[torch.Tensor, ...]:
+    """Launch ``symbol`` into fresh int32 outputs of the given shapes."""
     dev = ref_words.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     R, W = ref_words.shape
-    out = torch.empty((R, n_locs), dtype=torch.int32, device=dev)
+    res = tuple(torch.empty(shape, dtype=torch.int32, device=dev)
+                for shape in outs)
     lib = _build.load("match_swar")
     fn = getattr(lib, symbol)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn.argtypes = _ARGTYPES if len(outs) == 1 else _BEST_ARGTYPES
+    fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(ref_words.data_ptr(), R, W, pat_words.data_ptr(),
                  pat_words.stride(0), valid_mask.data_ptr(), wp, n_locs,
-                 pattern_chars, out.data_ptr(),
+                 pattern_chars, *(t.data_ptr() for t in res),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, symbol, lib)
-    return out
+    return res
 
 
 def match_swar(ref_words: torch.Tensor, pat_words: torch.Tensor,
@@ -113,10 +126,28 @@ def match_swar(ref_words: torch.Tensor, pat_words: torch.Tensor,
     if ref_words.device.type == "cpu":
         return match_swar_plain(ref_words, pat_words, valid_mask,
                                 n_locs=n_locs, pattern_chars=pattern_chars)
-    out = _launch("match_swar_launch", ref_words, pat_words, valid_mask, wp,
-                  n_locs, pattern_chars)
+    out, = _launch("match_swar_launch", ref_words, pat_words, valid_mask, wp,
+                   n_locs, pattern_chars, ((ref_words.shape[0], n_locs),))
     match_swar.n_launches += 1
     return out
+
+
+def match_swar_best(ref_words: torch.Tensor, pat_words: torch.Tensor,
+                    valid_mask: torch.Tensor, *, n_locs: int,
+                    pattern_chars: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(best_loc, best_score), each (R,) int32: ``match_swar``'s best
+    alignment per row (first on ties), reduced in the kernel."""
+    wp = _check(ref_words, pat_words, valid_mask, n_locs, pattern_chars, 1)
+    if ref_words.device.type == "cpu":
+        return match_swar_best_plain(ref_words, pat_words, valid_mask,
+                                     n_locs=n_locs,
+                                     pattern_chars=pattern_chars)
+    R = ref_words.shape[0]
+    best = _launch("match_swar_best_launch", ref_words, pat_words,
+                   valid_mask, wp, n_locs, pattern_chars, ((R,), (R,)))
+    match_swar_best.n_launches += 1
+    return best
 
 
 def match_swar_masks(ref_words: torch.Tensor, pat_planes: torch.Tensor,
@@ -128,13 +159,15 @@ def match_swar_masks(ref_words: torch.Tensor, pat_planes: torch.Tensor,
         return match_swar_masks_plain(ref_words, pat_planes, valid_mask,
                                       n_locs=n_locs,
                                       pattern_chars=pattern_chars)
-    out = _launch("match_swar_masks_launch", ref_words, pat_planes,
-                  valid_mask, wp, n_locs, pattern_chars)
+    out, = _launch("match_swar_masks_launch", ref_words, pat_planes,
+                   valid_mask, wp, n_locs, pattern_chars,
+                   ((ref_words.shape[0], n_locs),))
     match_swar_masks.n_launches += 1
     return out
 
 
 match_swar.n_launches = 0
+match_swar_best.n_launches = 0
 match_swar_masks.n_launches = 0
 
 
@@ -177,6 +210,17 @@ def match_swar_plain(ref_words: torch.Tensor, pat_words: torch.Tensor,
         mism = (diff | (diff >> 1)) & M1 & valid
         out[r0:r1] = pattern_chars - _mismatch_count(mism)
     return out
+
+
+def match_swar_best_plain(ref_words: torch.Tensor, pat_words: torch.Tensor,
+                          valid_mask: torch.Tensor, *, n_locs: int,
+                          pattern_chars: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``match_swar_plain``, then the first ``argmax`` and the ``amax`` over
+    alignments, in int32 (the merger's ``chunk_best``)."""
+    scores = match_swar_plain(ref_words, pat_words, valid_mask,
+                              n_locs=n_locs, pattern_chars=pattern_chars)
+    return scores.argmax(dim=1).to(torch.int32), scores.amax(dim=1)
 
 
 def match_swar_masks_plain(ref_words: torch.Tensor, pat_planes: torch.Tensor,

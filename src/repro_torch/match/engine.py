@@ -398,9 +398,12 @@ class CompiledMatch:
             thr_int = np.clip(np.ceil(thr_vec), -(2 ** 31),
                               2 ** 31 - 1).astype(np.int32)
 
-        # best / top-k on the tensor cores: the reduction runs in the
-        # kernel's epilogue, so no (rows, L, Q) block is materialized.
-        fused_best = plan.backend == "mxu" and reduction in ("best", "topk")
+        # best / top-k on the tensor cores or exact SWAR: the reduction
+        # runs in the kernel's epilogue, so no (rows, L[, Q]) block is
+        # materialized.
+        fused_best = reduction in ("best", "topk") and (
+            plan.backend == "mxu"
+            or (plan.backend == "swar" and plan.predicate == "exact"))
         t_scan0 = time.perf_counter()
         for c0 in range(0, R_pad, step):
             c1 = min(c0 + step, R_pad)
@@ -412,8 +415,7 @@ class CompiledMatch:
             with tr.span("launch",
                          {"c0": c0, "rows": valid} if tr.enabled else None):
                 if fused_best:
-                    best = engine._chunk_best_mxu(plan, c0, c1, self._packed,
-                                                  idx)
+                    best = engine._chunk_best(plan, c0, c1, self._packed, idx)
                 else:
                     scores = engine._chunk_scores(plan, self._pats2d, c0, c1,
                                                   self._packed, idx, idx_log)
@@ -754,13 +756,6 @@ class MatchEngine:
         return self._plan_query(query, n_rows)
 
     # -- kernel dispatch (one chunk, pure device) -----------------------------
-    def _swar_chunk(self, words: torch.Tensor, pat_rows: torch.Tensor,
-                    mask: torch.Tensor, plan: Plan) -> torch.Tensor:
-        kern = (_swar.match_swar_masks if plan.predicate == "accept"
-                else _swar.match_swar)
-        return kern(words, pat_rows, mask, n_locs=plan.n_locs,
-                    pattern_chars=plan.pattern_chars)
-
     def _chunk_scores(self, plan: Plan, pats2d: np.ndarray, c0: int,
                       c1: int, packed, idx: Optional[torch.Tensor],
                       idx_log: Optional[np.ndarray] = None) -> torch.Tensor:
@@ -788,29 +783,14 @@ class MatchEngine:
             return fn(frags, pats[c0:c1] if plan.mode == "per_row" else pats)
 
         if plan.backend == "swar":
-            base = self.corpus.swar_words(plan.need_words)
-            words = base[idx[c0:c1]] if idx is not None else base[c0:c1]
-            pat_rows, mask = packed   # (Q, Wp) words or (Q, 4*Wp) planes
-            if plan.mode == "per_row":
-                r_pad = words.shape[0]
-                rows = pat_rows[c0:min(c1, pat_rows.shape[0])]
-                if rows.shape[0] < r_pad:
-                    rows = torch.cat([rows, rows.new_zeros(
-                        (r_pad - rows.shape[0], rows.shape[1]))], 0)
-                return self._swar_chunk(words, rows, mask, plan)
+            kern = (_swar.match_swar_masks if plan.predicate == "accept"
+                    else _swar.match_swar)
+            out = kern(*self._swar_operands(plan, c0, c1, packed, idx),
+                       n_locs=plan.n_locs, pattern_chars=plan.pattern_chars)
             if plan.mode == "batched":
-                # Fused batched launch: tile the chunk Q times and ride
-                # each pattern as a per-row pattern -- one kernel launch
-                # for all Q queries.
-                Q = plan.n_patterns
-                Rc = words.shape[0]
-                out = self._swar_chunk(words.repeat(Q, 1),
-                                       pat_rows.repeat_interleave(Rc, 0),
-                                       mask, plan)
-                return out.reshape(Q, Rc, plan.n_locs).permute(1, 2, 0)
-            # Shared: one pattern broadcast to every row (row stride 0).
-            pw = pat_rows[0][None, :].expand(words.shape[0], -1)
-            return self._swar_chunk(words, pw, mask, plan)
+                return out.reshape(plan.n_patterns, -1, plan.n_locs
+                                   ).permute(1, 2, 0)
+            return out
 
         # mxu
         base = self.corpus.onehot_flat(plan.f_chars)
@@ -820,15 +800,46 @@ class MatchEngine:
                              ).to(torch.int32)
         return scores[:, :, 0] if plan.mode != "batched" else scores
 
-    def _chunk_best_mxu(self, plan: Plan, c0: int, c1: int,
-                        packed: torch.Tensor, idx: Optional[torch.Tensor]
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(best_loc, best_score), each (rows, q_pad) int32, for query rows
-        [c0, c1) of an mxu plan: one ``match_mxu_best`` launch."""
-        base = self.corpus.onehot_flat(plan.f_chars)
-        ref_flat = base[idx[c0:c1]] if idx is not None else base[c0:c1]
-        return _mxu.match_mxu_best(ref_flat, packed, n_locs=plan.n_locs,
-                                   n_k=4 * plan.pattern_chars)
+    def _swar_operands(self, plan: Plan, c0: int, c1: int, packed,
+                       idx: Optional[torch.Tensor]):
+        """(words, pattern rows, valid mask) of the one SWAR launch for
+        query rows [c0, c1): a batched plan tiles the chunk Q times and
+        rides each pattern as a per-row pattern (one launch for all Q
+        queries, rows ordered pattern-major); a shared pattern is a row
+        stride-0 view; per-row patterns are zero-padded to the chunk."""
+        base = self.corpus.swar_words(plan.need_words)
+        words = base[idx[c0:c1]] if idx is not None else base[c0:c1]
+        pat_rows, mask = packed   # (Q, Wp) words or (Q, 4*Wp) planes
+        if plan.mode == "per_row":
+            r_pad = words.shape[0]
+            rows = pat_rows[c0:min(c1, pat_rows.shape[0])]
+            if rows.shape[0] < r_pad:
+                rows = torch.cat([rows, rows.new_zeros(
+                    (r_pad - rows.shape[0], rows.shape[1]))], 0)
+            return words, rows, mask
+        if plan.mode == "batched":
+            Rc = words.shape[0]
+            return (words.repeat(plan.n_patterns, 1),
+                    pat_rows.repeat_interleave(Rc, 0), mask)
+        return words, pat_rows[0][None, :].expand(words.shape[0], -1), mask
+
+    def _chunk_best(self, plan: Plan, c0: int, c1: int, packed,
+                    idx: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(best_loc, best_score) for query rows [c0, c1), each (rows, q)
+        int32, from one launch of a kernel that reduces in its epilogue:
+        ``match_mxu_best`` (q = q_pad) or, for exact SWAR,
+        ``match_swar_best`` (q = Q batched, else 1)."""
+        if plan.backend == "mxu":
+            base = self.corpus.onehot_flat(plan.f_chars)
+            ref_flat = base[idx[c0:c1]] if idx is not None else base[c0:c1]
+            return _mxu.match_mxu_best(ref_flat, packed, n_locs=plan.n_locs,
+                                       n_k=4 * plan.pattern_chars)
+        bl, bs = _swar.match_swar_best(
+            *self._swar_operands(plan, c0, c1, packed, idx),
+            n_locs=plan.n_locs, pattern_chars=plan.pattern_chars)
+        q = plan.n_patterns if plan.mode == "batched" else 1
+        return bl.reshape(q, -1).t(), bs.reshape(q, -1).t()
 
     # -- empty subsets --------------------------------------------------------
     def _empty_plan(self, query: MatchQuery,

@@ -11,7 +11,8 @@ collective counters arrive with the multi-GPU slice.
   ``torch.argmax`` and ``jnp.argmax`` return the first maximal index; the
   locations are cast to int32, ``jnp.argmax``'s type with x64 off.
   ``slice_best`` takes the same pair from a kernel that reduced in its
-  epilogue (``match_mxu_best``) and only trims the padded columns.
+  epilogue (``match_mxu_best``, ``match_swar_best``) and only trims the
+  padded columns.
 * ``hot_mask`` / ``gather_rows`` -- the threshold reduction's sparse
   two-phase pull (integer-exact ``s >= ceil(t)``).
 * ``or_`` / ``survivor_union`` -- the filter stage's union across
@@ -77,8 +78,9 @@ class ShardMerger:
     def slice_best(self, best_loc: torch.Tensor, best_score: torch.Tensor,
                    n_patterns: int, *, batched: bool
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A fused kernel's (rows, q_pad) best pair -> the ``chunk_best``
-        shapes: (rows, n_patterns) batched, else column 0 as (rows,)."""
+        """A fused kernel's (rows, q >= n_patterns) best pair -> the
+        ``chunk_best`` shapes: (rows, n_patterns) batched, else column 0
+        as (rows,)."""
         tr = self.obs.tracer
         with tr.span("merge", {"op": "best"} if tr.enabled else None):
             if batched:

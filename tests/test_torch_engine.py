@@ -138,6 +138,40 @@ def test_mxu_reduction_picks_kernel(engines, data, monkeypatch, reduction,
                      "match_mxu_best": rt.n_chunks if fused else 0}
 
 
+SWAR_KERNELS = ("match_swar", "match_swar_best", "match_swar_masks")
+
+
+@pytest.mark.parametrize("predicate,reduction,mode", [
+    *itertools.product(("exact",), ("best", "topk", "threshold", "full"),
+                       ("shared", "batched", "per_row")),
+    ("accept", "best", "shared")])
+def test_swar_reduction_picks_kernel(engines, data, monkeypatch, predicate,
+                                     reduction, mode):
+    """Exact best and top-k reduce in ``match_swar_best``'s epilogue, one
+    call per chunk in every mode; threshold, full and the accept predicate
+    take the full score block.  Results stay equal to the JAX engine's."""
+    from repro_torch.kernels import match_swar as tsw
+    calls = dict.fromkeys(SWAR_KERNELS, 0)
+    for name in calls:
+        def spy(*a, _name=name, _fn=getattr(tsw, name), **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tsw, name, spy)
+    spec = dict(backend="swar", reduction=reduction, chunk_rows=CHUNK,
+                threshold=THRESHOLD, k=K)
+    if mode != "shared":
+        spec["mode"] = mode
+    _, rt = run_both(engines, data[1][predicate, mode], **spec)
+    want = dict.fromkeys(SWAR_KERNELS, 0)
+    if predicate == "accept":
+        want["match_swar_masks"] = rt.n_chunks
+    elif reduction in ("best", "topk"):
+        want["match_swar_best"] = rt.n_chunks
+    else:
+        want["match_swar"] = rt.n_chunks
+    assert calls == want
+
+
 @pytest.mark.parametrize("backend", ("swar", "mxu", "ref"))
 def test_batched_per_query_k_and_thresholds(engines, data, backend):
     _, pats = data

@@ -118,6 +118,54 @@ def t(a, device="cpu"):
     return convert.swar_words_from_numpy(a, device)
 
 
+def pack_codes(codes):
+    """(R, n) uint8 codes -> (R, n / 16) uint32 words, char i of a word in
+    bits 2i, 2i + 1 (the SWAR form)."""
+    R, n = codes.shape
+    lanes = codes.reshape(R, n // 16, 16).astype(np.uint32)
+    return (lanes << (2 * np.arange(16, dtype=np.uint32))).sum(
+        -1, dtype=np.uint32)
+
+
+# match_swar_best cases: (name, rows, pattern chars, alignments, form).
+# Every SWAR_SHAPES entry with random words; L off the 16 and 32 grid at
+# the main path's P = 100; a broadcast (row stride 0) pattern; a pattern
+# planted at two alignments of row 0 (the first wins); an all-zero
+# padding row (every alignment ties, loc 0 wins).
+SWAR_BEST_CASES = (
+    [(f"random_{R}x{P}x{L}", R, P, L, "random") for R, P, L in SWAR_SHAPES]
+    + [("l_off_grid", 8, 100, 401, "random"),
+       ("broadcast", 16, 23, 45, "broadcast"),
+       ("tie_first_wins", 8, 24, 200, "tie"),
+       ("zero_padding_row", 8, 100, 77, "zero_row")])
+TIE_LOCS = (17, 130)
+
+
+def swar_best_operands(case, seed=0):
+    """ref words, pattern words (the JAX form, materialized), valid mask,
+    n_locs, pattern chars and whether the port gets a broadcast view."""
+    name, R, P, L, form = case
+    if form in ("random", "broadcast"):
+        ref, pat, valid = swar_operands(R, P, L, 1, seed=seed)
+        if form == "broadcast":
+            pat = np.repeat(pat[:1], R, 0)
+        return ref, pat, valid, L, P, form == "broadcast"
+    rng = np.random.default_rng(seed)
+    wp = -(-P // 16)
+    W = (L - 1) // 16 + wp + 2
+    codes = rng.integers(0, 4, (R, 16 * W), np.uint8)
+    pcodes = rng.integers(0, 4, (R, 16 * wp), np.uint8)
+    pcodes[:, P:] = 0
+    if form == "tie":
+        for loc in TIE_LOCS:
+            codes[0, loc:loc + P] = pcodes[0, :P]
+    codes[:, 16 * (W - 1):] = 0                  # the zero look-ahead word
+    ref = pack_codes(codes)
+    if form == "zero_row":
+        ref[-1] = 0
+    return ref, pack_codes(pcodes), valid_mask(P, wp), L, P, False
+
+
 # -- CPU: plain versions against the Pallas kernels ---------------------------
 
 @pytest.mark.parametrize("R,P,L", SWAR_SHAPES)
@@ -178,6 +226,55 @@ def test_swar_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="plane"):
         tsw.match_swar_masks(t(ref), t(pat[:, :3]), t(valid), n_locs=33,
                              pattern_chars=23)
+
+
+@pytest.mark.parametrize("case", SWAR_BEST_CASES, ids=lambda c: c[0])
+def test_swar_best_plain_matches_pallas(jx, case):
+    """``match_swar_best`` on the CPU equals the Pallas ``match_swar`` then
+    ``jnp.argmax``/``jnp.max`` over alignments (the JAX merger)."""
+    ref, pat, valid, L, P, bcast = swar_best_operands(case)
+    jnp = jx.jnp
+    block = jx.swar.match_swar(jnp.asarray(ref), jnp.asarray(pat),
+                               jnp.asarray(valid), n_locs=L,
+                               pattern_chars=P, interpret=True)
+    want_loc = np.asarray(jnp.argmax(block, axis=1).astype(jnp.int32))
+    want_score = np.asarray(jnp.max(block, axis=1))
+    tp = t(pat[:1]).expand(pat.shape[0], -1) if bcast else t(pat)
+    loc, score = tsw.match_swar_best(t(ref), tp, t(valid), n_locs=L,
+                                     pattern_chars=P)
+    assert loc.dtype == score.dtype == torch.int32
+    assert loc.shape == score.shape == (ref.shape[0],)
+    np.testing.assert_array_equal(loc.numpy(), want_loc)
+    np.testing.assert_array_equal(score.numpy(), want_score)
+    if case[4] == "tie":
+        assert (int(loc[0]), int(score[0])) == (TIE_LOCS[0], P)
+    if case[4] == "zero_row":
+        assert int(loc[-1]) == 0
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("rows", "multiple of 8"), ("narrow", "too narrow"), ("dtype", "int32"),
+    ("valid", "valid_mask must be"), ("stride", "row-broadcast view"),
+    ("n_locs", "bad geometry"), ("chars", "bad geometry")])
+def test_swar_best_wrapper_rejects_bad_operands(bad, match):
+    ref, pat, valid = (t(a) for a in swar_operands(16, 23, 33, 1))
+    kw = dict(n_locs=33, pattern_chars=23)
+    if bad == "rows":
+        ref, pat = ref[:6], pat[:6]
+    elif bad == "narrow":
+        ref = ref[:, :3].contiguous()
+    elif bad == "dtype":
+        ref = ref.to(torch.int64)
+    elif bad == "valid":
+        valid = valid[:, :1]
+    elif bad == "stride":
+        pat = pat.t().contiguous().t()          # column-major words
+    elif bad == "n_locs":
+        kw["n_locs"] = 0
+    else:
+        kw["pattern_chars"] = 16 * pat.shape[1] + 1
+    with pytest.raises(ValueError, match=match):
+        tsw.match_swar_best(ref, pat, valid, **kw)
 
 
 @pytest.mark.parametrize("R,P,Q", MXU_SHAPES)
@@ -308,6 +405,98 @@ def test_swar_kernel_broadcast_pattern(cuda):
     assert torch.equal(got, want)
 
 
+# (a)'s launch shape at 64 rows: P = 100 (Wp = 7), 401 alignments, W = 33.
+SWAR_CHUNK_CASE = ("chunk_64_rows", 64, 100, 401, "random")
+
+
+def _swar_on_card(cuda, case, seed, best, bcast=None):
+    """One launch of ``match_swar_best`` (or ``match_swar``) on the card,
+    counted, against its plain version; ``bcast`` overrides the case's
+    pattern form (a row-stride-0 view, or materialized rows)."""
+    ref, pat, valid, L, P, case_bcast = swar_best_operands(case, seed=seed)
+    bcast = case_bcast if bcast is None else bcast
+    pw = t(pat[:1], cuda).expand(pat.shape[0], -1) if bcast else t(pat, cuda)
+    args = (t(ref, cuda), pw, t(valid, cuda))
+    kern = tsw.match_swar_best if best else tsw.match_swar
+    plain = tsw.match_swar_best_plain if best else tsw.match_swar_plain
+    n0 = kern.n_launches
+    got = kern(*args, n_locs=L, pattern_chars=P)
+    torch.cuda.synchronize()
+    assert kern.n_launches == n0 + 1
+    want = plain(*args, n_locs=L, pattern_chars=P)
+    if best:
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SWAR_BEST_CASES + [SWAR_CHUNK_CASE],
+                         ids=lambda c: c[0])
+def test_swar_best_kernel_matches_plain(cuda, case):
+    _swar_on_card(cuda, case, seed=10, best=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bcast", [False, True], ids=["rows", "broadcast"])
+@pytest.mark.parametrize("case", SWAR_BEST_CASES + [SWAR_CHUNK_CASE],
+                         ids=lambda c: c[0])
+def test_swar_store_kernel_matches_plain(cuda, case, bcast):
+    """The STORE epilogue of the same mainloop at the same shapes, with
+    per-row and broadcast patterns."""
+    _swar_on_card(cuda, case, seed=11, best=False, bcast=bcast)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [(b, w, p, s) for b in (0, 1)
+                                     for w in (0, 1) for p in (0, 1)
+                                     for s in ((0,) if b else (0, 1))])
+def test_swar_exact_variants_match_plain(cuda, variant):
+    """Every timed design variant of the exact kernel at (a)'s launch
+    shape (64 rows) and at 8 rows with P = 80 (Wp = 5, odd L)."""
+    from repro_torch.kernels import match_swar_variants as sv
+    best, window, pair, stage = variant
+    for case in (SWAR_CHUNK_CASE, ("wp5", 8, 80, 33, "random")):
+        ref, pat, valid, L, P, _ = swar_best_operands(case, seed=12)
+        args = (t(ref, cuda), t(pat, cuda), t(valid, cuda))
+        got = sv.exact_variant(*args, best=best, window=window, pair=pair,
+                               stage=stage, n_locs=L, pattern_chars=P)
+        torch.cuda.synchronize()
+        want = (tsw.match_swar_best_plain if best else tsw.match_swar_plain)(
+            *args, n_locs=L, pattern_chars=P)
+        assert (all(torch.equal(x, y) for x, y in zip(got, want)) if best
+                else torch.equal(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("best", [False, True], ids=["store", "best"])
+def test_swar_long_rows_match_plain(cuda, best):
+    """8,000 alignments a row: too many for STORE to stage even 8 rows of
+    scores in shared memory, so it stores them from each thread."""
+    _swar_on_card(cuda, ("long_rows", 16, 16, 8000, "random"), seed=14,
+                  best=best)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("best", [0, 1], ids=["store", "best"])
+@pytest.mark.parametrize("rows_per_block", [8, 64, 128])
+def test_swar_exact_rows_per_block_match_plain(cuda, best, rows_per_block):
+    """The shipped design at other rows per block (timed by the variants
+    script), at (a)'s launch shape with 200 rows: a partial last block."""
+    from repro_torch.kernels import match_swar_variants as sv
+    case = ("chunk_200_rows", 200, 100, 401, "random")
+    ref, pat, valid, L, P, _ = swar_best_operands(case, seed=13)
+    args = (t(ref, cuda), t(pat[:1], cuda).expand(200, -1), t(valid, cuda))
+    got = sv.exact_variant(*args, best=best, window=1, pair=1,
+                           stage=1 - best, n_locs=L, pattern_chars=P,
+                           rows_per_block=rows_per_block)
+    torch.cuda.synchronize()
+    want = (tsw.match_swar_best_plain if best else tsw.match_swar_plain)(
+        *args, n_locs=L, pattern_chars=P)
+    assert (all(torch.equal(x, y) for x, y in zip(got, want)) if best
+            else torch.equal(got, want))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("R,P,Q", MXU_SHAPES)
 def test_mxu_kernel_matches_plain(cuda, R, P, Q):
@@ -408,6 +597,59 @@ def test_bank_prefilter_kernel_matches_plain(cuda, wb, n_docs):
                                     torch.from_numpy(slacks).to(cuda))
     assert torch.equal(got_, want)
     assert int(got_[200:].sum()) == 0
+
+
+def _last_doc_bank(wb, seed):
+    """4,096 pattern slots against 600 docs.  Slots 0-1,023 (slack 0) hold
+    bits 0-7 of word 0, and doc d < 599 lacks bit d % 8 there, so only the
+    last doc (all ones) admits them; slots 1,024-2,047 carry slack -1
+    (never pass, test no doc); the rest random slacks."""
+    rng = np.random.default_rng(seed)
+    Q, D = 4096, 600
+    pats = _u32(rng, (Q, wb)) & _u32(rng, (Q, wb))
+    pats[:1024, 0] |= np.uint32(0xFF)
+    docs = _u32(rng, (D, wb)) | _u32(rng, (D, wb))
+    docs[:, 0] |= np.uint32(0xFF)
+    docs[np.arange(D - 1), 0] &= ~(np.uint32(1) << (
+        np.arange(D - 1) % 8).astype(np.uint32))
+    docs[-1] = 0xFFFFFFFF
+    slacks = rng.integers(0, 8, (Q, 1)).astype(np.int32)
+    slacks[:1024] = 0
+    slacks[1024:2048] = -1
+    return pats, docs, slacks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wb", [8, 40])
+def test_bank_prefilter_kernel_last_doc(cuda, wb):
+    """The bank's slot count: 4,096 slots at Wb = 8 and at Wb = 40 (the
+    wide path), patterns admitted only by the last of 600 docs (the early
+    exit never fires before it), slack -1 slots that never pass."""
+    from repro_torch.kernels import filter_qgram as tfq
+    pats, docs, slacks = _last_doc_bank(wb, seed=wb)
+    args = (t(pats, cuda), t(docs, cuda), torch.from_numpy(slacks).to(cuda))
+    n0 = tfq.bank_prefilter.n_launches
+    got = tfq.bank_prefilter(*args)
+    torch.cuda.synchronize()
+    assert tfq.bank_prefilter.n_launches == n0 + 1
+    assert torch.equal(got, tfq.bank_prefilter_plain(*args))
+    assert bool(got[:1024].all()) and not bool(got[1024:2048].any())
+    without_last = tfq.bank_prefilter(args[0], args[1][:-1].contiguous(),
+                                      args[2])
+    assert not bool(without_last[:1024].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lpg", [1, 4, 8, 16, 32])
+def test_bank_prefilter_variants_match_plain(cuda, lpg):
+    """Every timed lanes-per-pattern variant of the bank kernel."""
+    from repro_torch.kernels import filter_qgram as tfq
+    from repro_torch.kernels import match_swar_variants as sv
+    pats, docs, slacks = _last_doc_bank(8, seed=3)
+    args = (t(pats, cuda), t(docs, cuda), torch.from_numpy(slacks).to(cuda))
+    got = sv.bank_variant(*args, lpg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tfq.bank_prefilter_plain(*args))
 
 
 @pytest.mark.gpu
