@@ -41,15 +41,18 @@ printing its wall time:
    ``ops.bitwise("XOR", ...)`` on a 256 MiB pair.
 5. Kernels at their paths' shapes: each kernel against its plain
    version at (or beyond) its launch shape with the path's own
-   operands, bit for bit (``match_swar`` and ``match_swar_best`` both at
-   (a)'s launch); ``match_mxu_best`` also against the full-block
-   kernel plus ``argmax``/``amax`` on every corpus row, and (c)'s top-10
-   against the top-10 of those best scores; at the launch shape, the
-   kernel's and the library call's device time with the L2 flushed
-   before each launch (``torch.profiler`` through ``obs.device_time``,
-   which retakes a reading with device events lost; kernel and library
-   timed in turns), the kernel's time per call and the plain version's (CUDA
-   events, back to back), beside the roofline bound.
+   operands, bit for bit (``match_swar_best`` at (a)'s launch, the
+   full-block ``match_swar`` at (e)'s verify launch, whose operands one
+   run of (e) hands over, and at (a)'s chunk); ``match_mxu_best`` also
+   against the full-block kernel plus ``argmax``/``amax`` on every
+   corpus row, and (c)'s top-10 against the top-10 of those best scores;
+   at the launch shape, the kernel's and the library call's device time
+   with the L2 flushed before each launch (``torch.profiler`` through
+   ``obs.device_time``, which retakes a reading with device events lost;
+   kernel and library timed in turns), the kernel's time per call and
+   the plain version's (CUDA events, back to back), beside the roofline
+   bound (for the exact SWAR kernels, from the shipped mainloop's own
+   operation counts).
 6. Profile: one run each of (a), (c) and (e) under ``torch.profiler``
    (device time by kernel, device busy share) and one under the
    engine's own span tracer (host stage breakdown).
@@ -100,12 +103,23 @@ PEAK_POPC = 132 * 16 * 1.98e9
 # SWAR kernels' first sm_90a build issued them (cuobjdump): exact = funnel
 # shift, xor, shift, fold-and-mask (LOP3); accept-set = 3 shifts, 8 LOP3.
 # Each word also takes one popcount, and one add that the compiler issues
-# on the FMA pipe (IMAD), not counted.  Kept as the bound's count so rows
-# compare across builds; the exact kernel's word pairs now issue half the
-# popcounts (``python -m repro_torch.kernels.match_swar_variants --sass``
-# prints the current opcode counts).
+# on the FMA pipe (IMAD), not counted.  The accept-set kernel still runs
+# that loop; for the exact kernels this count is printed as
+# ``bound_ms_first_build``, so their rows compare across builds.
 SWAR_INT_OPS_PER_WORD = {"match_swar": 4, "match_swar_best": 4,
                          "match_swar_masks": 11}
+# INT32-pipe operations per (row, alignment) of the shipped exact
+# mainloop, per pair of pattern words and per unpaired word, from its
+# SASS (``python -m repro_torch.kernels.match_swar_variants --sass``): a
+# pair issues 3 SHF (two funnel shifts, the second word's >> 1) and 4
+# LOP3 (two xors, two fold-and-masks), an unpaired word 1 SHF and 2 LOP3;
+# at shift 0 the funnel shifts fold away (2 fewer a pair, 1 fewer a
+# word).  Each pair or unpaired word takes one popcount.  The << 1, the
+# pair's add and the accumulate issue as IMADs on the FMA pipe, fewer
+# than these at no lower a rate, so they never bind; BEST's fold and
+# STORE's staging are not counted either.  The bound is the kernels'
+# ``bound_ms``.
+EXACT_INT_OPS = {"match_swar": (7, 3), "match_swar_best": (7, 3)}
 SOURCES = {
     "match_swar": ("src/repro_torch/kernels/csrc/match_swar.cu",
                    "src/repro/kernels/match_swar.py:82"),
@@ -211,6 +225,17 @@ def device_ms_turns(fns, reps: int, flush, rounds: int = 2):
         for k, fn in fns.items():
             runs[k].append(device_ms(fn, reps, flush))
     return {k: sum(v) / len(v) for k, v in runs.items()}, runs
+
+
+def exact_swar_ops(name: str, R: int, n_locs: int, wp: int):
+    """(INT32-pipe ops, popcounts) of the shipped exact SWAR mainloop over
+    R rows x n_locs alignments of a wp-word pattern (``EXACT_INT_OPS``)."""
+    per_pair, per_single = EXACT_INT_OPS[name]
+    n_pairs, n_single = divmod(wp, 2)
+    n_shift0 = -(-n_locs // 16)           # alignments at shift 0, per row
+    int_ops = R * (n_locs * (per_pair * n_pairs + per_single * n_single)
+                   - n_shift0 * (2 * n_pairs + n_single))
+    return int_ops, R * n_locs * (n_pairs + n_single)
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -759,11 +784,33 @@ def main() -> int:
 
         def flush():
             l2.zero_()
-        # The SWAR kernels at (a)'s and (b)'s launch: one chunk of rows
-        # against the query's broadcast pattern.  Bound: the INT32 ops and
-        # popcounts per (row, alignment, pattern word); bytes: the rows
-        # read once, and the (R, L) block or BEST's (R,) pairs written.
-        for name, key in (("match_swar", "a"), ("match_swar_best", "a"),
+        # The SWAR kernels at their paths' launches: match_swar_best at
+        # (a)'s (one chunk of rows against the read, broadcast), STORE
+        # match_swar at (e)'s verify (the operands of that launch, taken
+        # from one run: the gathered survivor rows and the read broadcast
+        # to them; also timed at (a)'s chunk, the shape earlier builds
+        # were timed at), match_swar_masks at (b)'s.  Each is held
+        # against its plain version on max(chunk, SUBSET_ROWS) rows of
+        # (a)'s or (b)'s operands, STORE also on the verify's.  Bytes:
+        # the rows read once, and the (R, L) block or BEST's (R,) pairs
+        # written.
+        verify_ops = []
+        swar_operands = engine._swar_operands
+
+        def spy(*a, **kw):
+            verify_ops.append(swar_operands(*a, **kw))
+            return verify_ops[-1]
+        engine._swar_operands = spy
+        try:
+            zero_counts()
+            cm = engine.compile(qe)
+            cm.run()
+            plan_e = cm.plan
+            check(len(verify_ops) == ksw.match_swar.n_launches > 0,
+                  "(e) verifies through match_swar")
+        finally:
+            del engine._swar_operands
+        for name, key in (("match_swar_best", "a"), ("match_swar", "a"),
                           ("match_swar_masks", "b")):
             cm = engine.compile(qa if key == "a" else qb)
             plan = cm.plan
@@ -775,32 +822,55 @@ def main() -> int:
                 return (base[:r], pat_rows[:1].expand(r, -1), val)
             kw = dict(n_locs=plan.n_locs, pattern_chars=plan.pattern_chars)
             n_cmp = max(plan.chunk_rows, SUBSET_ROWS)
-            got = kern(*args(n_cmp), **kw)
-            want = plain(*args(n_cmp), **kw)
-            err = max(int((x - y).abs().max()) for x, y in (
-                zip(got, want) if isinstance(got, tuple) else [(got, want)]))
-            check(err == 0, f"{name} equals its plain version on {n_cmp} "
-                  "rows")
-            del got, want
-            R = plan.chunk_rows           # the main path's launch shape
-            a = args(R)
+            cmp_sets = [args(n_cmp)]
+            if name == "match_swar":
+                check((plan_e.n_locs, plan_e.pattern_chars, plan_e.wp)
+                      == (plan.n_locs, plan.pattern_chars, plan.wp),
+                      "(e)'s verify launch has (a)'s geometry")
+                cmp_sets.append(verify_ops[0])
+            err = 0
+            for ops_ in cmp_sets:
+                got = kern(*ops_, **kw)
+                want = plain(*ops_, **kw)
+                err = max([err] + [int((x - y).abs().max()) for x, y in (
+                    zip(got, want) if isinstance(got, tuple)
+                    else [(got, want)])])
+                del got, want
+            check(err == 0, f"{name} equals its plain version on "
+                  + " and ".join(str(o[0].shape[0]) for o in cmp_sets)
+                  + " rows")
+            a = cmp_sets[-1] if name == "match_swar" else args(plan.chunk_rows)
+            R = a[0].shape[0]             # the path's launch shape
             ms = device_ms(lambda: kern(*a, **kw), 20, flush)
             event_ms = cuda_ms(lambda: kern(*a, **kw), 20)
             plain_ms = cuda_ms(lambda: plain(*a, **kw), 2)
-            W = base.shape[1]
+            extra = {}
+            if name == "match_swar":
+                a_chunk = args(plan.chunk_rows)
+                extra["ms_a_chunk"] = device_ms(
+                    lambda: kern(*a_chunk, **kw), 20, flush)
+            W = a[0].shape[1]
             n_planes = pat_rows.shape[1]
             n_words = R * plan.n_locs * plan.wp
             out_bytes = R * 8 if name == "match_swar_best" \
                 else R * plan.n_locs * 4
             nbytes = R * W * 4 + n_planes * 4 + plan.wp * 4 + out_bytes
-            t_ops = max(n_words * SWAR_INT_OPS_PER_WORD[name] / PEAK_INT32,
-                        n_words / PEAK_POPC)
+            t_word = max(n_words * SWAR_INT_OPS_PER_WORD[name] / PEAK_INT32,
+                         n_words / PEAK_POPC)
+            if name in EXACT_INT_OPS:
+                int_ops, n_popc = exact_swar_ops(name, R, plan.n_locs,
+                                                 plan.wp)
+                t_ops = max(int_ops / PEAK_INT32, n_popc / PEAK_POPC)
+                extra["bound_ms_first_build"] = max(
+                    t_word, nbytes / HBM_BW) * 1e3
+            else:
+                t_ops = t_word
             t_bytes = nbytes / HBM_BW
             kernels.append(dict(
                 name=name, rows=R, ms=ms, event_ms=event_ms,
                 plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=None, max_abs_err=err))
+                library_ms=None, max_abs_err=err, **extra))
 
         cm = engine.compile(qc)
         plan = cm.plan
@@ -998,7 +1068,9 @@ def main() -> int:
                   f"events), plain {k['plain_ms']:.4f} ms, bound "
                   f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "
                   f"{k['library_ms']}"
-                  + (f", in turns {k['turns']}" if "turns" in k else ""))
+                  + (f", in turns {k['turns']}" if "turns" in k else "")
+                  + "".join(f", {x} {k[x]:.4f}" for x in (
+                      "bound_ms_first_build", "ms_a_chunk") if x in k))
 
     with Phase("phase 6: profile of one run of (a), (c) and (e)"):
         profile_runs(engine, {"a": qa, "c": qc, "e": qe})
@@ -1025,7 +1097,9 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "event_ms": k["event_ms"], "turns_ms": k.get("turns"),
             "shape_rows": k["rows"], "n_launches": n,
-            "matches_plain": k["max_abs_err"] == 0})
+            "matches_plain": k["max_abs_err"] == 0,
+            **{x: k[x] for x in ("bound_ms_first_build", "ms_a_chunk")
+               if x in k}})
     check(len(rows_out) == len(SOURCES), "every kernel measured")
     print("kernels " + json.dumps([
         {"name": r["name"], "n_launches": r["n_launches"],

@@ -3,11 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers,
 so a build takes seconds) and compiles to one shared library,
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, where
-``<hash>`` covers the source and the flags: an edited source builds
-anew, an unchanged one is reused.  The build happens at first use (or
-all at once through ``build``, one ``nvcc`` per source started
-together) and only on a machine with ``nvcc``; nothing here runs at
-import time.  Every failure raises: a wrapper handed a CUDA tensor
+``<hash>`` covers the source, the ``csrc/`` headers it includes and the
+flags: an edited source or header builds anew, an unchanged one is
+reused.  The build happens at first use (or all at once through
+``build``, one ``nvcc`` per source started together) and only on a
+machine with ``nvcc``; nothing here runs at import time.  Every failure raises: a wrapper handed a CUDA tensor
 launches its kernel or raises, it never falls back to the plain version.
 """
 
@@ -16,10 +16,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -27,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -44,9 +46,17 @@ def nvcc_path() -> str:
     return found
 
 
+def local_headers(name: str) -> List[Path]:
+    """The ``csrc/`` headers that ``csrc/<name>.cu`` includes by quotes."""
+    text = (CSRC / f"{name}.cu").read_text()
+    return [CSRC / h for h in _INCLUDE.findall(text)]
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in local_headers(name):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

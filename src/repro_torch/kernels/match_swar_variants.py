@@ -10,21 +10,29 @@ share once, instead of two shared loads per word and alignment), word
 pairs (one popcount counts two pattern words), the best reduction in the
 kernel's epilogue (instead of the full (R, L) block, then
 ``argmax``/``amax``) and, for the full block, staged row-contiguous
-stores (instead of each thread storing its 16 scores).
-``match_swar_exact_variant`` launches every combination; the best
-epilogue undone is the shipped STORE kernel followed by the merger's
-``argmax``/``amax``.  The bank prefilter (``csrc/filter_qgram.cu``) has
-one: the lanes per pattern (``bank_prefilter_variant``; 1 is the
-thread-per-pattern design it replaced).
+stores (instead of each thread storing its 16 scores).  The bank
+prefilter (``csrc/filter_qgram.cu``) has one: the lanes per pattern (1
+is the thread-per-pattern design it replaced).  The variants live in a
+library of their own, ``csrc/match_swar_variants.cu``
+(``match_swar_exact_variant``, ``bank_prefilter_variant``), built from
+the same templates as the shipped kernels; it also reports the shipped
+design (``match_swar_variants_shipped``), which labels the rows.  The
+best epilogue undone is the shipped STORE kernel followed by the
+merger's ``argmax``/``amax``.
 
 Shapes are the main path's, as ``chip_smoke.py`` drives it: query (a)'s
-launch, 152,168 rows of 33 words against one broadcast 100-char pattern
-(401 alignments), and the standing bank's launch, 4,096 patterns against
-one batch of 256 seeded docs with 32 planted hits.  Each variant is
-checked against the plain version bit for bit (the SWAR ones on the
-first 16,384 rows), then all are timed in turns, each reading the mean
-device time of ``--reps`` launches with the L2 overwritten before each
-(``obs.device_time.device_ms``), over ``--rounds`` rounds.
+launch, taken from the planner (``engine.compile(query).plan``) on a
+seeded random reference of GRCh38 chr1's length folded into 500-char
+rows -- the first ``chunk_rows`` rows of the SWAR form against one
+broadcast 100-char read -- and the standing bank's launch, 4,096
+patterns against one batch of 256 seeded docs with 32 planted hits.
+Each variant is checked against the plain version bit for bit (the SWAR
+ones on the first 16,384 rows), then all are timed in turns, each
+reading the mean device time of ``--reps`` launches with the L2
+overwritten before each (``obs.device_time.device_ms``), over
+``--rounds`` rounds.  ``--sass`` also prints static opcode counts of the
+shipped exact kernels (BEST and STORE, patterns of 5-8 words), of BEST
+with one popcount a word, and of the accept-set kernel.
 """
 
 from __future__ import annotations
@@ -48,24 +56,45 @@ from . import match_swar as ksw
 
 L2_FLUSH_BYTES = 128 * 2**20  # the H100's L2 is 50 MB
 SEED = 0
-# Query (a)'s launch: chunk rows, words per row, pattern chars, alignments.
-ROWS, WORDS, P, N_LOCS = 152_168, 33, 100, 401
+# Query (a)'s corpus and read, as chip_smoke.py builds them.
+CHR1_BP, FRAG, READ = 248_956_422, 500, 100
 CHECK_ROWS = 16_384
 # The standing bank of chip_smoke.py phase 4b.
-FRAG, BANK_PATTERNS, BANK_DOCS, BANK_PLANTED = 500, 4096, 256, 32
-SHIPPED = {"window": 1, "pair": 1, "stage": 1}
+BANK_PATTERNS, BANK_DOCS, BANK_PLANTED = 4096, 256, 32
 # Rows per block timed beside the shipped launch's pick (32 at (a)'s
 # shape): 26 groups of 16 alignments per row are 3.25 items per thread
 # at 32 rows, 6.5 at 64 and 13 at 128.
 ROWS_PER_BLOCK = (64, 128)
 BANK_LPG = (1, 4, 8, 16, 32)
-BANK_SHIPPED = 32
-# Mangled-name fragments of the BEST kernels at WPT = 8 (register window;
-# the variants entry's STAGE = 0), without and with word pairs, and of
-# the accept-set kernel, for ``--sass``.
-SASS_KERNELS = {"BEST, 1 popcount/word": "swar_exact_kernelILi8ELi1ELb1ELb0ELb0E",
-                "BEST, word pairs": "swar_exact_kernelILi8ELi1ELb1ELb1ELb0E",
-                "accept-set": "swar_masks_kernelILi8E"}
+
+
+def _lib():
+    return _build.load("match_swar_variants")
+
+
+def shipped() -> dict:
+    """The shipped design, as the kernels' own constants give it:
+    window, pair, stage (1 or 0) and the bank's lanes per pattern."""
+    lib = _lib()
+    flags = (ctypes.c_int * 4)()
+    fn = lib.match_swar_variants_shipped
+    fn.argtypes, fn.restype = [ctypes.c_void_p], None
+    fn(ctypes.addressof(flags))
+    return dict(zip(("window", "pair", "stage", "lpg"), flags))
+
+
+def sass_kernels(ship: dict) -> dict:
+    """{label: (library, mangled-name fragment)} for ``--sass``: the
+    shipped exact kernels at WPT = 8 (patterns of 5-8 words), BEST with
+    the pairs undone, and the accept-set kernel."""
+    def frag(epi, pair):
+        return (f"swar_exact_kernelILi8ELi{epi}ELb{ship['window']}"
+                f"ELb{pair}ELb{ship['stage']}E")
+    return {"BEST (shipped)": ("match_swar", frag(1, ship["pair"])),
+            "STORE (shipped)": ("match_swar", frag(0, ship["pair"])),
+            "BEST, pairs undone": ("match_swar_variants",
+                                   frag(1, 1 - ship["pair"])),
+            "accept-set": ("match_swar", "swar_masks_kernelILi8E")}
 
 
 def exact_variant(ref, pat, valid, *, best: int, window: int, pair: int,
@@ -83,7 +112,7 @@ def exact_variant(ref, pat, valid, *, best: int, window: int, pair: int,
     else:
         out = torch.empty((R, n_locs), dtype=torch.int32, device=dev)
         loc = score = None
-    lib = _build.load("match_swar")
+    lib = _lib()
     fn = lib.match_swar_exact_variant
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -106,7 +135,7 @@ def bank_variant(psigs, dsigs, slacks, lpg: int):
     pattern."""
     out = torch.empty((psigs.shape[0], 1), dtype=torch.int32,
                       device=psigs.device)
-    lib = _build.load("filter_qgram")
+    lib = _lib()
     fn = lib.bank_prefilter_variant
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -119,51 +148,59 @@ def bank_variant(psigs, dsigs, slacks, lpg: int):
     return out
 
 
-def sass_mix(kernels=SASS_KERNELS) -> dict:
-    """Static opcode counts of the built kernels (``cuobjdump -sass`` of
-    ``csrc/match_swar.cu``'s library): {label: {opcode: count}} for the
-    kernel whose mangled name holds each label's fragment."""
+def sass_mix(kernels: dict) -> dict:
+    """Static opcode counts (``cuobjdump -sass`` of the built libraries):
+    {label: {opcode: count}} for the kernel whose mangled name holds each
+    label's fragment, ``kernels`` as ``sass_kernels`` gives them."""
     exe = Path(_build.nvcc_path()).with_name("cuobjdump")
-    text = subprocess.run(
-        [str(exe), "-sass", str(_build.library_path("match_swar"))],
-        capture_output=True, text=True, check=True).stdout
     mix = {}
-    for chunk in text.split("Function : ")[1:]:
-        name = chunk.split("\n", 1)[0]
-        for label, frag in kernels.items():
-            if frag in name:
-                ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                                 r"([A-Z][A-Z0-9]*)", chunk)
-                mix[label] = dict(Counter(ops).most_common())
+    for lib in sorted({lib for lib, _ in kernels.values()}):
+        text = subprocess.run(
+            [str(exe), "-sass", str(_build.library_path(lib))],
+            capture_output=True, text=True, check=True).stdout
+        for chunk in text.split("Function : ")[1:]:
+            name = chunk.split("\n", 1)[0]
+            for label, (klib, frag) in kernels.items():
+                if klib == lib and frag in name:
+                    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+"
+                                     r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                                     chunk)
+                    mix[label] = dict(Counter(ops).most_common())
     return mix
 
 
-def variant_name(best: int, window: int, pair: int, stage: int) -> str:
+def variant_name(ship: dict, best: int, window: int, pair: int,
+                 stage: int) -> str:
     flags = dict(window=window, pair=pair, stage=stage)
-    shipped = all(flags[k] == SHIPPED[k] for k in flags
-                  if best == 0 or k != "stage")
+    is_shipped = all(flags[k] == ship[k] for k in flags
+                     if best == 0 or k != "stage")
     return (f"{'BEST' if best else 'STORE'}: "
             f"{'register window' if window else '2 shared loads/word'}, "
             f"{'word pairs' if pair else '1 popcount/word'}"
             + ("" if best else
                f", {'staged rows' if stage else 'per-thread stores'}")
-            + (" (shipped)" if shipped else ""))
+            + (" (shipped)" if is_shipped else ""))
 
 
 def swar_operands(dev):
-    """(a)'s launch operands: random words (uniform random DNA), one
-    broadcast random pattern, the valid mask of a 100-char pattern."""
-    from repro_torch.match.engine import _valid_mask
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    wp = -(-P // 16)
-    ref = torch.randint(-2**31, 2**31, (ROWS, WORDS), dtype=torch.int32,
-                        device=dev, generator=gen)
-    ref[:, -1] = 0                        # the zero look-ahead word
-    pat = torch.randint(-2**31, 2**31, (1, wp), dtype=torch.int32,
-                        device=dev, generator=gen)
-    valid = torch.from_numpy(_valid_mask(P, wp).view(np.int32)).to(dev)
-    return ref, pat.expand(ROWS, -1), valid
+    """(a)'s launch as the engine makes it: the plan of an exact best
+    query for one read of a chr1-sized seeded reference, the first
+    ``chunk_rows`` rows of the SWAR form and the read broadcast to them.
+    Returns (words, pattern, valid mask, plan)."""
+    from repro_torch.core import encoding
+    from repro_torch.match import MatchEngine, MatchQuery, PackedCorpus
+    rng = np.random.default_rng(SEED)
+    ref = encoding.random_dna(rng, CHR1_BP)
+    corpus = PackedCorpus.from_reference(ref, FRAG, READ, device=dev)
+    engine = MatchEngine(corpus, index=False)
+    pos = int(rng.integers(0, CHR1_BP - READ))
+    cm = engine.compile(MatchQuery.exact(ref[pos:pos + READ].copy(),
+                                         reduction="best", backend="swar"))
+    plan = cm.plan
+    R = plan.chunk_rows
+    words = corpus.swar_words(plan.need_words)[:R]
+    pat_rows, valid = cm._packed
+    return words, pat_rows[:1].expand(R, -1), valid, plan
 
 
 def bank_operands(dev):
@@ -174,17 +211,17 @@ def bank_operands(dev):
     from repro_torch.match.index import signature_words
     rng = np.random.default_rng(SEED)
     ref = encoding.random_dna(rng, 4_000_000)
-    starts = rng.integers(0, len(ref) - P, BANK_PATTERNS)
-    pats = np.stack([ref[s:s + P] for s in starts])
-    bank = PatternBank(FRAG, P, device=dev)
+    starts = rng.integers(0, len(ref) - READ, BANK_PATTERNS)
+    pats = np.stack([ref[s:s + READ] for s in starts])
+    bank = PatternBank(FRAG, READ, device=dev)
     for i, p in enumerate(pats):
-        bank.register(p, threshold=float(P - 1 if i % 4 == 3 else P))
+        bank.register(p, threshold=float(READ - 1 if i % 4 == 3 else READ))
     docs = rng.integers(0, 4, (BANK_DOCS, FRAG), np.uint8)
     for d, p, lo in zip(rng.choice(BANK_DOCS, BANK_PLANTED, replace=False),
                         rng.choice(BANK_PATTERNS, BANK_PLANTED,
                                    replace=False),
-                        rng.integers(0, FRAG - P + 1, BANK_PLANTED)):
-        docs[d, lo:lo + P] = pats[p]
+                        rng.integers(0, FRAG - READ + 1, BANK_PLANTED)):
+        docs[d, lo:lo + READ] = pats[p]
     psigs, slacks = bank.filter_operands()
     dsigs, _ = signature_words(torch.from_numpy(docs).to(dev), bank.q,
                                bank.n_bits)
@@ -197,7 +234,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--sass", action="store_true",
-                    help="also print the BEST kernels' static opcode counts")
+                    help="also print the SWAR kernels' static opcode counts")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("match_swar_variants: no CUDA device", file=sys.stderr)
@@ -206,8 +243,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    ref, pat, valid = swar_operands(dev)
-    kw = dict(n_locs=N_LOCS, pattern_chars=P)
+    ship = shipped()
+    ref, pat, valid, plan = swar_operands(dev)
+    kw = dict(n_locs=plan.n_locs, pattern_chars=plan.pattern_chars)
     sub = (ref[:CHECK_ROWS], pat[:CHECK_ROWS], valid)
     want = ksw.match_swar_plain(*sub, **kw)
     want_best = (want.argmax(dim=1).to(torch.int32), want.amax(dim=1))
@@ -223,15 +261,15 @@ def main(argv=None) -> int:
                                 for x, y in zip(got, want_best)) if best
                             else torch.equal(got, want))
                     if not same:
-                        raise RuntimeError(f"{variant_name(**v)}: differs "
-                                           "from match_swar_plain")
-                    fns[variant_name(**v)] = (
+                        raise RuntimeError(f"{variant_name(ship, **v)}: "
+                                           "differs from match_swar_plain")
+                    fns[variant_name(ship, **v)] = (
                         lambda v=v: exact_variant(ref, pat, valid, **v, **kw))
 
     for best in (1, 0):
         for rpb in ROWS_PER_BLOCK:
             v = dict(best=best, stage=1 - best, rows_per_block=rpb,
-                     **{k: SHIPPED[k] for k in ("window", "pair")})
+                     **{k: ship[k] for k in ("window", "pair")})
             got = exact_variant(*sub, **v, **kw)
             if not (all(torch.equal(x, y) for x, y in zip(got, want_best))
                     if best else torch.equal(got, want)):
@@ -254,7 +292,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"bank_prefilter, {lpg} lanes per pattern: "
                                "differs from bank_prefilter_plain")
         name = (f"bank_prefilter: {lpg} lanes per pattern"
-                + (" (shipped)" if lpg == BANK_SHIPPED else ""))
+                + (" (shipped)" if lpg == ship["lpg"] else ""))
         fns[name] = (lambda lpg=lpg: bank_variant(psigs, dsigs, slacks, lpg))
     del want, want_best
     l2 = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
@@ -267,18 +305,21 @@ def main(argv=None) -> int:
             readings[k].append(device_ms(fn, args.reps, flush))
     rows = [{"name": k, "mean_ms": sum(r) / len(r), "min_ms": min(r),
              "max_ms": max(r), "profiler_ms": r} for k, r in readings.items()]
-    result = {"card": smi, "swar_shape": [ROWS, WORDS, P, N_LOCS],
+    result = {"card": smi, "shipped": ship,
+              "swar_shape": [plan.chunk_rows, int(ref.shape[1]),
+                             plan.pattern_chars, plan.n_locs],
               "bank_shape": [int(psigs.shape[0]), int(dsigs.shape[0]),
                              int(psigs.shape[1])],
               "reps": args.reps, "rounds": args.rounds, "rows": rows}
     if args.sass:
-        result["sass"] = sass_mix()
+        result["sass"] = sass_mix(sass_kernels(ship))
         for label, ops in result["sass"].items():
             print(f"sass {label}: {ops}")
     for row in rows:
         print(f"{row['name']:72s} {row['mean_ms']:.4f} ms "
               f"[{row['min_ms']:.4f}-{row['max_ms']:.4f}]")
-    print(f"card: {smi}")
+    print(f"(a)'s launch: {result['swar_shape']} (rows, words, pattern "
+          f"chars, alignments); card: {smi}")
     text = json.dumps(result)
     print(text)
     if args.out:

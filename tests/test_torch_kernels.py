@@ -376,6 +376,27 @@ def test_cuda_tensor_without_toolkit_raises(monkeypatch, tmp_path):
         _build.load("match_swar")
 
 
+@pytest.mark.parametrize("name,headers", [
+    ("match_swar", ["swar_exact.cuh"]),
+    ("filter_qgram", ["bank_prefilter.cuh"]),
+    ("match_swar_variants", ["bank_prefilter.cuh", "swar_exact.cuh"]),
+    ("popcount", [])])
+def test_library_hash_covers_included_headers(monkeypatch, tmp_path, name,
+                                              headers):
+    """A library's name hashes the source and the csrc/ headers it
+    includes: editing a shared header rebuilds every library that
+    includes it, and no other."""
+    assert sorted(h.name for h in _build.local_headers(name)) == headers
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path(name)
+    with open(tmp_path / "swar_exact.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert (_build.library_path(name) != before) == (
+        "swar_exact.cuh" in headers)
+
+
 # -- card: each kernel against its plain version ------------------------------
 
 @pytest.mark.gpu
