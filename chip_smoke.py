@@ -14,7 +14,8 @@ printing its wall time:
    ``-Xptxas -v`` resource summary.
 3. Kernels against their plain versions at edge shapes, bit for bit
    (``match_swar_best`` also on a read planted at two alignments and an
-   all-zero row).
+   all-zero row; ``popcount_rows`` at ragged row counts, rows counted by
+   several threads and rows streamed in chunks).
 4. Main path at the size of GRCh38 chr1 (248,956,422 bp, seeded random
    DNA of that length folded into 500-char rows for 100-char reads):
    ``MatchEngine`` (q-gram index attached, the default) ->
@@ -37,13 +38,18 @@ printing its wall time:
    docs (32 planted hits each) with the prefilter forced on and off;
    both hit sets equal, every planted hit found, sampled patterns equal
    ad-hoc threshold queries.
-4c. Bulk ops: ``ops.popcount`` over the resident SWAR form and
-   ``ops.bitwise("XOR", ...)`` on a 256 MiB pair.
+4c. Bulk ops: ``ops.popcount`` over the resident SWAR form (its rows
+   unpadded; its host-clock time, the least of 20 calls each ending in
+   ``torch.cuda.synchronize()``) and ``ops.bitwise("XOR", ...)`` on a
+   256 MiB pair.
 5. Kernels at their paths' shapes: each kernel against its plain
    version at (or beyond) its launch shape with the path's own
    operands, bit for bit (``match_swar_best`` at (a)'s launch, the
    full-block ``match_swar`` at (e)'s verify launch, whose operands one
-   run of (e) hands over, and at (a)'s chunk); ``match_mxu_best`` also
+   run of (e) hands over, and at (a)'s chunk; ``popcount`` at the SWAR
+   form padded to 256-row tiles, the launch earlier builds were timed
+   at, and at its rows unpadded, the bulk path's own launch);
+   ``match_mxu_best`` also
    against the full-block kernel plus ``argmax``/``amax`` on every
    corpus row, and (c)'s top-10 against the top-10 of those best scores;
    at the launch shape, the kernel's and the library call's device time
@@ -141,6 +147,11 @@ SOURCES = {
                 "src/repro/kernels/bitwise.py:41"),
 }
 BUILD = ("match_swar", "match_mxu", "filter_qgram", "popcount", "bitwise")
+# Readings some kernel rows carry beside their own: the exact SWAR bound
+# by the first build's count, STORE match_swar at (a)'s chunk, popcount
+# over the SWAR form's rows unpadded and its bound there.
+EXTRA_MS = ("bound_ms_first_build", "ms_a_chunk", "ms_unpadded",
+            "bound_ms_unpadded")
 
 
 def check(cond: bool, what: str) -> None:
@@ -436,6 +447,14 @@ def main() -> int:
             x = words(u32(rng, (512, w)))
             check(torch.equal(kpc.popcount(x), kpc.popcount_plain(x)),
                   f"popcount W={w}")
+        # popcount_rows: a ragged last tile with 1-3 words past its last 16
+        # bytes, G > 1 threads a row (W = 257, 1024), chunked rows (W =
+        # 2500), and one row.
+        for n, w in ((1, 1), (5, 3), (129, 33), (4099, 33), (127, 257),
+                     (9, 1024), (5, 2500)):
+            x = words(u32(rng, (n, w)))
+            check(torch.equal(kpc.popcount_rows(x), kpc.popcount_plain(x)),
+                  f"popcount_rows N={n} W={w}")
         a, b = words(u32(rng, (256, 37))), words(u32(rng, (256, 37)))
         for op in kbw.OPS:
             for x, y in ((a, b), (a.view(-1)[1:1 + 256 * 36].view(256, 36),
@@ -776,6 +795,20 @@ def main() -> int:
         print(f"  popcount of {tuple(swar.shape)} words: "
               f"{int(pc.sum())} bits set; XOR of two {XOR_BYTES >> 20} MiB "
               "operands bit-identical")
+        # ops.popcount end to end: host clock around a call that ends in a
+        # synchronize, the least of 20 after a warm-up.
+        for _ in range(3):
+            ops.popcount(swar)
+        torch.cuda.synchronize()
+        pc_host = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            ops.popcount(swar)
+            torch.cuda.synchronize()
+            pc_host.append((time.perf_counter() - t0) * 1e3)
+        print(f"  ops.popcount host clock over {tuple(swar.shape)}: min "
+              f"{min(pc_host):.4f} ms, median "
+              f"{sorted(pc_host)[len(pc_host) // 2]:.4f} ms (20 calls)")
 
     # -- 5. kernels at their paths' shapes ----------------------------------
     with Phase("phase 5: kernels at their paths' shapes"):
@@ -1030,22 +1063,30 @@ def main() -> int:
             bound_by="operations" if t_ops >= nbytes / HBM_BW else "bytes",
             library_ms=None, max_abs_err=err, pair_tests=n_tests))
 
-        # popcount at the bulk path's launch: the padded SWAR form.
+        # popcount at the SWAR form padded to 256-row tiles (the launch
+        # earlier builds were timed at), and at the bulk path's own launch
+        # since the pad went: the form's rows as they are.
         pcin = swar if swar.shape[0] % kpc.N_TILE == 0 else torch.cat(
             [swar, swar.new_zeros((-swar.shape[0] % kpc.N_TILE,
                                    swar.shape[1]))])
         got = kpc.popcount(pcin)
         err = int((got - kpc.popcount_plain(pcin)).abs().max())
-        check(err == 0, "popcount equals its plain version")
+        got = kpc.popcount_rows(swar)
+        err = max(err, int((got - kpc.popcount_plain(swar)).abs().max()))
+        check(err == 0, "popcount equals its plain version, padded and not")
         ms = device_ms(lambda: kpc.popcount(pcin), 50, flush)
+        ms_unpadded = device_ms(lambda: kpc.popcount_rows(swar), 50, flush)
         event_ms = cuda_ms(lambda: kpc.popcount(pcin), 50)
         plain_ms = cuda_ms(lambda: kpc.popcount_plain(pcin), 3)
         Np, Wp_ = pcin.shape
         bms, bby = bound(Np * Wp_ * 4 + Np * 4, Np * Wp_, PEAK_POPC)
+        Nu = swar.shape[0]
+        bms_u, _ = bound(Nu * Wp_ * 4 + Nu * 4, Nu * Wp_, PEAK_POPC)
         kernels.append(dict(
             name="popcount", rows=Np, ms=ms, event_ms=event_ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
-            max_abs_err=err))
+            max_abs_err=err, ms_unpadded=ms_unpadded,
+            bound_ms_unpadded=bms_u, rows_unpadded=Nu))
 
         # bitwise at the bulk path's launch: XOR of the 256 MiB pair.
         got = kbw.bitwise("XOR", xa, xb)
@@ -1069,8 +1110,10 @@ def main() -> int:
                   f"{k['bound_ms']:.4f} ms ({k['bound_by']}), library "
                   f"{k['library_ms']}"
                   + (f", in turns {k['turns']}" if "turns" in k else "")
-                  + "".join(f", {x} {k[x]:.4f}" for x in (
-                      "bound_ms_first_build", "ms_a_chunk") if x in k))
+                  + "".join(f", {x} {k[x]:.4f}" for x in EXTRA_MS
+                            if x in k)
+                  + (f" at {k['rows_unpadded']} rows"
+                     if "rows_unpadded" in k else ""))
 
     with Phase("phase 6: profile of one run of (a), (c) and (e)"):
         profile_runs(engine, {"a": qa, "c": qc, "e": qe})
@@ -1098,8 +1141,7 @@ def main() -> int:
             "event_ms": k["event_ms"], "turns_ms": k.get("turns"),
             "shape_rows": k["rows"], "n_launches": n,
             "matches_plain": k["max_abs_err"] == 0,
-            **{x: k[x] for x in ("bound_ms_first_build", "ms_a_chunk")
-               if x in k}})
+            **{x: k[x] for x in EXTRA_MS + ("rows_unpadded",) if x in k}})
     check(len(rows_out) == len(SOURCES), "every kernel measured")
     print("kernels " + json.dumps([
         {"name": r["name"], "n_launches": r["n_launches"],

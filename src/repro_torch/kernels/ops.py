@@ -6,11 +6,13 @@ throwaway fragment set; all packing, padding and kernel selection live in
 ``repro_torch.match``.  Long-lived callers hold a ``MatchEngine`` so the
 corpus stays resident.
 
-``popcount`` and ``bitwise`` are direct kernel wrappers: they pad rows
-to the kernels' ``N_TILE`` and slice back, as the JAX ops do.  Their
-operands are uint32 words: a numpy uint32 array (uploaded to ``device``,
-``None`` meaning the card) or an int32 tensor carrying the bits, which
-stays on its own device.  Results are int32 tensors on that device.
+``popcount`` and ``bitwise`` are direct kernel wrappers.  ``popcount``
+hands the caller's rows to ``popcount_rows`` unpadded (the kernel takes
+any row count); ``bitwise`` pads rows to its kernel's ``N_TILE`` and
+slices back, as the JAX ops do.  Their operands are uint32 words: a
+numpy uint32 array (uploaded to ``device``, ``None`` meaning the card)
+or an int32 tensor carrying the bits, which stays on its own device.
+Results are int32 tensors on that device.
 """
 
 from __future__ import annotations
@@ -67,8 +69,9 @@ def _pad_rows(x: torch.Tensor, mult: int) -> torch.Tensor:
 def popcount(words: Words, *, device: DeviceLike = None) -> torch.Tensor:
     """(N, W) uint32 words -> (N,) int32 per-row bit counts."""
     w = _words(words, device)
-    n = w.shape[0]
-    return _popcount.popcount(_pad_rows(w, _popcount.N_TILE))[:n, 0]
+    if w.data_ptr() % 16:   # a row slice that starts at an odd row, say
+        w = w.clone()
+    return _popcount.popcount_rows(w)[:, 0]
 
 
 def bitwise(op: str, a: Words, b: Optional[Words] = None, *,

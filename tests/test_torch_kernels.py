@@ -380,7 +380,7 @@ def test_cuda_tensor_without_toolkit_raises(monkeypatch, tmp_path):
     ("match_swar", ["swar_exact.cuh"]),
     ("filter_qgram", ["bank_prefilter.cuh"]),
     ("match_swar_variants", ["bank_prefilter.cuh", "swar_exact.cuh"]),
-    ("popcount", [])])
+    ("popcount", ["async_copy.cuh"])])
 def test_library_hash_covers_included_headers(monkeypatch, tmp_path, name,
                                               headers):
     """A library's name hashes the source and the csrc/ headers it
@@ -673,8 +673,11 @@ def test_bank_prefilter_variants_match_plain(cuda, lpg):
     assert torch.equal(got, tfq.bank_prefilter_plain(*args))
 
 
+POPCOUNT_WIDTHS = [1, 2, 3, 4, 16, 32, 33, 64, 257, 1024]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("w", [1, 33])
+@pytest.mark.parametrize("w", POPCOUNT_WIDTHS)
 def test_popcount_kernel_matches_plain(cuda, w):
     from repro_torch.kernels import popcount as tpc
     words = t(_u32(np.random.default_rng(w), (512, w)), cuda)
@@ -683,6 +686,39 @@ def test_popcount_kernel_matches_plain(cuda, w):
     torch.cuda.synchronize()
     assert tpc.popcount.n_launches == n0 + 1
     assert torch.equal(got, tpc.popcount_plain(words))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [3, 33, 257, 2500])
+@pytest.mark.parametrize("n", [1, 5, 127, 129, 4099])
+def test_popcount_rows_ragged(cuda, n, w):
+    """Any row count: the ragged last tile (its 1-3 words past the last
+    16 bytes read with plain loads when N * W % 4 != 0), several threads
+    a row (W = 257) and rows streamed in chunks (W = 2500 > 2048)."""
+    from repro_torch.kernels import popcount as tpc
+    words = t(_u32(np.random.default_rng(n * w), (n, w)), cuda)
+    n0 = tpc.popcount.n_launches
+    got = tpc.popcount_rows(words)
+    torch.cuda.synchronize()
+    assert tpc.popcount.n_launches == n0 + 1
+    assert got.shape == (n, 1)
+    assert torch.equal(got, tpc.popcount_plain(words))
+
+
+@pytest.mark.gpu
+def test_popcount_ops_odd_row_slice(cuda):
+    """``ops.popcount`` of a row slice that starts at an odd row (4 bytes
+    past 16): cloned to an aligned operand, one launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import popcount as tpc
+    base = t(_u32(np.random.default_rng(9), (1001, 33)), cuda)
+    odd = base[1:]
+    assert odd.data_ptr() % 16
+    n0 = tpc.popcount.n_launches
+    got = ops.popcount(odd)
+    torch.cuda.synchronize()
+    assert tpc.popcount.n_launches == n0 + 1
+    assert torch.equal(got, tpc.popcount_plain(odd)[:, 0])
 
 
 @pytest.mark.gpu
