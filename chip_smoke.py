@@ -62,7 +62,19 @@ printing its wall time:
 6. Profile: one run each of (a), (c) and (e) under ``torch.profiler``
    (device time by kernel, device busy share) and one under the
    engine's own span tracer (host stage breakdown).
-7. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line, the
+7. Service: ``MatchService`` over phase 4's engine with phase 4b's bank
+   (its prefilter the planner's choice) and a window of the corpus's
+   rows.  Tick 1 serves three tenants' groups (32 exact best reads with
+   0-3 mismatches, 8 exact reads at threshold 99, the IUPAC read at 95):
+   launches as ``plan_batch`` prices them, every result equal to a solo
+   ``engine.match``, every planted read found, no ticket in error, the
+   tick's wall time beside the 41 solo runs'.  Tick 2 serves them all
+   from the cache with no launch.  Ticks 3-6 ingest phase 4b's batches:
+   one bank verify launch each, hits equal to the standalone scans,
+   ``n_live`` held at the window, one compaction (timed alone).  Then
+   the newest row is found, an evicted row is not, and one traced tick
+   shows the service spans.
+8. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
    as the last line.
 
@@ -94,6 +106,9 @@ TIMED_RUNS = 3
 # planted hits per batch, patterns held against ad-hoc queries.
 BANK_PATTERNS, BANK_DOCS, BANK_BATCHES, BANK_PLANTED = 4096, 256, 4, 32
 BANK_SAMPLE = 24
+# Service (phase 7): exact best reads of (c)'s with 0-3 mismatches, and
+# exact reads at threshold READ - 1, each taken at a known row.
+SVC_BEST, SVC_THR = 32, 8
 XOR_BYTES = 256 * 2**20      # each operand of the bulk XOR (phase 4c)
 L2_FLUSH_BYTES = 128 * 2**20  # written before each timed launch (50 MB L2)
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, 700 W): bf16
@@ -255,6 +270,236 @@ def bound(nbytes: float, ops: float, ops_rate: float):
     t_ops, t_bytes = ops / ops_rate, nbytes / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def plan_kernel(plan, reduction: str) -> str:
+    """The kernel a SWAR or mxu plan launches for a reduction: best and
+    top-k reduce in the exact kernels' epilogues (``*_best``)."""
+    if plan.backend == "swar" and plan.predicate == "accept":
+        return "match_swar_masks"
+    fused = "_best" if reduction in ("best", "topk") else ""
+    return {"swar": "match_swar", "mxu": "match_mxu"}[plan.backend] + fused
+
+
+def same_as_solo(got, solo) -> bool:
+    """A service result against a solo ``engine.match`` of the same query:
+    hits equal, and the best arrays equal on the rows the solo run scanned.
+    A filtered threshold query verifies only its survivor rows, and a
+    coalesced one the union of its group's, so the best arrays compare on
+    the solo run's rows (all rows when neither filtered)."""
+    import numpy as np
+    if (got.hits is None) != (solo.hits is None) or (
+            got.hits is not None and not np.array_equal(got.hits,
+                                                        solo.hits)):
+        return False
+    if got.survivor_rows is None and solo.survivor_rows is None:
+        pos = slice(None)
+    else:
+        rg = (np.arange(len(got.best_locs)) if got.survivor_rows is None
+              else got.survivor_rows)
+        rs = (np.arange(len(solo.best_locs)) if solo.survivor_rows is None
+              else solo.survivor_rows)
+        pos = np.searchsorted(rg, rs)
+        if np.any(pos >= len(rg)) or not np.array_equal(rg[pos], rs):
+            return False
+    return (np.array_equal(got.best_locs[pos], solo.best_locs)
+            and np.array_equal(got.best_scores[pos], solo.best_scores))
+
+
+def service_phase(engine, bank, *, best, thr, iupac, batches, bank_hits,
+                  evicted_read, n_compactions, zero_counts, read_counts,
+                  sync, compact_dead_frac=0.001):
+    """Phase 7: ``MatchService`` over the engine's corpus with the bank.
+
+    ``best`` is a list of (codes, row, loc, score) exact reads taken at
+    known rows, ``thr`` of (codes, row, loc) exact reads for threshold
+    READ - 1, ``iupac`` one (pattern, row, loc) IUPAC read for threshold
+    95; ``batches`` are doc batches with ``bank_hits`` the bank's hits on
+    each when scanned alone; ``evicted_read`` occurs only in row 0.  The
+    window keeps the corpus's live rows; ``n_compactions`` is how many
+    compactions the ingests must trigger.  Returns what the phase prints
+    as its JSON line.
+    """
+    import numpy as np
+
+    from repro_torch.match import MatchQuery, MatchService
+    corpus, planner = engine.corpus, engine.planner
+    F = corpus.fragment_chars
+    window = corpus.n_live
+    svc = MatchService(engine, bank=bank, window_rows=window,
+                       compact_dead_frac=compact_dead_frac)
+    stats = svc.stats
+    tick_ms, tick_launches = {}, {}
+
+    def timed_tick(label):
+        zero_counts()
+        t = time.perf_counter()
+        n = svc.tick()
+        sync()
+        tick_ms[label] = (time.perf_counter() - t) * 1e3
+        tick_launches[label] = {k: v for k, v in read_counts().items() if v}
+        return n, read_counts()
+
+    # -- tick 1: three tenants' groups ------------------------------------
+    q_best = [MatchQuery.exact(c, reduction="best") for c, *_ in best]
+    q_thr = [MatchQuery.exact(c, reduction="threshold", threshold=READ - 1)
+             for c, *_ in thr]
+    q_iu = MatchQuery.iupac(iupac[0], reduction="threshold", threshold=95)
+    queries = q_best + q_thr + [q_iu]
+    groups = [(q_best, "exact"), (q_thr, "exact"), ([q_iu], "accept")]
+    want_launches = want_coalesced = want_fallback = 0
+    for grp, pred in groups:
+        bp = planner.plan_batch(
+            n_rows=corpus.n_rows, fragment_chars=F,
+            pattern_chars=grp[0].pattern_chars, n_queries=len(grp),
+            predicate=pred)
+        print(f"  plan_batch Q={len(grp)} {pred} "
+              f"{grp[0].reduction}: {bp.reason}")
+        want_coalesced += int(bp.coalesced)
+        want_launches += 1 if bp.coalesced else len(grp)
+        want_fallback += len(grp) if len(grp) > 1 and not bp.coalesced else 0
+    tickets = [svc.submit(q) for q in queries]
+    n_done, counts1 = timed_tick("1")
+    print(f"  tick 1: {n_done} queries in {tick_ms['1']:.3f} ms, launches "
+          f"{counts1}")
+    check(n_done == len(queries) and all(t.done for t in tickets),
+          "tick 1 completes every ticket")
+    errors = [repr(t.error) for t in tickets if t.error is not None]
+    check(not errors, f"no ticket ends with an error ({errors})")
+    check((stats.n_launches, stats.n_coalesced_launches,
+           stats.n_sequential_fallback)
+          == (want_launches, want_coalesced, want_fallback),
+          "tick 1's launches are plan_batch's")
+    want_kernels = set()
+    for t, q in zip(tickets, queries):
+        p = t.result.plan
+        if p.backend != "ref":
+            want_kernels.add(plan_kernel(p, q.reduction))
+        if p.strategy == "filter":
+            want_kernels.add("filter_qgram")
+    got_kernels = {k for k, n in counts1.items() if n}
+    check(got_kernels == want_kernels, f"tick 1 launched {got_kernels}, its "
+          f"plans name {want_kernels}")
+    for t, (_, row, loc, score) in zip(tickets, best):
+        check(int(t.result.best_scores[row]) == score
+              and int(t.result.best_locs[row]) == loc,
+              f"best read planted at row {row} found at loc {loc}")
+    for t, (_, row, loc) in zip(tickets[len(best):], thr):
+        check((row, loc, READ) in {tuple(h) for h in t.result.hits.tolist()},
+              f"threshold read planted at row {row} reported")
+    check(iupac[1:] + (READ,) in
+          {tuple(h) for h in tickets[-1].result.hits.tolist()},
+          "IUPAC read's planted hit reported")
+    # The same 41 queries one by one: each result equals its scattered one.
+    solo_ms = {"first": 0.0, "again": 0.0}
+    for key in solo_ms:
+        for t, q in zip(tickets, queries):
+            sync()
+            t0 = time.perf_counter()
+            solo = engine.match(q)
+            sync()
+            solo_ms[key] += (time.perf_counter() - t0) * 1e3
+            check(same_as_solo(t.result, solo),
+                  f"service result equals a solo run ({q.reduction})")
+    print(f"  tick 1 {tick_ms['1']:.3f} ms against {len(queries)} solo runs "
+          f"{solo_ms['first']:.3f} ms (first) / {solo_ms['again']:.3f} ms "
+          "(again); every scattered result equals its solo run")
+
+    # -- tick 2: the same queries from the result cache --------------------
+    hits0 = stats.n_cache_hits
+    again = [svc.submit(q) for q in queries]
+    n_done, counts2 = timed_tick("2")
+    check(stats.n_cache_hits - hits0 == len(queries)
+          and all(t.cached for t in again), "tick 2 served from the cache")
+    check(stats.launches_last_tick == 0 and not any(counts2.values()),
+          f"tick 2 launched nothing ({counts2})")
+    print(f"  tick 2: {n_done} cache hits in {tick_ms['2']:.3f} ms")
+
+    # -- ticks 3-6: ingest against the bank, past the window ----------------
+    compact = corpus.compact
+    compact_ms = []
+
+    def timed_compact():
+        sync()
+        t0 = time.perf_counter()
+        out = compact()
+        sync()
+        compact_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    corpus.compact = timed_compact
+    ingest = []
+    try:
+        for i, (docs, hits) in enumerate(zip(batches, bank_hits)):
+            base_row = corpus.n_rows
+            tk = svc.ingest(docs)
+            label = str(3 + i)
+            _, counts = timed_tick(label)
+            bt = tk.bank_ticket
+            filtered = bt.plan.strategy == "filter"
+            check(counts["match_swar_masks"] == 1
+                  and counts["bank_prefilter"] == int(filtered),
+                  f"tick {label}: one bank verify launch ({counts})")
+            check(np.array_equal(bt.hits, hits),
+                  f"tick {label}: bank hits equal the standalone scan's")
+            check(tk.start == base_row and np.array_equal(
+                bt.corpus_rows, base_row + bt.hits[:, 0]),
+                f"tick {label}: hits anchored at the appended rows")
+            check(corpus.n_live == window, f"tick {label}: n_live == window")
+            check(stats.n_evicted_rows == len(docs) * (i + 1),
+                  f"tick {label}: evicted {stats.n_evicted_rows}")
+            ingest.append({"tick": label, "strategy": bt.plan.strategy,
+                           "n_hits": int(bt.hits.shape[0]),
+                           "survivor_frac": bt.survivor_frac,
+                           "ms": tick_ms[label]})
+            print(f"  tick {label}: ingest {len(docs)} docs, bank "
+                  f"{bt.plan.strategy}, {bt.hits.shape[0]} hits, "
+                  f"{tick_ms[label]:.3f} ms, live {corpus.n_live} of "
+                  f"{corpus.n_rows} rows")
+            if i == 0:
+                # The generation moved: tick 1's first query runs again.
+                t = svc.submit(q_best[0])
+                timed_tick("3b")
+                check(not t.cached and t.error is None,
+                      "after an ingest the cache is dropped")
+    finally:
+        del corpus.compact
+    check(stats.n_compactions == corpus.n_compactions == n_compactions
+          and len(compact_ms) == n_compactions,
+          f"{n_compactions} compaction(s) ({stats.n_compactions})")
+    print(f"  compaction: {compact_ms} ms")
+
+    # -- after the window: the newest row found, the evicted one gone -------
+    newest = batches[-1][-1][:READ]
+    res = svc.match(newest, reduction="threshold", threshold=READ)
+    check((corpus.n_rows - 1, 0, READ) in {tuple(h) for h in
+                                          res.hits.tolist()},
+          "the newest ingested row is found")
+    res = svc.match(evicted_read, reduction="threshold", threshold=READ)
+    check(res.hits.shape[0] == 0, "the evicted row is gone")
+    tracer = engine.obs.tracer
+    bp = planner.plan_batch(n_rows=corpus.n_rows, fragment_chars=F,
+                            pattern_chars=READ, n_queries=2)
+    check(bp.coalesced, "two exact reads coalesce")
+    tracer.enabled = True
+    try:
+        for q in q_best[:2]:
+            svc.submit(q)
+        timed_tick("traced")
+        names = {sp.name for sp in tracer.iter_spans()}
+    finally:
+        tracer.enabled = False
+        tracer.clear()
+    want = {"service.tick", "service.coalesce", "service.enqueue"}
+    check(want <= names, f"spans {sorted(want - names)} traced")
+    snap = stats.snapshot()
+    check(snap["n_failed"] == 0, "no ticket failed")
+    print("service_stats " + json.dumps(snap))
+    print(f"  latency p50 {snap['latency_p50_s'] * 1e3:.3f} ms, p95 "
+          f"{snap['latency_p95_s'] * 1e3:.3f} ms, p99 "
+          f"{snap['latency_p99_s'] * 1e3:.3f} ms, {snap['qps']} qps")
+    return {"tick_ms": tick_ms, "tick_launches": tick_launches,
+            "solo_ms": solo_ms, "compact_ms": compact_ms, "ingest": ingest,
+            "n_queries": len(queries)}
 
 
 def main() -> int:
@@ -1118,7 +1363,29 @@ def main() -> int:
     with Phase("phase 6: profile of one run of (a), (c) and (e)"):
         profile_runs(engine, {"a": qa, "c": qc, "e": qe})
 
-    # -- 7. summary ---------------------------------------------------------
+    # -- 7. the service -------------------------------------------------------
+    with Phase("phase 7: MatchService, coalesced ticks, cache, ingest into "
+               "the window"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bank.filter = None                        # the planner's choice
+        svc_best = [(queries_c[q], int(rows[2 + q]), int(locs[2 + q]),
+                     READ - int(n_mism[q])) for q in range(SVC_BEST)]
+        svc_thr = [(reads_c[q], int(rows[2 + q]), int(locs[2 + q]))
+                   for q in range(SVC_BEST, SVC_BEST + SVC_THR)]
+        service = service_phase(
+            engine, bank, best=svc_best, thr=svc_thr,
+            iupac=(iupac, int(rows[1]), int(locs[1])), batches=batches,
+            bank_hits=[t.hits for t in tickets[False]],
+            evicted_read=ref[:READ].copy(), n_compactions=1,
+            zero_counts=zero_counts, read_counts=read_counts,
+            sync=torch.cuda.synchronize)
+        service["peak_bytes"] = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory over the phase "
+              f"{service['peak_bytes'] / 2**30:.3f} GiB; card: {smi}")
+        print("service " + json.dumps(service))
+
+    # -- 8. summary ---------------------------------------------------------
     # Each kernel's launches come from its own path's run.
     path_launches = dict(launches)
     path_launches["match_mxu"] = launches_c2["match_mxu"]

@@ -15,8 +15,14 @@
 * ``PatternBank`` / ``HitTicket`` / ``StandingPattern`` -- standing
   queries: thousands of resident patterns scanned against each document
   batch in one verify launch, behind a pattern-side prefilter.
+* ``MatchService`` / ``MatchTicket`` / ``IngestTicket`` / ``ServiceStats``
+  -- the multi-tenant front end: coalesced ticks priced by
+  ``Planner.plan_batch`` (``BatchPlan``), a generation-keyed result
+  cache, and ingest scanned against a standing bank before it splices
+  into a sliding-window corpus.
 
-Later slices add ``MatchService`` and calibration.
+Calibration (``CalibrationTable``, ``autotune``, ``load_cost_source``)
+is not ported yet.
 """
 
 from repro_torch.obs import MetricsRegistry, Observability, Tracer
@@ -25,13 +31,15 @@ from .corpus import PackedCorpus
 from .engine import CompiledMatch, MatchEngine, MatchResult
 from .feedback import EwmaRatio, FeedbackStore, kernel_key
 from .index import CorpusIndex, FilterOperands, build_query_filter
-from .planner import BankPlan, FilterContext, Plan, Planner
+from .planner import BankPlan, BatchPlan, FilterContext, Plan, Planner
 from .query import MatchQuery, as_masks, as_query
+from .service import IngestTicket, MatchService, MatchTicket, ServiceStats
 from .standing import HitTicket, PatternBank, StandingPattern
 
-__all__ = ["PackedCorpus", "Planner", "Plan", "FilterContext", "BankPlan",
-           "MatchQuery", "as_query", "as_masks", "CompiledMatch",
-           "MatchEngine", "MatchResult", "CorpusIndex", "FilterOperands",
+__all__ = ["PackedCorpus", "Planner", "Plan", "BatchPlan", "FilterContext",
+           "BankPlan", "MatchQuery", "as_query", "as_masks", "CompiledMatch",
+           "MatchEngine", "MatchResult", "MatchService", "MatchTicket",
+           "IngestTicket", "ServiceStats", "CorpusIndex", "FilterOperands",
            "build_query_filter", "PatternBank", "HitTicket",
            "StandingPattern", "EwmaRatio", "FeedbackStore", "kernel_key",
            "Observability", "Tracer", "MetricsRegistry"]

@@ -27,8 +27,9 @@ Derived forms (the q-gram ``CorpusIndex``) attach as observers
 (``attach_index``) and ride the same mutation events: row splices,
 capacity growth and ``invalidate``.
 
-Single device: the mesh layout (``shard_rows``) and per-host packing of
-the JAX corpus arrive with the multi-GPU slice.
+Single device: the mesh layout (``shard_rows``, ``shard_stride``) and
+per-host packing of the JAX corpus arrive with the multi-GPU slice;
+``shard_live_rows`` reports the one shard.
 """
 
 from __future__ import annotations
@@ -161,11 +162,26 @@ class PackedCorpus:
 
     # -- tombstones ------------------------------------------------------------
     @property
+    def n_live(self) -> int:
+        """Rows that are appended and not tombstoned."""
+        return self._n_rows - self.n_dead
+
+    @property
     def dead_mask(self) -> np.ndarray:
         """(n_rows,) bool tombstone mask over the live region (read-only)."""
         m = self._dead[:self._n_rows]
         m.flags.writeable = False
         return m
+
+    def live_row_ids(self) -> np.ndarray:
+        """Ascending logical ids of non-tombstoned rows."""
+        return np.flatnonzero(~self._dead[:self._n_rows])
+
+    @property
+    def shard_live_rows(self) -> np.ndarray:
+        """(S,) logical rows per row shard; one shard on one device, so
+        ``[n_rows]`` (the JAX corpus's cyclic layout with S = 1)."""
+        return np.array([self._n_rows], np.int64)
 
     def attach_index(self, index) -> None:
         """Register a derived-form observer (see ``match.index``).

@@ -618,6 +618,15 @@ class MatchEngine:
                 f"device={self.device}, "
                 f"cost={self.planner.cost_source.tag})")
 
+    @property
+    def n_shards(self) -> int:
+        """Row shards the corpus is split over: one on one device."""
+        return 1
+
+    def shard_live_rows(self) -> np.ndarray:
+        """(S,) rows per shard (``PackedCorpus.shard_live_rows``)."""
+        return self.corpus.shard_live_rows
+
     # -- compilation ----------------------------------------------------------
     def compile(self, query: MatchQuery, *,
                 cached: bool = True) -> CompiledMatch:

@@ -24,8 +24,11 @@ pattern bank against one document batch.  Both filter kernels are
 priced on this card's roofline (``FILTER_OPS_PER_WORD``), not on the
 TPU's vector-unit count.
 
-Not in this slice: ``plan_batch`` (the service slice) and shard-aware
-pricing (multi-GPU slice).
+Batch pricing: ``plan_batch`` weighs Q compatible shared-mode queries
+fused into one ``mode="batched"`` launch against Q single launches (the
+``MatchService`` coalescing verdict).
+
+Not in this slice: shard-aware pricing (multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -194,6 +197,23 @@ class FilterContext:
     prunable: bool              # every query can exclude rows
     survivor_frac: float        # estimated post-filter row fraction
     force: bool = False         # query hint filter=True: skip the pricing
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """Pricing verdict for Q compatible shared-mode queries (one tick).
+
+    ``coalesced`` means one fused ``mode="batched"`` launch beats Q
+    sequential single-query launches; ``plan`` is the plan to execute
+    (batched geometry when coalesced, single-query geometry otherwise).
+    """
+
+    coalesced: bool
+    plan: Plan
+    n_queries: int
+    est_coalesced_s: float
+    est_sequential_s: float
+    reason: str
 
 
 @dataclasses.dataclass(frozen=True)
@@ -461,3 +481,51 @@ class Planner:
                         else 1.0,
                         est_verify_patterns=q_surv, reason=reason,
                         cost_source=self.cost_source.tag)
+
+    # -- batch pricing --------------------------------------------------------
+    def plan_batch(self, *, n_rows: int, fragment_chars: int,
+                   pattern_chars: int, n_queries: int,
+                   backend: Optional[str] = None,
+                   chunk_rows: Optional[int] = None,
+                   predicate: str = "exact",
+                   n_shards: int = 1) -> BatchPlan:
+        """Price Q compatible shared-mode queries: coalesced vs. sequential.
+
+        Sequential is Q independent single-pattern launches (each paying
+        its own dispatch); coalesced is one ``mode="batched"`` plan over
+        all Q patterns (a single fused launch on every backend).  Ties go
+        to coalesced: beyond the kernel cost, one launch amortizes
+        planning, host packing and result assembly, which the roofline
+        does not model.  ``n_shards`` must be 1 until the multi-GPU slice.
+        """
+        if n_queries < 1:
+            raise ValueError("n_queries must be >= 1")
+        if n_shards != 1:
+            raise ValueError("the port prices one row shard; got "
+                             f"n_shards={n_shards}")
+        kw = dict(n_rows=n_rows, fragment_chars=fragment_chars,
+                  pattern_chars=pattern_chars, backend=backend,
+                  chunk_rows=chunk_rows, predicate=predicate)
+        single = self.plan(**kw)
+        if n_queries == 1:
+            return BatchPlan(coalesced=False, plan=single, n_queries=1,
+                             est_coalesced_s=single.est_seconds,
+                             est_sequential_s=single.est_seconds,
+                             reason="single query: nothing to coalesce "
+                                    f"[cost={self.cost_source.tag}]")
+        batched = self.plan(n_patterns=n_queries, **kw)
+        est_seq = n_queries * single.est_seconds
+        est_co = batched.est_seconds
+        coalesced = est_co <= est_seq
+        if coalesced:
+            reason = (f"coalesce {n_queries} queries: {batched.backend} "
+                      f"{est_co:.3g}s <= {n_queries}x {single.backend} "
+                      f"{est_seq:.3g}s")
+        else:
+            reason = (f"sequential: {n_queries}x {single.backend} "
+                      f"{est_seq:.3g}s < {batched.backend} {est_co:.3g}s")
+        reason += f" [cost={self.cost_source.tag}]"
+        return BatchPlan(coalesced=coalesced,
+                         plan=batched if coalesced else single,
+                         n_queries=n_queries, est_coalesced_s=est_co,
+                         est_sequential_s=est_seq, reason=reason)

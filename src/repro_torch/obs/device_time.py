@@ -11,12 +11,16 @@ A lost record reads as a faster kernel (below its bound, even) and a
 lost flush record counts the flush's kernel as the function's.  So a
 reading counts only when the profiler saw every flush's events and a
 whole multiple of ``reps`` other device events; else it is logged
-and taken again, and after ``tries`` bad readings ``device_ms`` raises.
-Nothing here runs at import time.
+and taken again, after a pause, and after ``tries`` bad readings
+``device_ms`` raises.  Now and then a profile session on an H100 sees no
+device event at all, and such sessions come in short runs when sessions
+follow each other back to back; a pause between tries (``pause``) breaks
+the runs up.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, List
 
 
@@ -38,14 +42,16 @@ def device_us(ev) -> float:
     return ev.self_cuda_time_total if us is None else us
 
 
-def _flush_events(flush, tries: int, calls: int = 4):
+def _flush_events(flush, tries: int, pause: float, calls: int = 4):
     """(keys, device events per call) of ``flush()``: the keys seen a
     whole multiple of ``calls`` times over ``calls`` calls (a stray record
     of earlier work is not)."""
     def run():
         for _ in range(calls):
             flush()
-    for _ in range(tries):
+    for i in range(tries):
+        if i:
+            time.sleep(pause)
         evs = [ev for ev in device_events(run)
                if ev.count >= calls and ev.count % calls == 0]
         if evs:
@@ -56,11 +62,12 @@ def _flush_events(flush, tries: int, calls: int = 4):
 
 
 def device_ms(fn: Callable[[], object], reps: int, flush: Callable[[], object],
-              tries: int = 5, log: Callable[[str], None] = print) -> float:
+              tries: int = 8, log: Callable[[str], None] = print,
+              pause: float = 0.2) -> float:
     """Mean device ms per call of ``fn()``'s kernels over ``reps`` calls,
-    each after ``flush()``."""
+    each after ``flush()``; a bad reading is retaken ``pause`` s later."""
     import torch
-    flush_keys, per_flush = _flush_events(flush, tries)
+    flush_keys, per_flush = _flush_events(flush, tries, pause)
     fn()
     torch.cuda.synchronize()
 
@@ -69,7 +76,9 @@ def device_ms(fn: Callable[[], object], reps: int, flush: Callable[[], object],
             flush()
             fn()
     bad: List[str] = []
-    for _ in range(tries):
+    for i in range(tries):
+        if i:
+            time.sleep(pause)
         evs = device_events(run)
         n_flush = sum(ev.count for ev in evs if ev.key in flush_keys)
         mine = [ev for ev in evs if ev.key not in flush_keys]

@@ -76,3 +76,19 @@ def test_flush_without_events_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     with pytest.raises(RuntimeError, match="flush"):
         device_time.device_ms(lambda: None, REPS, lambda: None)
+
+
+def test_empty_sessions_are_retaken_after_a_pause(monkeypatch):
+    """Sessions that saw no device event at all, for the flush and then for
+    the calls, are taken again, each after a pause."""
+    seq = iter([[], [], [ev(FLUSH, 4, 160.0)], [], GOOD])
+    monkeypatch.setattr(device_time, "device_events", lambda fn: next(seq))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    pauses = []
+    monkeypatch.setattr(device_time.time, "sleep", pauses.append)
+    logged = []
+    ms = device_time.device_ms(lambda: None, REPS, lambda: None,
+                               log=logged.append, pause=0.3)
+    assert ms == pytest.approx(5000.0 / REPS / 1e3)
+    assert pauses == [0.3, 0.3, 0.3]
+    assert len(logged) == 1

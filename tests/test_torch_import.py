@@ -48,7 +48,8 @@ def test_imports_with_jax_blocked():
 @pytest.mark.parametrize("module", [
     "repro_torch.match.index", "repro_torch.match.standing",
     "repro_torch.kernels.filter_qgram", "repro_torch.kernels.popcount",
-    "repro_torch.kernels.bitwise"])
+    "repro_torch.kernels.bitwise", "repro_torch.match.service",
+    "repro_torch.launch.serve", "repro_torch.data.dedup"])
 def test_slice_modules_import_with_jax_blocked(module):
     code = (
         "import sys, importlib\n"
@@ -87,7 +88,9 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_need_a_device_without_cuda(no_cuda):
     from repro_torch import convert, resolve_device
+    from repro_torch.data.dedup import CRAMDedup
     from repro_torch.kernels import ops
+    from repro_torch.launch import serve
     from repro_torch.match import MatchEngine, PackedCorpus, PatternBank
     frags = np.zeros((8, 16), np.uint8)
     calls = [lambda: resolve_device(),
@@ -103,7 +106,9 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
              lambda: ops.match_scores(frags, frags[0, :4]),
              lambda: ops.popcount(np.zeros((8, 2), np.uint32)),
              lambda: ops.bitwise("NOT", np.zeros((8, 2), np.uint32)),
-             lambda: PatternBank(16, 4)]
+             lambda: PatternBank(16, 4),
+             lambda: CRAMDedup(),
+             lambda: serve.main(["--workload", "stream"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
