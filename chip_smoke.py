@@ -74,7 +74,22 @@ printing its wall time:
    ``n_live`` held at the window, one compaction (timed alone).  Then
    the newest row is found, an evicted row is not, and one traced tick
    shows the service spans.
-8. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line, the
+8. Calibration: ``autotune`` on the full grid (every curve, its
+   samples, the autotune's wall time; every key the planner prices
+   fitted, every measured kernel launched), the table saved and loaded
+   back with an equal digest and equal golden decisions, a second
+   autotune whose decisions must be stable (scan backends, filter-then-
+   verify and the bank's prefilter-or-scan); then a ``MatchEngine`` under
+   the fitted table over phase 4's corpus runs (a)-(f) and (c') three
+   times each, run by run its plan, price, wall time and feedback state
+   beside the static planner's choice, every answer equal to the static
+   engine's on the same corpus (phase 7 ingested into and compacted that
+   corpus, so phase 4's own results no longer describe it); the bank's
+   ``plan_bank`` under both sources; the fused ``match_swar_best`` and
+   ``match_mxu_best`` beside the STORE curve at the grid's top shape;
+   whether ``load_cost_source()`` finds the committed table; the
+   provenance block, whose power limit is read for this card.
+9. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
    as the last line.
 
@@ -500,6 +515,199 @@ def service_phase(engine, bank, *, best, thr, iupac, batches, bank_hits,
     return {"tick_ms": tick_ms, "tick_launches": tick_launches,
             "solo_ms": solo_ms, "compact_ms": compact_ms, "ingest": ingest,
             "n_queries": len(queries)}
+
+
+def same_answer(a, b) -> bool:
+    """Two plans' results of one query: top-k equal, and hits and best
+    arrays as ``same_as_solo`` holds them (the filtered result, whose
+    best arrays cover its survivors only, taken as the solo run)."""
+    import numpy as np
+    for f in ("topk_rows", "topk_scores"):
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (
+                x is not None and not np.array_equal(x, y)):
+            return False
+    if b.survivor_rows is None:
+        a, b = b, a
+    return same_as_solo(a, b)
+
+
+def calibration_phase(engine, bank, queries, *, zero_counts, read_counts,
+                      sync, autotune_kw=None):
+    """Phase 8: calibrate the card, then run ``queries`` (key -> query)
+    under the fitted table over the engine's corpus.
+
+    ``autotune_kw`` is passed to both autotunes (a rehearsal on the CPU
+    passes ``device="cpu"``).  Every calibrated answer must equal the
+    static engine's on the same corpus.  Returns what the phase prints
+    as its JSON line.
+    """
+    import tempfile
+
+    from repro_torch.core.tech import StaticCostSource
+    from repro_torch.match import MatchEngine, Planner
+    from repro_torch.match import calibrate as cal
+    kw = dict(device=engine.device, **(autotune_kw or {}))
+    kernel_of = {"swar": "match_swar", "swar_masks": "match_swar_masks",
+                 "mxu": "match_mxu", "filter": "filter_qgram",
+                 "bank_prefilter": "bank_prefilter"}
+
+    # -- autotune ----------------------------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    table = cal.autotune(verbose=True, **kw)
+    autotune_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"  autotune {autotune_s:.3f} s; launches {counts}")
+    check(set(table.curves) == set(cal.KERNELS),
+          f"every priced kernel fitted ({sorted(table.curves)})")
+    for key, name in kernel_of.items():
+        check(counts[name] > 0, f"autotune launched {name} for {key}")
+    for key in cal.KERNELS:
+        c = table.curves[key]
+        print(f"  curve {key}: alpha {c.alpha:.6g} beta {c.beta:.6g} s "
+              f"rel_err {c.rel_err} n {c.n_samples}")
+    print(f"  table {table.device_kind} / {table.backend} / interpret "
+          f"{table.interpret}, digest {table.digest}")
+    src = table.cost_source()
+    static = StaticCostSource()
+
+    # -- round trip and stability -----------------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        path = table.save(Path(d))
+        loaded = cal.load_cost_source(directory=Path(d),
+                                      device=engine.device)
+        check(loaded is not None and loaded.digest == table.digest,
+              f"{path.name} loads back with digest {table.digest[:8]}")
+        check(cal.golden_decisions(loaded) == cal.golden_decisions(src),
+              "the loaded table's golden decisions are the fitted table's")
+    t0 = time.perf_counter()
+    second = cal.autotune(**kw)
+    second_s = time.perf_counter() - t0
+    ok, rows = cal.decisions_stable(src, second.cost_source())
+    golden_static = dict(cal.golden_decisions(static))
+    golden_cal = dict(cal.golden_decisions(src))
+    for r in rows:
+        print(f"  golden {r['shape']}: static {golden_static[r['shape']]}, "
+              f"calibrated {r['choice_a']}, second {r['choice_b']} "
+              f"(stable {r['stable']}, neutral {r['cost_neutral']})")
+    print(f"  second autotune {second_s:.3f} s, digest {second.digest[:8]}"
+          f"; curves " + json.dumps({k: [c.alpha, c.beta] for k, c in
+                                     sorted(second.curves.items())}))
+    check(ok, "two autotunes make the same (or cost-neutral) decisions")
+
+    # -- queries under the calibrated planner --------------------------------
+    corpus = engine.corpus
+    want = {}
+    for key, q in queries.items():
+        want[key] = engine.compile(q).run()
+    calibrated = MatchEngine(corpus, cost_source=src)
+    check(calibrated.record_runtimes, "a calibrated engine records runtimes")
+    fb = calibrated.planner.feedback
+    runs = {}
+    zero_counts()
+    for key, q in queries.items():
+        cm = calibrated.compile(q)
+        runs[key] = []
+        for i in range(3):
+            sync()
+            t0 = time.perf_counter()
+            res = cm.run()
+            sync()
+            wall = time.perf_counter() - t0
+            check(same_answer(res, want[key]),
+                  f"({key}) run {i}: calibrated answer equals the static "
+                  "engine's")
+            p, ps = res.plan, want[key].plan
+            run = {"backend": p.backend, "strategy": p.strategy,
+                   "chunk_rows": p.chunk_rows, "est_s": p.est_seconds,
+                   "wall_s": wall, "n_observations": fb.n_observations,
+                   "repriced": sorted("/".join(map(str, k))
+                                      for k in fb.repriced()),
+                   "static": [ps.backend, ps.strategy, ps.est_seconds]}
+            runs[key].append(run)
+            print(f"  ({key}) run {i}: {p.backend}/{p.strategy} chunks of "
+                  f"{p.chunk_rows}, priced {p.est_seconds * 1e3:.4f} ms, "
+                  f"took {wall * 1e3:.4f} ms "
+                  f"(x{wall / max(p.est_seconds, 1e-12):.3g}); "
+                  f"{fb.n_observations} observations, repriced "
+                  f"{run['repriced']}; static {ps.backend}/{ps.strategy} "
+                  f"priced {ps.est_seconds * 1e3:.4f} ms")
+        flips = {(r["backend"], r["strategy"]) for r in runs[key]}
+        if len(flips) > 1:
+            print(f"  ({key}) feedback flipped its plan: "
+                  f"{[(r['backend'], r['strategy']) for r in runs[key]]}")
+    counts = read_counts()
+    print(f"  launches on the calibrated path: {counts}")
+    want_kernels = set()
+    for key, q in queries.items():
+        for r in runs[key]:
+            if r["backend"] != "ref":
+                want_kernels.add(plan_kernel(
+                    dataclasses.replace(want[key].plan, backend=r["backend"]),
+                    q.reduction))
+            if r["strategy"] == "filter":
+                want_kernels.add("filter_qgram")
+    got_kernels = {k for k, n in counts.items() if n}
+    check(want_kernels <= got_kernels, f"the calibrated plans' kernels "
+          f"{sorted(want_kernels)} launched ({sorted(got_kernels)})")
+
+    # (c) without its forced backend, and the bank, under both sources.
+    qc = queries["c"]
+    shape = dict(n_rows=corpus.n_rows, fragment_chars=corpus.fragment_chars,
+                 pattern_chars=qc.pattern_chars, n_patterns=qc.n_patterns)
+    free_c = {name: Planner(cost_source=s).plan(**shape)
+              for name, s in (("static", static), ("calibrated", src))}
+    for name, p in free_c.items():
+        print(f"  (c) unforced, {name}: {p.backend}: {p.reason}")
+    bank_kw = dict(n_docs=BANK_DOCS, fragment_chars=bank.fragment_chars,
+                   pattern_chars=bank.pattern_chars, n_patterns=bank.n_live,
+                   sig_words=bank.sig_words,
+                   survivor_frac=bank.estimate_survivor_frac(),
+                   prunable=bank.prunable)
+    bank_plans = {name: Planner(cost_source=s).plan_bank(**bank_kw)
+                  for name, s in (("static", static), ("calibrated", src))}
+    for name, bp in bank_plans.items():
+        print(f"  bank, {name}: {bp.strategy}: {bp.reason}")
+
+    # -- the fused kernels beside the STORE curve ----------------------------
+    fused = {}
+    for name, key in cal.FUSED.items():
+        top = cal.FULL_GRID[key][-1]
+        analytic, fused_s = cal.measure(name, top, device=engine.device,
+                                        repeats=10)
+        store_s = table.samples[key][-1]["measured_s"]
+        fused[name] = {"shape": top, "measured_s": fused_s,
+                       "store_measured_s": store_s,
+                       "store_curve_s": table.curves[key].seconds(analytic)}
+        print(f"  {name} at {top}: {fused_s * 1e3:.4f} ms; STORE "
+              f"{store_s * 1e3:.4f} ms measured, "
+              f"{fused[name]['store_curve_s'] * 1e3:.4f} ms on the curve")
+
+    # -- the committed table --------------------------------------------------
+    committed = cal.load_cost_source(device=engine.device)
+    print(f"  committed table for this card: "
+          f"{committed.tag if committed is not None else 'none'} "
+          f"({cal.calibration_dir()})")
+    if committed is not None:
+        dec = cal.golden_decisions(committed)
+        print(f"  committed table's golden decisions equal this run's: "
+              f"{dec == cal.golden_decisions(src)}")
+    provenance = cal.bench_provenance(src, device=engine.device)
+    print(f"  provenance {json.dumps(provenance)}")
+    check(provenance["power_limit_w"] is not None,
+          "the card's power limit read by its UUID")
+    return {"autotune_s": autotune_s, "second_autotune_s": second_s,
+            "table": table.to_json(), "second_table": second.to_json(),
+            "stability": rows, "golden_static": golden_static,
+            "golden_calibrated": golden_cal, "runs": runs,
+            "c_unforced": {n: [p.backend, p.est_seconds]
+                           for n, p in free_c.items()},
+            "bank": {n: [bp.strategy, bp.est_seconds]
+                     for n, bp in bank_plans.items()},
+            "fused": fused,
+            "committed": committed.tag if committed is not None else None,
+            "provenance": provenance}
 
 
 def main() -> int:
@@ -1385,7 +1593,17 @@ def main() -> int:
               f"{service['peak_bytes'] / 2**30:.3f} GiB; card: {smi}")
         print("service " + json.dumps(service))
 
-    # -- 8. summary ---------------------------------------------------------
+    # -- 8. calibration ------------------------------------------------------
+    with Phase("phase 8: calibration"):
+        calibration = calibration_phase(
+            engine, bank, {"a": qa, "b": qb, "c": qc, "d": qd, "c2": qc2,
+                           "e": qe, "f": qf},
+            zero_counts=zero_counts, read_counts=read_counts,
+            sync=torch.cuda.synchronize)
+        print(f"  card: {smi}")
+        print("calibration " + json.dumps(calibration))
+
+    # -- 9. summary ---------------------------------------------------------
     # Each kernel's launches come from its own path's run.
     path_launches = dict(launches)
     path_launches["match_mxu"] = launches_c2["match_mxu"]

@@ -4,7 +4,9 @@ Port of the cost half of ``repro.core.tech``.  The planner turns a shape
 into analytic roofline seconds against a ``GPURoofline`` (pure
 arithmetic, no overheads); the active ``CostSource`` turns those into
 wall seconds.  ``StaticCostSource`` is the datasheet model: analytic
-seconds plus a fixed per-dispatch overhead.  The MTJ / CRAM technology
+seconds plus a fixed per-dispatch overhead.  ``CalibratedCostSource``
+prices each kernel by its measured ``KernelCurve`` (fitted by
+``repro_torch.match.calibrate``).  The MTJ / CRAM technology
 tables of the reference module describe the paper's substrate, not this
 card, and belong to the later CRAM-model slice.
 """
@@ -12,6 +14,7 @@ card, and belong to the later CRAM-model slice.
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Mapping, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +41,8 @@ H100 = GPURoofline(
 
 # Per-kernel-dispatch overhead the *static* cost source charges: the
 # order of magnitude of one CUDA launch plus its Python wrapper (an
-# assumption, not a measurement; calibration replaces it in a later
-# slice).
+# assumption, not a measurement).  A calibrated source replaces it with
+# each kernel's measured intercept (``KernelCurve.beta``).
 DISPATCH_OVERHEAD_S = 5e-6
 # The ref backend is a Python loop of small torch ops per call, with
 # overhead well above one kernel launch (assumption, not measured).
@@ -84,3 +87,49 @@ class StaticCostSource(CostSource):
     @property
     def tag(self) -> str:
         return "static"
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCurve:
+    """One kernel's fitted cost curve: measured = alpha*analytic + beta.
+
+    ``alpha`` is the measured overhead factor over the analytic op/byte
+    model (the SNIPPETS.md Sec. 2 idiom: measured cycles / pure-FMACS
+    cycles); ``beta`` is the measured per-dispatch intercept (launch,
+    wrapper, synchronize).  Both are fitted under positivity
+    constraints, so calibrated pricing inherits the analytic model's
+    monotonicity in R, P and Q.
+    """
+
+    alpha: float                  # overhead factor (> 0)
+    beta: float                   # per-dispatch fixed seconds (>= 0)
+    n_samples: int = 0
+    rel_err: float = 0.0          # max relative residual of the fit
+
+    def seconds(self, analytic_s: float, n_dispatch: int = 1) -> float:
+        return self.alpha * analytic_s + n_dispatch * self.beta
+
+
+class CalibratedCostSource(CostSource):
+    """Measured per-kernel curves; unknown kernels fall back to static."""
+
+    name = "calibrated"
+
+    def __init__(self, curves: Mapping[str, KernelCurve], *, digest: str,
+                 meta: Optional[Mapping] = None,
+                 fallback: Optional[CostSource] = None):
+        self.curves: Dict[str, KernelCurve] = dict(curves)
+        self.digest = str(digest)
+        self.meta = dict(meta or {})
+        self.fallback = fallback or StaticCostSource()
+
+    def price(self, kernel: str, analytic_s: float,
+              n_dispatch: int = 1) -> float:
+        curve = self.curves.get(kernel)
+        if curve is None:
+            return self.fallback.price(kernel, analytic_s, n_dispatch)
+        return curve.seconds(analytic_s, n_dispatch)
+
+    @property
+    def tag(self) -> str:
+        return f"calibrated:{self.digest[:8]}"

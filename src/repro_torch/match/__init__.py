@@ -21,12 +21,16 @@
   cache, and ingest scanned against a standing bank before it splices
   into a sliding-window corpus.
 
-Calibration (``CalibrationTable``, ``autotune``, ``load_cost_source``)
-is not ported yet.
+* ``CalibrationTable`` / ``autotune`` / ``load_cost_source`` /
+  ``bench_provenance`` -- measured per-kernel cost curves for this card
+  (``calibrate.py``); opt in with
+  ``MatchEngine(corpus, cost_source=load_cost_source())``.
 """
 
 from repro_torch.obs import MetricsRegistry, Observability, Tracer
 
+from .calibrate import (CalibrationTable, autotune, bench_provenance,
+                        load_cost_source)
 from .corpus import PackedCorpus
 from .engine import CompiledMatch, MatchEngine, MatchResult
 from .feedback import EwmaRatio, FeedbackStore, kernel_key
@@ -42,4 +46,5 @@ __all__ = ["PackedCorpus", "Planner", "Plan", "BatchPlan", "FilterContext",
            "IngestTicket", "ServiceStats", "CorpusIndex", "FilterOperands",
            "build_query_filter", "PatternBank", "HitTicket",
            "StandingPattern", "EwmaRatio", "FeedbackStore", "kernel_key",
-           "Observability", "Tracer", "MetricsRegistry"]
+           "CalibrationTable", "autotune", "bench_provenance",
+           "load_cost_source", "Observability", "Tracer", "MetricsRegistry"]

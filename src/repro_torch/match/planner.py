@@ -24,6 +24,12 @@ pattern bank against one document batch.  Both filter kernels are
 priced on this card's roofline (``FILTER_OPS_PER_WORD``), not on the
 TPU's vector-unit count.
 
+Cost sources: the static source (data-sheet roofline plus an assumed
+dispatch overhead) keeps the ``TINY_OPS`` escape to ``ref``; a
+calibrated source (``repro_torch.match.calibrate``) prices every kernel
+by its measured curve, and ``plan`` then takes the cheapest of swar,
+mxu and ref, as the JAX planner does.
+
 Batch pricing: ``plan_batch`` weighs Q compatible shared-mode queries
 fused into one ``mode="batched"`` launch against Q single launches (the
 ``MatchService`` coalescing verdict).
@@ -350,6 +356,18 @@ class Planner:
         elif (self.cost_source.name == "static"
               and R * L * P * Q <= TINY_OPS):
             chosen, reason = "ref", "tiny workload: launch overhead dominates"
+        elif self.cost_source.name != "static":
+            # Calibrated: a genuine three-way comparison.  The measured
+            # intercepts decide the tiny-shape regime that the static
+            # model settles with TINY_OPS.
+            t_ref = self.ref_seconds(R, L, P, Q)
+            chosen, t_best = "swar", t_swar
+            if t_mxu < t_best:
+                chosen, t_best = "mxu", t_mxu
+            if t_ref < t_best:
+                chosen, t_best = "ref", t_ref
+            reason = (f"measured: {chosen} {t_best:.3g}s (swar {t_swar:.3g}s,"
+                      f" mxu {t_mxu:.3g}s, ref {t_ref:.3g}s, Q={Q})")
         elif t_mxu < t_swar:
             chosen = "mxu"
             reason = f"roofline: mxu {t_mxu:.3g}s < swar {t_swar:.3g}s (Q={Q})"

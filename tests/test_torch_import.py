@@ -49,7 +49,8 @@ def test_imports_with_jax_blocked():
     "repro_torch.match.index", "repro_torch.match.standing",
     "repro_torch.kernels.filter_qgram", "repro_torch.kernels.popcount",
     "repro_torch.kernels.bitwise", "repro_torch.match.service",
-    "repro_torch.launch.serve", "repro_torch.data.dedup"])
+    "repro_torch.launch.serve", "repro_torch.data.dedup",
+    "repro_torch.match.calibrate", "repro_torch.obs.lint_spans"])
 def test_slice_modules_import_with_jax_blocked(module):
     code = (
         "import sys, importlib\n"
@@ -92,6 +93,7 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.match import MatchEngine, PackedCorpus, PatternBank
+    from repro_torch.match import calibrate
     frags = np.zeros((8, 16), np.uint8)
     calls = [lambda: resolve_device(),
              lambda: resolve_device("cuda"),
@@ -108,7 +110,12 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
              lambda: ops.bitwise("NOT", np.zeros((8, 2), np.uint32)),
              lambda: PatternBank(16, 4),
              lambda: CRAMDedup(),
-             lambda: serve.main(["--workload", "stream"])]
+             lambda: serve.main(["--workload", "stream"]),
+             lambda: calibrate.autotune(fast=True),
+             lambda: calibrate.measure("swar", dict(R=8, F=40, P=10)),
+             lambda: calibrate.load_cost_source(),
+             lambda: calibrate.bench_provenance(),
+             lambda: calibrate.device_kind()]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
