@@ -7,10 +7,10 @@ CUDA toolkit and PyTorch built for CUDA:
     python3 chip_smoke.py
 
 It imports nothing of JAX or of the JAX package ``repro``.  Phases, each
-printing its wall time:
+printing its wall time beside the card's name and power limit:
 
 1. Environment: torch / CUDA versions, the card's name and power limit.
-2. Build: the five CUDA sources with nvcc, in parallel; the
+2. Build: the six CUDA sources (ten kernels) with nvcc, in parallel; the
    ``-Xptxas -v`` resource summary.
 3. Kernels against their plain versions at edge shapes, bit for bit
    (``match_swar_best`` also on a read planted at two alignments and an
@@ -89,9 +89,26 @@ printing its wall time:
    ``match_mxu_best`` beside the STORE curve at the grid's top shape;
    whether ``load_cost_source()`` finds the committed table; the
    provenance block, whose power limit is read for this card.
-9. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line, the
-   card's name and power limit, and ``{"ok": true, "device": {...}}``
-   as the last line.
+9. The CRAM-PM functional model (``repro_torch.core``): (a)
+   ``cram_execute`` against ``execute_plain`` bit for bit at edge shapes
+   (every opcode, random uint8 states, row counts off the block,
+   self-aliasing ops, every launch geometry up to a program whose touched
+   columns exceed shared memory) and on the empty program; (b) the
+   paper's array, ``Design()``'s 10,000 rows x 2,400 columns
+   (``plan_layout(2400, 100, scratch_budget=128)``: 982-char fragments,
+   883 alignments): one alignment's program under both schedules, kernel
+   against plain on the whole state, then ``Matcher.run()`` over every
+   alignment, its scores equal to ``ops.match_scores(..., backend=
+   "swar")``, its wall time beside ``costmodel.pass_cost(Design())``'s
+   (context only); (c) Algorithm 1 over phase 4's 620,839 x 500
+   fragments (the host copy taken before phase 7 changes the corpus)
+   with read (a): all 401 alignments on 841 MB of state, one launch
+   each, scores equal to the SWAR path's, the best alignment at (a)'s
+   planted row and location; wall, kernel and host codegen/readout
+   times apart.
+10. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line,
+   the card's name and power limit, and ``{"ok": true, "device":
+   {...}}`` as the last line.
 
 Any mismatch raises and the script exits non-zero; no phase catches a
 failure.
@@ -175,13 +192,23 @@ SOURCES = {
                  "src/repro/kernels/popcount.py:41"),
     "bitwise": ("src/repro_torch/kernels/csrc/bitwise.cu",
                 "src/repro/kernels/bitwise.py:41"),
+    "cram_execute": ("src/repro_torch/kernels/csrc/cram_array.cu",
+                     "src/repro/core/array.py:144"),
 }
-BUILD = ("match_swar", "match_mxu", "filter_qgram", "popcount", "bitwise")
+BUILD = ("match_swar", "match_mxu", "filter_qgram", "popcount", "bitwise",
+         "cram_array")
+# CRAM-PM functional model (phase 9): the paper's array (``Design()``:
+# 10,000 rows x 2,400 columns, 100-char patterns, a 128-column scratch
+# budget) and INT32 operations a row-op needs by opcode id (PRESET0,
+# PRESET1, NOR, OR, NAND, AND, INV, COPY, MAJ3, MAJ5, TH): the adds of
+# its inputs and one compare, INV one subtract, COPY and presets none.
+PAPER_ROWS, PAPER_COLS, PAPER_SCRATCH = 10_000, 2_400, 128
+CRAM_INT_OPS = (0, 0, 2, 2, 2, 2, 1, 0, 3, 5, 4)
 # Readings some kernel rows carry beside their own: the exact SWAR bound
 # by the first build's count, STORE match_swar at (a)'s chunk, popcount
 # over the SWAR form's rows unpadded and its bound there.
 EXTRA_MS = ("bound_ms_first_build", "ms_a_chunk", "ms_unpadded",
-            "bound_ms_unpadded")
+            "bound_ms_unpadded", "ms_paper", "bound_ms_paper")
 
 
 def check(cond: bool, what: str) -> None:
@@ -190,6 +217,8 @@ def check(cond: bool, what: str) -> None:
 
 
 class Phase:
+    card = ""    # ``nvidia-smi`` name and power limit, set by phase 1
+
     def __init__(self, name: str):
         self.name = name
 
@@ -200,8 +229,8 @@ class Phase:
 
     def __exit__(self, *exc):
         if exc[0] is None:
-            print(f"== {self.name}: {time.perf_counter() - self.t0:.1f} s",
-                  flush=True)
+            print(f"== {self.name}: {time.perf_counter() - self.t0:.1f} s "
+                  f"(card: {Phase.card})", flush=True)
         return False
 
 
@@ -710,6 +739,265 @@ def calibration_phase(engine, bank, queries, *, zero_counts, read_counts,
             "provenance": provenance}
 
 
+def cram_bound(n_rows: int, packed):
+    """(bound ms, what bounds it) of one program over ``n_rows`` rows: the
+    touched columns read once, the written ones written once, the program
+    read once; the gates' INT32 operations (``CRAM_INT_OPS``) at the INT32
+    peak."""
+    import numpy as np
+    nbytes = (n_rows * (packed.n_touched + packed.n_written)
+              + len(packed) * 16 + packed.n_touched * 4)
+    ops = n_rows * int(np.asarray(CRAM_INT_OPS)[packed.opc].sum())
+    return bound(nbytes, ops, PEAK_INT32)
+
+
+def cram_edge_programs():
+    """Phase 9 (a): (rows, cols, ops) cases and the launch geometry each
+    reaches, (rows a block, staged, above 48 KB of shared memory): one row;
+    row counts off the 128-row block; staged within 48 KB and above it (128
+    rows a block), 64 and 32 rows a block; and touched columns past what 32
+    rows' staging holds (unstaged)."""
+    small, big = (128, True, False), (128, True, True)
+    return [(1, 8, 60, small), (31, 16, 200, small), (33, 16, 200, small),
+            (129, 40, 300, small), (1000, 64, 500, small),
+            (257, 600, 400, big), (300, 3000, 2000, (64, True, True)),
+            (100, 6000, 4000, (32, True, True)),
+            (200, 9000, 6000, (128, False, False))]
+
+
+def random_cram_program(rng, n_ops: int, n_cols: int):
+    """Every opcode at least once, random columns, every fifth op reading
+    its own output column, padded inputs random but in range (never
+    read)."""
+    import numpy as np
+    opc = np.concatenate([np.arange(11), rng.integers(0, 11, n_ops - 11)])
+    ins = rng.integers(0, n_cols, (n_ops, 5))
+    out = rng.integers(0, n_cols, n_ops)
+    out[::5] = ins[::5, 0]
+    return opc, ins, out
+
+
+def event_ms(fn):
+    """(milliseconds, result) of one call of ``fn``, by CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), res
+
+
+def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
+               sync, device="cuda", paper=(PAPER_ROWS, PAPER_COLS)):
+    """Phase 9: the CRAM-PM functional model on the card.
+
+    (a) ``cram_execute`` against ``execute_plain`` at edge shapes, bit for
+    bit; (b) the paper's array (``Design()``'s 10,000 x 2,400): one
+    alignment's program under both schedules, kernel against plain on the
+    whole state, then ``Matcher.run()`` over all its alignments against
+    the SWAR path's scores; (c) Algorithm 1 over ``frags_chr1`` with
+    ``read``: every alignment, scores against the SWAR path's, the best
+    alignment at ``planted`` (row, loc).  Returns the kernel row, the
+    launches of (c)'s run and what the phase prints.  ``device`` and
+    ``paper`` (rows, columns) let the phase be rehearsed on the CPU at a
+    small size, with ``cuda_ms`` and ``event_ms`` patched to a host clock
+    and a counting ``cram_execute_``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import costmodel
+    from repro_torch.core.array import execute, execute_plain
+    from repro_torch.core.matcher import (Matcher, best_alignment,
+                                          compile_alignment, plan_layout)
+    from repro_torch.kernels import cram_array as kca
+    from repro_torch.kernels import ops
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(SEED + 9)
+    err = 0
+    info = {}
+
+    def held(got, want, what):
+        nonlocal err
+        e = int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) \
+            if got.numel() else 0
+        err = max(err, e)
+        check(e == 0, f"cram_execute equals execute_plain: {what}")
+
+    # (a) edge shapes.
+    for R, C, n_ops, want_geo in cram_edge_programs():
+        state = torch.from_numpy(rng.integers(0, 256, (R, C), np.uint8)).to(
+            dev)
+        before = state.clone()
+        opc, ins, out = random_cram_program(rng, n_ops, C)
+        packed = kca.pack_program(opc, ins, out, C, dev)
+        geo = kca.launch_geometry(packed.n_touched)
+        check((geo.block_rows, geo.staged, geo.smem_bytes > 48 * 1024)
+              == want_geo, f"R={R} C={C} ops={n_ops} reaches {want_geo}, "
+              f"got {geo}")
+        n0 = kca.cram_execute.n_launches
+        got = execute(state, opc, ins, out)
+        held(got, execute_plain(state, opc, ins, out),
+             f"R={R} C={C} ops={n_ops} T={packed.n_touched} ({want_geo})")
+        check(torch.equal(state, before), "execute leaves its input as it was")
+        inplace = kca.cram_execute_(state.clone(), packed)
+        held(inplace, got, f"in place, R={R} C={C}")
+        check(kca.cram_execute.n_launches - n0 == 2, "one launch a program")
+    state = torch.from_numpy(rng.integers(0, 256, (70, 9), np.uint8)).to(dev)
+    n0 = kca.cram_execute.n_launches
+    empty = execute(state, np.zeros(0, np.int32), np.zeros((0, 5), np.int32),
+                    np.zeros(0, np.int32))
+    check(torch.equal(empty, state) and kca.cram_execute.n_launches == n0,
+          "an empty program returns the state unchanged, no launch")
+    two = torch.tensor([[2], [5]], dtype=torch.uint8, device=dev).expand(
+        2, 4).contiguous()
+    inv_copy = execute(two, np.array([6, 7]), np.zeros((2, 5)),
+                       np.array([1, 2]))
+    check(inv_copy[:, 1].tolist() == [255, 252]
+          and inv_copy[:, 2].tolist() == [2, 5],
+          "INV of 2, 5 is 255, 252 and COPY keeps them (int32, then uint8)")
+    sync()
+    print(f"  (a) {len(cram_edge_programs())} edge shapes bit-identical "
+          "(every launch geometry, random uint8 states, every opcode, "
+          "self-aliasing ops), the empty program, INV/COPY of 2, 5")
+
+    # (b) the paper's array.
+    t0 = time.perf_counter()
+    n_paper, c_paper = paper
+    layout = plan_layout(c_paper, READ, scratch_budget=PAPER_SCRATCH)
+    if paper == (PAPER_ROWS, PAPER_COLS):
+        check((layout.fragment_chars, layout.n_alignments) == (982, 883),
+              f"paper layout {layout}")
+    frags = rng.integers(0, 4, (n_paper, layout.fragment_chars), np.uint8)
+    pat = rng.integers(0, 4, READ, np.uint8)
+    p_row = int(rng.integers(0, n_paper))
+    p_loc = int(rng.integers(0, layout.n_alignments))
+    frags[p_row, p_loc:p_loc + READ] = pat
+    m = Matcher(frags, READ, n_cols=c_paper, device=dev)
+    m.load_pattern(pat)
+    b_kernel_ms, b_plain_ms = {}, {}
+    for opt in (False, True):
+        prog, _ = compile_alignment(layout, p_loc, opt=opt)
+        enc = prog.encode()
+        packed = kca.pack_program(*enc, c_paper, dev)
+        st = m.array.state
+        held(execute(st, *enc), execute_plain(st, *enc),
+             f"paper array, one alignment, opt={opt}")
+        work = st.clone()
+        b_kernel_ms[opt] = cuda_ms(lambda: kca.cram_execute_(work, packed),
+                                   5)
+        del work
+        b_plain_ms[opt] = cuda_ms(lambda: execute_plain(st, *enc), 1)
+    bound_b = cram_bound(n_paper, packed)
+    t = time.perf_counter()
+    for loc in range(layout.n_alignments):
+        m._program_for(loc)
+    codegen_b = time.perf_counter() - t
+    sync()
+    t = time.perf_counter()
+    scores = m.run()
+    sync()
+    run_b = time.perf_counter() - t
+    swar = ops.match_scores(frags, pat, backend="swar", device=dev)
+    check(np.array_equal(scores, swar),
+          "paper array: Matcher scores equal the SWAR path's")
+    locs_b, best_b = best_alignment(scores)
+    check(int(best_b[p_row]) == READ and int(locs_b[p_row]) == p_loc,
+          "paper array: the planted alignment scores 100")
+    modeled = costmodel.pass_cost(costmodel.Design()).latency_s
+    info["paper"] = {
+        "rows": n_paper, "cols": c_paper,
+        "alignments": layout.n_alignments, "codegen_s": codegen_b,
+        "run_s": run_b, "kernel_ms": b_kernel_ms[True],
+        "kernel_ms_naive_schedule": b_kernel_ms[False],
+        "plain_ms": b_plain_ms[True], "bound_ms": bound_b[0],
+        "model_pass_latency_s": modeled,
+        "set_up_s": time.perf_counter() - t0 - run_b - codegen_b}
+    print(f"  (b) {n_paper} x {c_paper}, {layout.n_alignments} "
+          f"alignments: scores equal the SWAR path's; codegen "
+          f"{codegen_b:.2f} s, Matcher.run {run_b:.3f} s a pass (the cost "
+          f"model's Design() pass: {modeled:.4g} s, for context only); one "
+          f"alignment {b_kernel_ms[True]:.4f} ms (naive schedule "
+          f"{b_kernel_ms[False]:.4f}), plain {b_plain_ms[True]:.1f} ms, "
+          f"bound {bound_b[0]:.4f} ms ({bound_b[1]}); card: {Phase.card}")
+
+    # (c) Algorithm 1 at chr1 size.
+    t0 = time.perf_counter()
+    p_row, p_loc = planted
+    m = Matcher(frags_chr1, READ, device=dev)
+    m.load_pattern(read)
+    sync()
+    set_up = time.perf_counter() - t0
+    lay = m.layout
+    t = time.perf_counter()
+    progs = [m._program_for(loc)[0] for loc in range(lay.n_alignments)]
+    codegen_c = time.perf_counter() - t
+    st = m.array.state
+    R = st.shape[0]
+    enc = (progs[0].opc, progs[0].ins, progs[0].out)
+    plain_c, want = event_ms(lambda: execute_plain(st, *enc))
+    held(execute(st, *enc), want, f"chr1 state, loc 0 ({R} rows)")
+    del want
+    zero_counts()
+    sync()
+    t = time.perf_counter()
+    scores = m.run()
+    sync()
+    run_c = time.perf_counter() - t
+    launches = read_counts()
+    check(launches["cram_execute"] == lay.n_alignments,
+          "Matcher.run launches cram_execute once an alignment")
+    kernel_c, _ = event_ms(lambda: [kca.cram_execute_(st, pk)
+                                     for pk in progs])
+    t = time.perf_counter()
+    swar = ops.match_scores(frags_chr1, read, backend="swar", device=dev)
+    swar_s = time.perf_counter() - t
+    check(np.array_equal(scores, swar),
+          f"chr1: Matcher scores equal the SWAR path's ({R} x "
+          f"{lay.n_alignments})")
+    locs_c, best_c = best_alignment(scores)
+    check(int(best_c.max()) == READ and int(best_c.argmax()) == p_row
+          and int(locs_c[p_row]) == p_loc
+          and int(np.count_nonzero(scores == READ)) == 1,
+          "chr1: the best alignment is the planted row and location")
+    bound_c = cram_bound(R, progs[0])
+    n_ops = len(progs[0])
+    info["chr1"] = {
+        "rows": R, "cols": lay.n_cols, "alignments": lay.n_alignments,
+        "ops_per_alignment": n_ops, "touched_cols": progs[0].n_touched,
+        "written_cols": progs[0].n_written, "set_up_s": set_up,
+        "codegen_s": codegen_c, "run_s": run_c,
+        "kernel_ms_total": kernel_c,
+        "kernel_ms": kernel_c / lay.n_alignments,
+        "host_ms_in_run": run_c * 1e3 - kernel_c, "plain_ms": plain_c,
+        "swar_s": swar_s, "launches": launches["cram_execute"],
+        "row_alignments_per_s": R * lay.n_alignments / run_c,
+        "row_ops_per_s": R * lay.n_alignments * n_ops / run_c,
+        "bound_ms": bound_c[0], "bound_by": bound_c[1]}
+    print(f"  (c) {R} rows x {lay.n_cols} columns "
+          f"({R * lay.n_cols / 1e6:.0f} MB of state), {lay.n_alignments} "
+          f"alignments of {n_ops} ops ({progs[0].n_touched} columns "
+          f"touched, {progs[0].n_written} written): Matcher.run "
+          f"{run_c:.3f} s, {launches['cram_execute']} launches, kernels "
+          f"{kernel_c:.1f} ms ({kernel_c / lay.n_alignments:.4f} ms a launch,"
+          f" bound {bound_c[0]:.4f} ms, {bound_c[1]}), host readout "
+          f"{run_c * 1e3 - kernel_c:.1f} ms; codegen {codegen_c:.2f} s, "
+          f"set-up {set_up:.2f} s; "
+          f"{R * lay.n_alignments / run_c:.4g} row-alignments/s; plain "
+          f"{plain_c:.1f} ms an alignment; scores equal the SWAR path's "
+          f"({swar_s:.2f} s), best at the planted ({p_row}, {p_loc}); "
+          f"card: {Phase.card}")
+    row = dict(
+        name="cram_execute", rows=R, ms=kernel_c / lay.n_alignments,
+        event_ms=kernel_c / lay.n_alignments, plain_ms=plain_c,
+        bound_ms=bound_c[0], bound_by=bound_c[1], library_ms=None,
+        max_abs_err=err, ms_paper=b_kernel_ms[True],
+        bound_ms_paper=bound_b[0])
+    return row, launches["cram_execute"], info
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -722,6 +1010,7 @@ def main() -> int:
     from repro_torch.core import encoding
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitwise as kbw
+    from repro_torch.kernels import cram_array as kca
     from repro_torch.kernels import filter_qgram as kfq
     from repro_torch.kernels import match_mxu as kmx
     from repro_torch.kernels import match_swar as ksw
@@ -744,7 +1033,8 @@ def main() -> int:
                 "filter_qgram": kfq.filter_qgram,
                 "bank_prefilter": kfq.bank_prefilter,
                 "popcount": kpc.popcount,
-                "bitwise": kbw.bitwise}
+                "bitwise": kbw.bitwise,
+                "cram_execute": kca.cram_execute}
     plains = {"match_swar": ksw.match_swar_plain,
               "match_swar_best": ksw.match_swar_best_plain,
               "match_swar_masks": ksw.match_swar_masks_plain,
@@ -768,6 +1058,7 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
         print(f"card: {smi}")
+        Phase.card = smi
 
     # -- 2. build ---------------------------------------------------------
     with Phase("phase 2: build (nvcc, sm_90a)"):
@@ -937,6 +1228,7 @@ def main() -> int:
         corpus = PackedCorpus.from_reference(ref, FRAG, READ, device="cuda")
         engine = MatchEngine(corpus)
         n_rows = corpus.n_rows
+        frags_chr1 = corpus.fragments.copy()   # phases 7-8 change the corpus
         step = FRAG - READ + 1
         print(f"  reference {CHR1_BP} bp -> {n_rows} rows x {FRAG} chars "
               f"(set-up {time.perf_counter() - t0:.1f} s)")
@@ -1603,7 +1895,16 @@ def main() -> int:
         print(f"  card: {smi}")
         print("calibration " + json.dumps(calibration))
 
-    # -- 9. summary ---------------------------------------------------------
+    # -- 9. the CRAM-PM functional model ----------------------------------
+    with Phase("phase 9: CRAM-PM functional model"):
+        cram_row, cram_launches, cram_info = cram_phase(
+            frags_chr1, read_a, (int(rows[0]), int(locs[0])),
+            zero_counts=zero_counts, read_counts=read_counts,
+            sync=torch.cuda.synchronize)
+        kernels.append(cram_row)
+        print("cram " + json.dumps(cram_info))
+
+    # -- 10. summary ---------------------------------------------------------
     # Each kernel's launches come from its own path's run.
     path_launches = dict(launches)
     path_launches["match_mxu"] = launches_c2["match_mxu"]
@@ -1612,6 +1913,7 @@ def main() -> int:
     path_launches["bank_prefilter"] = launches_bank["bank_prefilter"]
     path_launches["popcount"] = launches_bulk["popcount"]
     path_launches["bitwise"] = launches_bulk["bitwise"]
+    path_launches["cram_execute"] = cram_launches
     rows_out = []
     for k in kernels:
         src, replaces = SOURCES[k["name"]]

@@ -11,9 +11,13 @@ kernel of the ported path is a hand-written CUDA C++ kernel for Hopper
 
 Ported so far, on one device: the match engine with its q-gram filter
 index (``MatchEngine``, ``CorpusIndex``), the standing-query
-``PatternBank``, and all seven kernels of the JAX package -- ``match_swar``,
+``PatternBank``, the multi-tenant ``MatchService``, calibration, ``obs``,
+and all seven kernels of the JAX package -- ``match_swar``,
 ``match_swar_masks``, ``match_mxu``, ``filter_qgram``, ``bank_prefilter``,
-``popcount`` and ``bitwise``.
+``popcount`` and ``bitwise``; and the CRAM-PM functional model of
+``core`` (the array interpreter, a CUDA kernel of its own, code
+generation, Algorithm 1's ``Matcher``, the analog gate model, the
+schedules and the paper's cost model).
 """
 
 from .device import resolve_device

@@ -3,8 +3,8 @@
 numpy only, copied from the JAX package so the port imports nothing of
 it.  The paper uses a 2-bit encoding for the DNA alphabet {A, C, G, T}
 (Sec. 3.1); the packed form feeds the SWAR kernels (uint32 words, 16
-chars/word).  The byte-text and CRAM bit-plane helpers of the reference
-module are not part of the match path and are not copied.
+chars/word), the bit planes (``codes_to_bits``) the CRAM array's row
+layout (``core.matcher``), and ``encode_bytes`` byte text.
 """
 
 from __future__ import annotations
@@ -82,6 +82,27 @@ def random_dna(rng: np.random.Generator, n: int) -> np.ndarray:
     return rng.integers(0, 4, size=n, dtype=np.uint8)
 
 
+def codes_to_bits(codes: np.ndarray, bits: int = DNA_BITS) -> np.ndarray:
+    """(..., n) codes -> (..., n*bits) bit planes, LSB-first per character.
+
+    This is the CRAM row layout: each character occupies `bits` adjacent
+    cells (Sec. 3.1: "each character-level comparison entails two bit-level
+    comparisons")."""
+    codes = np.asarray(codes)
+    out = np.zeros(codes.shape + (bits,), np.uint8)
+    for b in range(bits):
+        out[..., b] = (codes >> b) & 1
+    return out.reshape(codes.shape[:-1] + (codes.shape[-1] * bits,))
+
+
+def bits_to_codes(bitarr: np.ndarray, bits: int = DNA_BITS) -> np.ndarray:
+    bitarr = np.asarray(bitarr)
+    n = bitarr.shape[-1] // bits
+    grouped = bitarr.reshape(bitarr.shape[:-1] + (n, bits))
+    weights = (1 << np.arange(bits)).astype(np.uint8)
+    return (grouped * weights).sum(-1).astype(np.uint8)
+
+
 def pack_codes_u32(codes: np.ndarray, bits: int = DNA_BITS) -> np.ndarray:
     """(..., n) char codes -> (..., ceil(n/cpw)) uint32 SWAR words.
 
@@ -106,6 +127,10 @@ def unpack_codes_u32(words: np.ndarray, n: int, bits: int = DNA_BITS) -> np.ndar
     lanes = (words[..., :, None] >> shifts) & np.uint32((1 << bits) - 1)
     flat = lanes.reshape(words.shape[:-1] + (words.shape[-1] * cpw,))
     return flat[..., :n].astype(np.uint8)
+
+
+def encode_bytes(s: bytes) -> np.ndarray:
+    return np.frombuffer(s, np.uint8)
 
 
 def fold_reference(ref_codes: np.ndarray, fragment_len: int,

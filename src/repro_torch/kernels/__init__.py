@@ -13,6 +13,10 @@
   (``bank_prefilter``); CUDA C++ in ``csrc/filter_qgram.cu``.
 * ``popcount`` / ``bitwise`` -- bulk per-row popcount and bulk bitwise
   ops; CUDA C++ in ``csrc/popcount.cu`` and ``csrc/bitwise.cu``.
+* ``cram_array`` -- the CRAM-PM array interpreter (``cram_execute``: one
+  micro-program on every row of a uint8 state; the counterpart of
+  ``repro.core.array.execute``, a ``jax.lax.scan`` rather than a Pallas
+  kernel); CUDA C++ in ``csrc/cram_array.cu``.
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel (or raises) for a CUDA tensor; ``<wrapper>.n_launches``

@@ -50,7 +50,9 @@ def test_imports_with_jax_blocked():
     "repro_torch.kernels.filter_qgram", "repro_torch.kernels.popcount",
     "repro_torch.kernels.bitwise", "repro_torch.match.service",
     "repro_torch.launch.serve", "repro_torch.data.dedup",
-    "repro_torch.match.calibrate", "repro_torch.obs.lint_spans"])
+    "repro_torch.match.calibrate", "repro_torch.obs.lint_spans",
+    "repro_torch.core.array", "repro_torch.core.matcher",
+    "repro_torch.core.costmodel", "repro_torch.kernels.cram_array"])
 def test_slice_modules_import_with_jax_blocked(module):
     code = (
         "import sys, importlib\n"
@@ -94,6 +96,8 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
     from repro_torch.launch import serve
     from repro_torch.match import MatchEngine, PackedCorpus, PatternBank
     from repro_torch.match import calibrate
+    from repro_torch.core.array import CRAMArray
+    from repro_torch.core.matcher import Matcher
     frags = np.zeros((8, 16), np.uint8)
     calls = [lambda: resolve_device(),
              lambda: resolve_device("cuda"),
@@ -115,7 +119,9 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
              lambda: calibrate.measure("swar", dict(R=8, F=40, P=10)),
              lambda: calibrate.load_cost_source(),
              lambda: calibrate.bench_provenance(),
-             lambda: calibrate.device_kind()]
+             lambda: calibrate.device_kind(),
+             lambda: CRAMArray(8, 16),
+             lambda: Matcher(frags, 4)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
