@@ -10,7 +10,7 @@ It imports nothing of JAX or of the JAX package ``repro``.  Phases, each
 printing its wall time beside the card's name and power limit:
 
 1. Environment: torch / CUDA versions, the card's name and power limit.
-2. Build: the six CUDA sources (ten kernels) with nvcc, in parallel; the
+2. Build: the six CUDA sources (eleven kernels) with nvcc, in parallel; the
    ``-Xptxas -v`` resource summary.
 3. Kernels against their plain versions at edge shapes, bit for bit
    (``match_swar_best`` also on a read planted at two alignments and an
@@ -89,23 +89,33 @@ printing its wall time beside the card's name and power limit:
    ``match_mxu_best`` beside the STORE curve at the grid's top shape;
    whether ``load_cost_source()`` finds the committed table; the
    provenance block, whose power limit is read for this card.
-9. The CRAM-PM functional model (``repro_torch.core``): (a)
-   ``cram_execute`` against ``execute_plain`` bit for bit at edge shapes
-   (every opcode, random uint8 states, row counts off the block,
-   self-aliasing ops, every launch geometry up to a program whose touched
-   columns exceed shared memory) and on the empty program; (b) the
-   paper's array, ``Design()``'s 10,000 rows x 2,400 columns
+9. The CRAM-PM functional model (``repro_torch.core``), whose
+   interpreter ``cram_execute`` has two forms: bit-sliced (32 rows a
+   word, for 0/1 cells) and a byte a cell (any uint8 state).  (a) Both
+   forms against ``execute_plain`` bit for bit at edge shapes (every
+   opcode, row counts off the block, self-aliasing ops): random uint8
+   states through ``execute`` (the byte form, every launch geometry up to
+   a program whose touched columns exceed shared memory), random 0/1
+   states through the bit-sliced kernel at every block size its staging
+   fits (outputs out of range, dropped) and through ``execute``, a
+   ``CRAMArray`` whose 0/1 state holds one 2 in a touched column (the
+   byte form) beside the same array without it (the bit-sliced form), the
+   empty program; the launches of each form counted; (b) the paper's
+   array, ``Design()``'s 10,000 rows x 2,400 columns
    (``plan_layout(2400, 100, scratch_budget=128)``: 982-char fragments,
    883 alignments): one alignment's program under both schedules, kernel
    against plain on the whole state, then ``Matcher.run()`` over every
-   alignment, its scores equal to ``ops.match_scores(..., backend=
-   "swar")``, its wall time beside ``costmodel.pass_cost(Design())``'s
-   (context only); (c) Algorithm 1 over phase 4's 620,839 x 500
-   fragments (the host copy taken before phase 7 changes the corpus)
-   with read (a): all 401 alignments on 841 MB of state, one launch
-   each, scores equal to the SWAR path's, the best alignment at (a)'s
-   planted row and location; wall, kernel and host codegen/readout
-   times apart.
+   alignment through the bit-sliced form, its scores equal to
+   ``ops.match_scores(..., backend="swar")``, its wall time beside
+   ``costmodel.pass_cost(Design())``'s (context only); (c) Algorithm 1
+   over phase 4's 620,839 x 500 fragments (the host copy taken before
+   phase 7 changes the corpus) with read (a): all 401 alignments on 841
+   MB of state, one bit-sliced launch each and no byte launch, scores
+   equal to the SWAR path's, the best alignment at (a)'s planted row and
+   location; wall, kernel and host codegen/readout times apart, a
+   launch's first op alone and its write-back alone, and the byte form
+   timed on the same state.  The bit-sliced kernel's count of staged
+   bytes above 1 must read 0.
 10. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line,
    the card's name and power limit, and ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -194,6 +204,8 @@ SOURCES = {
                 "src/repro/kernels/bitwise.py:41"),
     "cram_execute": ("src/repro_torch/kernels/csrc/cram_array.cu",
                      "src/repro/core/array.py:144"),
+    "cram_execute_bytes": ("src/repro_torch/kernels/csrc/cram_array.cu",
+                           "src/repro/core/array.py:144"),
 }
 BUILD = ("match_swar", "match_mxu", "filter_qgram", "popcount", "bitwise",
          "cram_array")
@@ -204,6 +216,11 @@ BUILD = ("match_swar", "match_mxu", "filter_qgram", "popcount", "bitwise",
 # its inputs and one compare, INV one subtract, COPY and presets none.
 PAPER_ROWS, PAPER_COLS, PAPER_SCRATCH = 10_000, 2_400, 128
 CRAM_INT_OPS = (0, 0, 2, 2, 2, 2, 1, 0, 3, 5, 4)
+# The bit-sliced form's INT32 operations a 32-row word an op: MAJ5 of five
+# words (five LOP3s) and the negation xor; and the byte form's launches
+# timed at (h), beside the bit-sliced form's every launch.
+BITS_INT_OPS = 6
+CRAM_BYTES_TIMED = 20
 # Readings some kernel rows carry beside their own: the exact SWAR bound
 # by the first build's count, STORE match_swar at (a)'s chunk, popcount
 # over the SWAR form's rows unpadded and its bound there.
@@ -739,24 +756,32 @@ def calibration_phase(engine, bank, queries, *, zero_counts, read_counts,
             "provenance": provenance}
 
 
-def cram_bound(n_rows: int, packed):
+def cram_bound(n_rows: int, packed, bits: bool = True):
     """(bound ms, what bounds it) of one program over ``n_rows`` rows: the
-    touched columns read once, the written ones written once, the program
-    read once; the gates' INT32 operations (``CRAM_INT_OPS``) at the INT32
-    peak."""
+    columns it must read (touched, less those written before any read)
+    read once, the written ones written once, the program read once; and
+    the operations at the INT32 peak: bit-sliced, ``BITS_INT_OPS`` a
+    32-row word an op, a byte a cell, the gates' INT32 operations a row
+    (``CRAM_INT_OPS``)."""
     import numpy as np
-    nbytes = (n_rows * (packed.n_touched + packed.n_written)
+    read = int((packed.cols >= 0).sum()) - packed.n_fresh
+    nbytes = (n_rows * (read + packed.n_written)
               + len(packed) * 16 + packed.n_touched * 4)
-    ops = n_rows * int(np.asarray(CRAM_INT_OPS)[packed.opc].sum())
+    if bits:
+        ops = -(-n_rows // 32) * len(packed) * BITS_INT_OPS
+    else:
+        ops = n_rows * int(np.asarray(CRAM_INT_OPS)[packed.opc].sum())
     return bound(nbytes, ops, PEAK_INT32)
 
 
 def cram_edge_programs():
-    """Phase 9 (a): (rows, cols, ops) cases and the launch geometry each
-    reaches, (rows a block, staged, above 48 KB of shared memory): one row;
-    row counts off the 128-row block; staged within 48 KB and above it (128
-    rows a block), 64 and 32 rows a block; and touched columns past what 32
-    rows' staging holds (unstaged)."""
+    """Phase 9 (a): (rows, cols, ops) cases and the byte form's launch
+    geometry each reaches, (rows a block, staged, above 48 KB of shared
+    memory): one row; row counts off the 128-row block; staged within 48
+    KB and above it (128 rows a block), 64 and 32 rows a block; and
+    touched columns past what 32 rows' staging holds (unstaged).  The
+    bit-sliced form runs each at every block size its staging fits (all
+    four, down to 8 words only, and none at 9,000 columns)."""
     small, big = (128, True, False), (128, True, True)
     return [(1, 8, 60, small), (31, 16, 200, small), (33, 16, 200, small),
             (129, 40, 300, small), (1000, 64, 500, small),
@@ -793,40 +818,60 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
                sync, device="cuda", paper=(PAPER_ROWS, PAPER_COLS)):
     """Phase 9: the CRAM-PM functional model on the card.
 
-    (a) ``cram_execute`` against ``execute_plain`` at edge shapes, bit for
-    bit; (b) the paper's array (``Design()``'s 10,000 x 2,400): one
-    alignment's program under both schedules, kernel against plain on the
-    whole state, then ``Matcher.run()`` over all its alignments against
-    the SWAR path's scores; (c) Algorithm 1 over ``frags_chr1`` with
-    ``read``: every alignment, scores against the SWAR path's, the best
-    alignment at ``planted`` (row, loc).  Returns the kernel row, the
-    launches of (c)'s run and what the phase prints.  ``device`` and
-    ``paper`` (rows, columns) let the phase be rehearsed on the CPU at a
-    small size, with ``cuda_ms`` and ``event_ms`` patched to a host clock
-    and a counting ``cram_execute_``."""
+    (a) both forms of ``cram_execute`` against ``execute_plain`` at edge
+    shapes, bit for bit: random uint8 states through ``execute`` (the
+    byte form, every launch geometry), random 0/1 states through the
+    bit-sliced kernel at every block size that fits (some outputs out of
+    range, dropped) and through ``execute``, and a ``CRAMArray`` whose 0/1
+    state holds one 2 in a touched column (the byte form) beside the same
+    array without it (the bit-sliced form); (b) the paper's array
+    (``Design()``'s 10,000 x 2,400): one alignment's program under both
+    schedules, kernel against plain on the whole state, then
+    ``Matcher.run()`` over all its alignments against the SWAR path's
+    scores; (c) Algorithm 1 over ``frags_chr1`` with ``read``: every
+    alignment, scores against the SWAR path's, the best alignment at
+    ``planted`` (row, loc), and the byte form timed on the same state.
+    The bit-sliced kernel's count of staged bytes above 1 must stay 0.
+    Returns the two kernel rows, their path launches and what the phase
+    prints.  ``device`` and ``paper`` (rows, columns) let the phase be
+    rehearsed on the CPU at a small size, with ``cuda_ms`` and
+    ``event_ms`` patched to a host clock, counting kernel entries and
+    ``n_sms``."""
     import numpy as np
     import torch
 
     from repro_torch.core import costmodel
-    from repro_torch.core.array import execute, execute_plain
+    from repro_torch.core.array import CRAMArray, execute, execute_plain
     from repro_torch.core.matcher import (Matcher, best_alignment,
                                           compile_alignment, plan_layout)
     from repro_torch.kernels import cram_array as kca
     from repro_torch.kernels import ops
 
     dev = torch.device(device)
+    n_sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+             if dev.type == "cuda" else 132)
     rng = np.random.default_rng(SEED + 9)
-    err = 0
+    err = {"bits": 0, "bytes": 0}
     info = {}
+    over = kca.over_one(dev)
+    over.zero_()
 
-    def held(got, want, what):
-        nonlocal err
+    def held(got, want, what, form):
         e = int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) \
             if got.numel() else 0
-        err = max(err, e)
-        check(e == 0, f"cram_execute equals execute_plain: {what}")
+        err[form] = max(err[form], e)
+        check(e == 0, f"cram_execute ({form}) equals execute_plain: {what}")
 
-    # (a) edge shapes.
+    def launched(n0, bits, nbytes, what):
+        n = read_counts()
+        check((n["cram_execute"] - n0["cram_execute"],
+               n["cram_execute_bytes"] - n0["cram_execute_bytes"])
+              == (bits, nbytes), f"{what}: {bits} bit-sliced and {nbytes} "
+              f"byte launches, got {n}")
+
+    # (a) edge shapes, the byte form's path first: uint8 states and the
+    # one-2 array go through the entries a user calls.
+    zero_counts()
     for R, C, n_ops, want_geo in cram_edge_programs():
         state = torch.from_numpy(rng.integers(0, 256, (R, C), np.uint8)).to(
             dev)
@@ -837,31 +882,79 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
         check((geo.block_rows, geo.staged, geo.smem_bytes > 48 * 1024)
               == want_geo, f"R={R} C={C} ops={n_ops} reaches {want_geo}, "
               f"got {geo}")
-        n0 = kca.cram_execute.n_launches
+        n0 = read_counts()
         got = execute(state, opc, ins, out)
         held(got, execute_plain(state, opc, ins, out),
-             f"R={R} C={C} ops={n_ops} T={packed.n_touched} ({want_geo})")
+             f"R={R} C={C} ops={n_ops} T={packed.n_touched} ({want_geo})",
+             "bytes")
         check(torch.equal(state, before), "execute leaves its input as it was")
         inplace = kca.cram_execute_(state.clone(), packed)
-        held(inplace, got, f"in place, R={R} C={C}")
-        check(kca.cram_execute.n_launches - n0 == 2, "one launch a program")
+        held(inplace, got, f"in place, R={R} C={C}", "bytes")
+        launched(n0, 0, 2, f"uint8 state R={R} C={C}")
+    R, C = 3000, 600
+    opc, ins, out = random_cram_program(rng, 800, C)
+    cells = rng.integers(0, 2, (R, C), np.uint8)
+    two = cells.copy()
+    two[1234, int(ins[0, 0])] = 2
+    prog = kca.pack_program(opc, ins, out, C, dev)
+    for a, want_form in ((two, "bytes"), (cells, "bits")):
+        arr = CRAMArray(R, C, device=dev)
+        arr.write_column_rows(0, a)
+        check(arr.binary == (want_form == "bits"), "the binary flag")
+        n0 = read_counts()
+        arr.run_packed(prog)
+        launched(n0, int(want_form == "bits"), int(want_form == "bytes"),
+                 f"CRAMArray, {want_form}")
+        held(arr.state, execute_plain(
+            torch.from_numpy(a).to(dev), opc, ins, out),
+            f"CRAMArray {R} x {C}, 0/1{' but one 2' if a is two else ''}",
+            want_form)
+    launches_bytes = read_counts()["cram_execute_bytes"]
+    # The bit-sliced form at every block size that fits, outputs dropped.
+    reached = set()
+    for R, C, n_ops, _ in cram_edge_programs():
+        state = torch.from_numpy(rng.integers(0, 2, (R, C), np.uint8)).to(
+            dev)
+        opc, ins, out = random_cram_program(rng, n_ops, C)
+        out[7::13] = C + 3
+        packed = kca.pack_program(opc, ins, out, C, dev)
+        want = execute_plain(state, opc, ins, out)
+        for w in kca.BITS_WORDS:
+            if kca.bits_geometry(packed.n_touched, R, n_sms, w) is None:
+                continue
+            n0 = read_counts()
+            held(kca.cram_execute_bits(state.clone(), packed, words=w),
+                 want, f"R={R} C={C} ops={n_ops} T={packed.n_touched}, "
+                 f"{w} words a block", "bits")
+            launched(n0, 1, 0, f"bit-sliced R={R} C={C} W={w}")
+            reached.add(w)
+        n0 = read_counts()
+        held(execute(state, opc, ins, out), want,
+             f"execute, 0/1 state R={R} C={C}", "bits")
+        fits = kca.pick_form(packed, True, R, n_sms) == "bits"
+        launched(n0, int(fits), int(not fits), f"execute, 0/1 R={R} C={C}")
+    check(reached == set(kca.BITS_WORDS), f"block sizes reached {reached}")
     state = torch.from_numpy(rng.integers(0, 256, (70, 9), np.uint8)).to(dev)
-    n0 = kca.cram_execute.n_launches
+    n0 = read_counts()
     empty = execute(state, np.zeros(0, np.int32), np.zeros((0, 5), np.int32),
                     np.zeros(0, np.int32))
-    check(torch.equal(empty, state) and kca.cram_execute.n_launches == n0,
-          "an empty program returns the state unchanged, no launch")
-    two = torch.tensor([[2], [5]], dtype=torch.uint8, device=dev).expand(
+    check(torch.equal(empty, state), "an empty program returns the state")
+    launched(n0, 0, 0, "the empty program")
+    pair = torch.tensor([[2], [5]], dtype=torch.uint8, device=dev).expand(
         2, 4).contiguous()
-    inv_copy = execute(two, np.array([6, 7]), np.zeros((2, 5)),
+    inv_copy = execute(pair, np.array([6, 7]), np.zeros((2, 5)),
                        np.array([1, 2]))
     check(inv_copy[:, 1].tolist() == [255, 252]
           and inv_copy[:, 2].tolist() == [2, 5],
           "INV of 2, 5 is 255, 252 and COPY keeps them (int32, then uint8)")
     sync()
-    print(f"  (a) {len(cram_edge_programs())} edge shapes bit-identical "
-          "(every launch geometry, random uint8 states, every opcode, "
-          "self-aliasing ops), the empty program, INV/COPY of 2, 5")
+    check(int(over) == 0, "no staged byte above 1 in the bit-sliced form")
+    print(f"  (a) {len(cram_edge_programs())} edge shapes bit-identical in "
+          "both forms: uint8 states (bytes, every launch geometry), 0/1 "
+          f"states (bits, blocks of {sorted(reached)} words, outputs out of "
+          "range dropped), the one-2 array (bytes) beside the 0/1 one "
+          "(bits), the empty program, INV/COPY of 2, 5; "
+          f"{launches_bytes} byte launches on the byte form's path")
 
     # (b) the paper's array.
     t0 = time.perf_counter()
@@ -877,29 +970,41 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
     frags[p_row, p_loc:p_loc + READ] = pat
     m = Matcher(frags, READ, n_cols=c_paper, device=dev)
     m.load_pattern(pat)
+    check(m.array.binary, "the Matcher's array is 0/1")
     b_kernel_ms, b_plain_ms = {}, {}
     for opt in (False, True):
         prog, _ = compile_alignment(layout, p_loc, opt=opt)
         enc = prog.encode()
         packed = kca.pack_program(*enc, c_paper, dev)
         st = m.array.state
+        n0 = read_counts()
         held(execute(st, *enc), execute_plain(st, *enc),
-             f"paper array, one alignment, opt={opt}")
+             f"paper array, one alignment, opt={opt}", "bits")
+        launched(n0, 1, 0, "paper array, execute")
         work = st.clone()
-        b_kernel_ms[opt] = cuda_ms(lambda: kca.cram_execute_(work, packed),
-                                   5)
+        b_kernel_ms[opt] = cuda_ms(lambda: kca.cram_execute_bits(work,
+                                                                 packed), 5)
         del work
         b_plain_ms[opt] = cuda_ms(lambda: execute_plain(st, *enc), 1)
+    work = m.array.state.clone()
+    b_bytes_ms = cuda_ms(lambda: kca.cram_execute_bytes(work, packed), 5)
+    held(work, execute_plain(m.array.state, *enc),
+         "paper array, one alignment, opt=True", "bytes")
+    del work
     bound_b = cram_bound(n_paper, packed)
+    bound_b_bytes = cram_bound(n_paper, packed, bits=False)
+    geo_b = kca.bits_geometry(packed.n_touched, n_paper, n_sms)
     t = time.perf_counter()
     for loc in range(layout.n_alignments):
         m._program_for(loc)
     codegen_b = time.perf_counter() - t
     sync()
+    n0 = read_counts()
     t = time.perf_counter()
     scores = m.run()
     sync()
     run_b = time.perf_counter() - t
+    launched(n0, layout.n_alignments, 0, "paper array, Matcher.run")
     swar = ops.match_scores(frags, pat, backend="swar", device=dev)
     check(np.array_equal(scores, swar),
           "paper array: Matcher scores equal the SWAR path's")
@@ -912,22 +1017,27 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
         "alignments": layout.n_alignments, "codegen_s": codegen_b,
         "run_s": run_b, "kernel_ms": b_kernel_ms[True],
         "kernel_ms_naive_schedule": b_kernel_ms[False],
-        "plain_ms": b_plain_ms[True], "bound_ms": bound_b[0],
-        "model_pass_latency_s": modeled,
+        "bytes_ms": b_bytes_ms, "plain_ms": b_plain_ms[True],
+        "bound_ms": bound_b[0], "bound_by": bound_b[1],
+        "bytes_bound_ms": bound_b_bytes[0], "geometry": geo_b._asdict(),
+        "touched_cols": packed.n_touched, "model_pass_latency_s": modeled,
         "set_up_s": time.perf_counter() - t0 - run_b - codegen_b}
     print(f"  (b) {n_paper} x {c_paper}, {layout.n_alignments} "
           f"alignments: scores equal the SWAR path's; codegen "
           f"{codegen_b:.2f} s, Matcher.run {run_b:.3f} s a pass (the cost "
           f"model's Design() pass: {modeled:.4g} s, for context only); one "
-          f"alignment {b_kernel_ms[True]:.4f} ms (naive schedule "
-          f"{b_kernel_ms[False]:.4f}), plain {b_plain_ms[True]:.1f} ms, "
-          f"bound {bound_b[0]:.4f} ms ({bound_b[1]}); card: {Phase.card}")
+          f"alignment, bit-sliced {b_kernel_ms[True]:.4f} ms (naive "
+          f"schedule {b_kernel_ms[False]:.4f}; {geo_b.words} words a "
+          f"block, {geo_b.blocks} blocks), byte form {b_bytes_ms:.4f} ms, "
+          f"plain {b_plain_ms[True]:.1f} ms, bound {bound_b[0]:.4f} ms "
+          f"({bound_b[1]}); card: {Phase.card}")
 
     # (c) Algorithm 1 at chr1 size.
     t0 = time.perf_counter()
     p_row, p_loc = planted
     m = Matcher(frags_chr1, READ, device=dev)
     m.load_pattern(read)
+    check(m.array.binary, "the Matcher's array is 0/1")
     sync()
     set_up = time.perf_counter() - t0
     lay = m.layout
@@ -938,8 +1048,13 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
     R = st.shape[0]
     enc = (progs[0].opc, progs[0].ins, progs[0].out)
     plain_c, want = event_ms(lambda: execute_plain(st, *enc))
-    held(execute(st, *enc), want, f"chr1 state, loc 0 ({R} rows)")
-    del want
+    n0 = read_counts()
+    held(execute(st, *enc), want, f"chr1 state, loc 0 ({R} rows)", "bits")
+    launched(n0, 1, 0, "chr1, execute")
+    work = st.clone()
+    kca.cram_execute_bytes(work, progs[0])
+    held(work, want, f"chr1 state, loc 0 ({R} rows)", "bytes")
+    del want, work
     zero_counts()
     sync()
     t = time.perf_counter()
@@ -947,10 +1062,38 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
     sync()
     run_c = time.perf_counter() - t
     launches = read_counts()
-    check(launches["cram_execute"] == lay.n_alignments,
-          "Matcher.run launches cram_execute once an alignment")
-    kernel_c, _ = event_ms(lambda: [kca.cram_execute_(st, pk)
+    check(launches["cram_execute"] == lay.n_alignments
+          and launches["cram_execute_bytes"] == 0,
+          "Matcher.run launches the bit-sliced cram_execute once an "
+          f"alignment, the byte form never: {launches}")
+    kernel_c, _ = event_ms(lambda: [kca.cram_execute_bits(st, pk)
                                      for pk in progs])
+    # Where a launch's time goes: its first op alone (the staging and the
+    # write-back), and presets of the written columns alone (the
+    # write-back, nothing staged).
+    first = dataclasses.replace(
+        progs[0], opc=progs[0].opc[:1], ins=progs[0].ins[:1],
+        out=progs[0].out[:1], ops=progs[0].ops[:1],
+        ops_bits=progs[0].ops_bits[:1])
+    written = kca.pack_program(
+        np.zeros(progs[0].n_written, np.int64),
+        np.zeros((progs[0].n_written, 5), np.int64),
+        progs[0].cols[:progs[0].n_written].cpu().numpy(), lay.n_cols, dev)
+    check(written.n_fresh == written.n_touched == progs[0].n_written,
+          "the write-back program stages nothing")
+    # The same launch staging every touched column, the written-before-read
+    # ones too (the kernel skips those).
+    staged_all = dataclasses.replace(progs[0], n_fresh=0)
+    all_c = cuda_ms(lambda: kca.cram_execute_bits(st, staged_all), 5)
+    stage_wb_c = cuda_ms(lambda: kca.cram_execute_bits(st, first), 5)
+    wb_c = cuda_ms(lambda: kca.cram_execute_bits(st, written), 5)
+    # Yardstick (never used by the port): PyTorch writing the same columns.
+    w_idx = progs[0].cols[:progs[0].n_written].long()
+    fill_c = cuda_ms(lambda: st.index_fill_(1, w_idx, 0), 5)
+    n_bytes_timed = min(CRAM_BYTES_TIMED, len(progs))
+    bytes_c, _ = event_ms(lambda: [kca.cram_execute_bytes(st, pk)
+                                    for pk in progs[:n_bytes_timed]])
+    bytes_c /= n_bytes_timed
     t = time.perf_counter()
     swar = ops.match_scores(frags_chr1, read, backend="swar", device=dev)
     swar_s = time.perf_counter() - t
@@ -962,7 +1105,11 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
           and int(locs_c[p_row]) == p_loc
           and int(np.count_nonzero(scores == READ)) == 1,
           "chr1: the best alignment is the planted row and location")
+    sync()
+    check(int(over) == 0, "no staged byte above 1 in the bit-sliced form")
     bound_c = cram_bound(R, progs[0])
+    bound_c_bytes = cram_bound(R, progs[0], bits=False)
+    geo_c = kca.bits_geometry(progs[0].n_touched, R, n_sms)
     n_ops = len(progs[0])
     info["chr1"] = {
         "rows": R, "cols": lay.n_cols, "alignments": lay.n_alignments,
@@ -970,32 +1117,54 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
         "written_cols": progs[0].n_written, "set_up_s": set_up,
         "codegen_s": codegen_c, "run_s": run_c,
         "kernel_ms_total": kernel_c,
-        "kernel_ms": kernel_c / lay.n_alignments,
+        "kernel_ms": kernel_c / lay.n_alignments, "bytes_ms": bytes_c,
+        "first_op_ms": stage_wb_c, "write_back_ms": wb_c,
+        "all_columns_staged_ms": all_c,
+        "index_fill_ms": fill_c,
+        "bytes_launches_timed": n_bytes_timed,
         "host_ms_in_run": run_c * 1e3 - kernel_c, "plain_ms": plain_c,
         "swar_s": swar_s, "launches": launches["cram_execute"],
         "row_alignments_per_s": R * lay.n_alignments / run_c,
         "row_ops_per_s": R * lay.n_alignments * n_ops / run_c,
-        "bound_ms": bound_c[0], "bound_by": bound_c[1]}
+        "bound_ms": bound_c[0], "bound_by": bound_c[1],
+        "bytes_bound_ms": bound_c_bytes[0],
+        "bytes_bound_by": bound_c_bytes[1], "geometry": geo_c._asdict(),
+        "over_one": int(over)}
     print(f"  (c) {R} rows x {lay.n_cols} columns "
           f"({R * lay.n_cols / 1e6:.0f} MB of state), {lay.n_alignments} "
           f"alignments of {n_ops} ops ({progs[0].n_touched} columns "
           f"touched, {progs[0].n_written} written): Matcher.run "
-          f"{run_c:.3f} s, {launches['cram_execute']} launches, kernels "
-          f"{kernel_c:.1f} ms ({kernel_c / lay.n_alignments:.4f} ms a launch,"
-          f" bound {bound_c[0]:.4f} ms, {bound_c[1]}), host readout "
+          f"{run_c:.3f} s, {launches['cram_execute']} bit-sliced launches "
+          f"({geo_c.words} words a block, {geo_c.blocks} blocks, "
+          f"{geo_c.blocks_per_sm} an SM), kernels {kernel_c:.1f} ms "
+          f"({kernel_c / lay.n_alignments:.4f} ms a launch, bound "
+          f"{bound_c[0]:.4f} ms, {bound_c[1]}; staging all "
+          f"{progs[0].n_touched} touched columns {all_c:.4f} ms; its first "
+          f"op alone "
+          f"{stage_wb_c:.4f} ms, the write-back alone {wb_c:.4f} ms, "
+          f"torch index_fill_ of the written columns {fill_c:.4f} ms), "
+          f"byte form "
+          f"{bytes_c:.4f} ms a launch over {n_bytes_timed} (bound "
+          f"{bound_c_bytes[0]:.4f} ms, {bound_c_bytes[1]}), host readout "
           f"{run_c * 1e3 - kernel_c:.1f} ms; codegen {codegen_c:.2f} s, "
           f"set-up {set_up:.2f} s; "
           f"{R * lay.n_alignments / run_c:.4g} row-alignments/s; plain "
           f"{plain_c:.1f} ms an alignment; scores equal the SWAR path's "
           f"({swar_s:.2f} s), best at the planted ({p_row}, {p_loc}); "
-          f"card: {Phase.card}")
-    row = dict(
+          f"staged bytes above 1: {int(over)}; card: {Phase.card}")
+    rows = [dict(
         name="cram_execute", rows=R, ms=kernel_c / lay.n_alignments,
         event_ms=kernel_c / lay.n_alignments, plain_ms=plain_c,
         bound_ms=bound_c[0], bound_by=bound_c[1], library_ms=None,
-        max_abs_err=err, ms_paper=b_kernel_ms[True],
-        bound_ms_paper=bound_b[0])
-    return row, launches["cram_execute"], info
+        max_abs_err=err["bits"], ms_paper=b_kernel_ms[True],
+        bound_ms_paper=bound_b[0]), dict(
+        name="cram_execute_bytes", rows=R, ms=bytes_c, event_ms=bytes_c,
+        plain_ms=plain_c, bound_ms=bound_c_bytes[0],
+        bound_by=bound_c_bytes[1], library_ms=None,
+        max_abs_err=err["bytes"], ms_paper=b_bytes_ms,
+        bound_ms_paper=bound_b_bytes[0])]
+    return rows, {"cram_execute": launches["cram_execute"],
+                  "cram_execute_bytes": launches_bytes}, info
 
 
 def main() -> int:
@@ -1034,7 +1203,8 @@ def main() -> int:
                 "bank_prefilter": kfq.bank_prefilter,
                 "popcount": kpc.popcount,
                 "bitwise": kbw.bitwise,
-                "cram_execute": kca.cram_execute}
+                "cram_execute": kca.cram_execute_bits,
+                "cram_execute_bytes": kca.cram_execute_bytes}
     plains = {"match_swar": ksw.match_swar_plain,
               "match_swar_best": ksw.match_swar_best_plain,
               "match_swar_masks": ksw.match_swar_masks_plain,
@@ -1897,11 +2067,11 @@ def main() -> int:
 
     # -- 9. the CRAM-PM functional model ----------------------------------
     with Phase("phase 9: CRAM-PM functional model"):
-        cram_row, cram_launches, cram_info = cram_phase(
+        cram_rows, cram_launches, cram_info = cram_phase(
             frags_chr1, read_a, (int(rows[0]), int(locs[0])),
             zero_counts=zero_counts, read_counts=read_counts,
             sync=torch.cuda.synchronize)
-        kernels.append(cram_row)
+        kernels.extend(cram_rows)
         print("cram " + json.dumps(cram_info))
 
     # -- 10. summary ---------------------------------------------------------
@@ -1913,7 +2083,7 @@ def main() -> int:
     path_launches["bank_prefilter"] = launches_bank["bank_prefilter"]
     path_launches["popcount"] = launches_bulk["popcount"]
     path_launches["bitwise"] = launches_bulk["bitwise"]
-    path_launches["cram_execute"] = cram_launches
+    path_launches.update(cram_launches)
     rows_out = []
     for k in kernels:
         src, replaces = SOURCES[k["name"]]

@@ -14,6 +14,9 @@ the card runs it as one launch of a hand-written kernel
 kernel's plain version, ``execute_plain``.  ``CRAMArray`` keeps its state
 on the device and updates it in place (``run``), through the kernel's
 in-place entry: a copy per program would move the whole state each time.
+It keeps a ``binary`` flag, the kernel's rule for its bit-sliced form:
+true at construction (zeros), cleared by a write of a value above 1 and
+by a program that reads an out-of-range column (255).
 Cost accounting is done on the program (host side), never in the
 interpreter -- see ``costmodel.py``; ``mem_stats`` counts memory-
 configuration operations exactly as the reference does.
@@ -147,6 +150,10 @@ class CRAMArray:
         self.device = resolve_device(device)
         self.state = torch.zeros((n_rows, n_cols), dtype=torch.uint8,
                                  device=self.device)
+        # Every cell is 0 or 1: programs may take the bit-sliced kernel.
+        # Writes through ``write_row`` / ``write_column_rows`` keep it
+        # true; a caller that writes ``state`` itself sets it.
+        self.binary = True
         self.mem_stats = {"row_writes": 0, "bits_written": 0,
                           "row_reads": 0, "bits_read": 0}
 
@@ -157,8 +164,13 @@ class CRAMArray:
         return torch.from_numpy(np.ascontiguousarray(bits, np.uint8)).to(
             self.device)
 
+    def _note(self, bits: torch.Tensor) -> None:
+        if self.binary and bits.numel() and bool(bits.amax() > 1):
+            self.binary = False
+
     def write_row(self, row: int, col0: int, bits: Sequence[int]) -> None:
         bits = np.asarray(bits, np.uint8)
+        self._note(torch.from_numpy(bits))
         self.state[row, col0:col0 + len(bits)] = self._tensor(bits)
         self.mem_stats["row_writes"] += 1
         self.mem_stats["bits_written"] += int(len(bits))
@@ -172,6 +184,7 @@ class CRAMArray:
             raise ValueError(f"{bits2d.shape[0]} rows of bits for an array "
                              f"of {self.n_rows}")
         n = int(bits2d.shape[1])
+        self._note(bits2d)
         self.state[:, col0:col0 + n] = bits2d
         self.mem_stats["row_writes"] += self.n_rows
         self.mem_stats["bits_written"] += n * self.n_rows
@@ -204,5 +217,8 @@ class CRAMArray:
 
     def run_packed(self, packed: PackedProgram) -> None:
         """Run a program packed by ``kernels.cram_array.pack_program`` (and
-        placed on this array's device) in place."""
-        _kernel.cram_execute_(self.state, packed)
+        placed on this array's device) in place; a program that reads an
+        out-of-range column (255) clears ``binary``."""
+        _kernel.cram_execute_(self.state, packed, binary=self.binary)
+        if packed.reads_fill:
+            self.binary = False

@@ -16,7 +16,9 @@
 * ``cram_array`` -- the CRAM-PM array interpreter (``cram_execute``: one
   micro-program on every row of a uint8 state; the counterpart of
   ``repro.core.array.execute``, a ``jax.lax.scan`` rather than a Pallas
-  kernel); CUDA C++ in ``csrc/cram_array.cu``.
+  kernel), in two forms: bit-sliced, 32 rows a word, for 0/1 cells
+  (``cram_execute_bits``), and a byte a cell for any state
+  (``cram_execute_bytes``); CUDA C++ in ``csrc/cram_array.cu``.
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel (or raises) for a CUDA tensor; ``<wrapper>.n_launches``

@@ -6,15 +6,23 @@ kernel's plain version) on the same seeded numpy inputs; final states,
 encoded programs, ``op_counts`` and ``mem_stats`` must be identical.
 Seeded random programs over random uint8 states, the interpreter's edge
 semantics (values other than 0/1, self-aliasing ops, padded inputs, the
-empty program, columns out of range) and ``compile_alignment``'s encoded
-programs are held to the reference too; ``pack_program`` and
-``launch_geometry`` are checked on the host.
+empty program, columns out of range at every edge: 255 read, output
+dropped, negative columns wrapped) and ``compile_alignment``'s encoded
+programs are held to the reference too; ``pack_program``,
+``launch_geometry`` and ``bits_geometry`` are checked on the host, and
+numpy emulations of both kernel forms run their packed words against
+the plain version (the bit-sliced one also against JAX, and with
+planted errors that it must catch); the rule that picks the form and
+``CRAMArray``'s ``binary`` flag are checked too.
 
-On a card (``-m gpu``): ``cram_execute`` equals ``execute_plain`` bit for
-bit at the shapes of ``chip_smoke.py`` phase 9 (a).  The JAX side is
-imported inside a fixture: the machine with the card has no JAX.
+On a card (``-m gpu``): both forms equal ``execute_plain`` bit for bit at
+the shapes of ``chip_smoke.py`` phase 9 (a), the bit-sliced one at every
+block size its staging fits, each form's launches counted and no staged
+byte above 1.  The JAX side is imported inside a fixture: the machine
+with the card has no JAX.
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -363,28 +371,84 @@ def test_empty_program_returns_the_state(jx):
     assert int(arr.state.sum()) == 0
 
 
-def test_columns_out_of_range_raise_where_jax_reads_255(jx):
-    """The deliberate divergence: JAX reads 255 for an input column past
-    the row and drops an output column past it; the port raises."""
-    a = np.ones((2, 4), np.uint8)
-    ins = np.zeros((1, 5), np.int32)
-    ins[0, 0] = 4
-    want = np.asarray(jx.array.execute(
-        jx.jnp.asarray(a), np.array([7], np.int32), ins,
-        np.array([1], np.int32)))
-    assert want[:, 1].tolist() == [255, 255]
-    dropped = np.asarray(jx.array.execute(
-        jx.jnp.asarray(a), np.array([0], np.int32), np.zeros((1, 5), np.int32),
-        np.array([9], np.int32)))
-    np.testing.assert_array_equal(dropped, a)
-    with pytest.raises(ValueError, match="input column 4"):
-        tarray.execute(torch.from_numpy(a), np.array([7]), ins, np.array([1]))
-    with pytest.raises(ValueError, match="output column 9"):
-        tarray.execute(torch.from_numpy(a), np.array([0]),
-                       np.zeros((1, 5)), np.array([9]))
-    with pytest.raises(ValueError, match="opcodes"):
-        tarray.execute(torch.from_numpy(a), np.array([11]),
-                       np.zeros((1, 5)), np.array([0]))
+# Out-of-range columns: JAX's gather reads 255 for an input column outside
+# [-cols, cols), its scatter drops such an output, and both wrap [-cols, 0).
+OOR_INPUTS = [("past", 4), ("far past", 1000), ("last, negative", -1),
+              ("first, negative", -4), ("before", -5), ("far before", -999)]
+OOR_OUTPUTS = [("past", 4), ("far past", 77), ("last, negative", -1),
+               ("first, negative", -4), ("before", -5)]
+
+
+def run_both_ways(jx, a, opc, ins, out):
+    """JAX's ``execute`` and the port's three entries on the same program;
+    asserts the port's agree with JAX and returns JAX's state."""
+    want = np.asarray(jx.array.execute(jx.jnp.asarray(a), opc, ins, out))
+    got = tarray.execute(torch.from_numpy(a.copy()), opc, ins, out).numpy()
+    np.testing.assert_array_equal(got, want)
+    inplace = kca.cram_execute_(torch.from_numpy(a.copy()),
+                                kca.pack_program(opc, ins, out, a.shape[1]))
+    np.testing.assert_array_equal(inplace.numpy(), want)
+    arr = tarray.CRAMArray(*a.shape, device="cpu")
+    arr.write_column_rows(0, a)
+    arr.run(tarray.Program([tarray.MicroOp(
+        tarray.OPCODES[o], tuple(int(c) for c in i[:kca.ARITY_BY_ID[o]]),
+        int(c)) for o, i, c in zip(opc, ins, out)]))
+    np.testing.assert_array_equal(arr.state.numpy(), want)
+    return want
+
+
+@pytest.mark.parametrize("where,col", OOR_INPUTS)
+@pytest.mark.parametrize("opc", [6, 7, 2, 9])
+def test_input_column_out_of_range_matches_jax(jx, where, col, opc):
+    """INV, COPY, NOR and MAJ5 reading a column at each edge: 255 outside
+    [-4, 4), the wrapped column inside it."""
+    a = np.array([[1, 0, 1, 0], [0, 1, 1, 1], [2, 0, 0, 1]], np.uint8)
+    ins = np.array([[col, 1, 2, 3, 0]], np.int32)
+    want = run_both_ways(jx, a, np.array([opc], np.int32), ins,
+                         np.array([1], np.int32))
+    if opc == 7:
+        read = a[:, col] if -4 <= col < 4 else np.full(3, 255)
+        np.testing.assert_array_equal(want[:, 1], read)
+
+
+@pytest.mark.parametrize("where,col", OOR_OUTPUTS)
+@pytest.mark.parametrize("opc", [1, 6])
+def test_output_column_out_of_range_matches_jax(jx, where, col, opc):
+    """PRESET1 and INV writing a column at each edge: dropped outside
+    [-4, 4), the wrapped column inside it; a later read of that column
+    reads 255 (the write was dropped) or the written value."""
+    a = np.array([[1, 0, 1, 0], [0, 1, 1, 1]], np.uint8)
+    opc_ = np.array([opc, 7], np.int32)
+    ins = np.array([[0, 0, 0, 0, 0], [col, 0, 0, 0, 0]], np.int32)
+    want = run_both_ways(jx, a, opc_, ins, np.array([col, 2], np.int32))
+    if not -4 <= col < 4:
+        np.testing.assert_array_equal(want[:, [0, 1, 3]], a[:, [0, 1, 3]])
+        assert want[:, 2].tolist() == [255, 255]
+
+
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("seed", range(3))
+def test_random_programs_out_of_range_match_jax(jx, binary, seed):
+    """Random programs whose columns run over [-2 cols, 2 cols), on 0/1
+    and on uint8 states."""
+    rng = np.random.default_rng(40 + seed)
+    rows, cols = 19, 12
+    a = rng.integers(0, 2 if binary else 256, (rows, cols), np.uint8)
+    opc, ins, out = random_program(rng, 80, cols)
+    ins = rng.integers(-2 * cols, 2 * cols, ins.shape).astype(np.int32)
+    out = rng.integers(-2 * cols, 2 * cols, out.shape).astype(np.int32)
+    out[::5] = ins[::5, 0]
+    pk = kca.pack_program(opc, ins, out, cols)
+    assert pk.reads_fill and (pk.cols.numpy() == -1).sum() == 2
+    run_both_ways(jx, a, opc, ins, out)
+
+
+def test_opcodes_outside_the_isa_raise():
+    a = torch.ones((2, 4), dtype=torch.uint8)
+    for bad in (11, -1):
+        with pytest.raises(ValueError, match="opcodes"):
+            tarray.execute(a, np.array([bad]), np.zeros((1, 5)),
+                           np.array([0]))
 
 
 def test_opcode_tables_and_encoding_match_jax(jx):
@@ -453,7 +517,16 @@ def test_pack_program_remaps_touched_columns_written_first():
     read = np.unique(np.concatenate([ins[i, :arity[i]]
                                      for i in range(len(opc))]))
     assert pk.n_written == len(written)
-    np.testing.assert_array_equal(cols[:pk.n_written], written)
+    np.testing.assert_array_equal(np.sort(cols[:pk.n_written]), written)
+    first = {}
+    for i in range(len(opc)):
+        for c in ins[i, :arity[i]]:
+            first.setdefault(int(c), "read")
+        first.setdefault(int(out[i]), "written")
+    fresh = [first[c] == "written" for c in cols[:pk.n_written]]
+    assert fresh == [True] * pk.n_fresh + [False] * (pk.n_written
+                                                     - pk.n_fresh)
+    assert 0 < pk.n_fresh < pk.n_written
     np.testing.assert_array_equal(np.sort(cols),
                                   np.union1d(written, read))
     w = pk.ops.numpy().view(np.uint32).astype(np.int64)
@@ -469,12 +542,15 @@ def test_pack_program_remaps_touched_columns_written_first():
 
 
 def emulate_kernel(a: np.ndarray, pk) -> np.ndarray:
-    """The kernel's arithmetic on the packed words, in numpy: stage the
-    touched columns, evaluate each op from its gate fields without a
-    branch (as ``csrc/cram_array.cu`` does), write back the written
-    columns."""
+    """The byte kernel's arithmetic on the packed words, in numpy: stage
+    the touched columns but the fresh ones (255 for the fill and sink
+    locals), evaluate each
+    op from its gate fields without a branch (as ``csrc/cram_array.cu``
+    does), write back the written columns."""
     cols = pk.cols.numpy()
-    cells = a[:, cols].astype(np.int64)
+    cells = np.where(cols >= 0, a[:, np.maximum(cols, 0)], 255).astype(
+        np.int64)
+    cells[:, :pk.n_fresh] = 77          # never staged: written before read
     for x, y, z, w in pk.ops.numpy().view(np.uint32).astype(np.int64):
         k = x >> 4 & 7
         ins = (y & 0xFFFF, y >> 16, z & 0xFFFF, z >> 16, w & 0xFFFF)
@@ -500,6 +576,9 @@ def test_packed_gate_fields_give_the_plain_results(seed):
     if seed % 2:
         a &= 1
     opc, ins, out = random_program(rng, 120, 40)
+    if seed >= 2:                  # columns out of range: fill and sink
+        ins[::7, 0] = 40 + seed
+        out[3::11] = -41
     pk = kca.pack_program(opc, ins, out, 40)
     want = kca.execute_plain(torch.from_numpy(a), opc, ins, out).numpy()
     np.testing.assert_array_equal(emulate_kernel(a, pk), want)
@@ -538,49 +617,389 @@ def test_launch_geometry(touched, want):
 
 
 def test_cpu_runs_the_plain_version_and_counts_no_launch():
-    n0 = kca.cram_execute.n_launches
+    n0 = (kca.cram_execute_bits.n_launches, kca.cram_execute_bytes.n_launches)
     rng = np.random.default_rng(5)
     a = rng.integers(0, 256, (20, 30), np.uint8)
     opc, ins, out = random_program(rng, 50, 30)
     got = kca.cram_execute(torch.from_numpy(a), opc, ins, out)
     want = kca.execute_plain(torch.from_numpy(a), opc, ins, out)
     assert torch.equal(got, want)
-    assert kca.cram_execute.n_launches == n0
+    pk = kca.pack_program(opc, ins, out, 30)
+    for entry in (kca.cram_execute_bits, kca.cram_execute_bytes):
+        assert torch.equal(entry(torch.from_numpy(a.copy()), pk), want)
+    assert (kca.cram_execute_bits.n_launches,
+            kca.cram_execute_bytes.n_launches) == n0
+
+
+# -- the bit-sliced form (host side) ---------------------------------------
+
+def maj5_word(a, b, c, d, e):
+    """The kernel's word formula: at least 3 of 5, bit by bit."""
+    m = (a & b) | (c & (a | b))
+    s = a ^ b ^ c
+    return (m & (s | d | e)) | (s & d & e)
+
+
+def emulate_bits(a: np.ndarray, pk, words: int, gate=maj5_word,
+                 ops=None) -> np.ndarray:
+    """The bit-sliced kernel's arithmetic on ``pk.ops_bits``, in numpy, as
+    ``csrc/cram_array.cu`` lays it out: per block of ``words`` 32-row
+    words, the touched columns but the fresh ones packed 32 rows a uint32
+    word into shared memory (pitch words + 1; locals T and T + 1 the ZERO
+    and ONES words), every op ``gate`` of its five words xor its mask,
+    then the written columns unpacked into rows below R."""
+    R = a.shape[0]
+    cols = pk.cols.numpy()
+    T, P = len(cols), words + 1
+    ops = pk.ops_bits.numpy().view(np.uint32) if ops is None else ops
+    shift = np.arange(32, dtype=np.uint64)
+    out = a.copy()
+    for row0 in range(0, R, 32 * words):
+        cells = np.zeros((32 * words, T), np.uint64)
+        rows = min(32 * words, R - row0)
+        real = cols >= 0
+        cells[:rows, real] = a[row0:row0 + rows, cols[real]]
+        assert cells.max(initial=0) <= 1, "a 0/1 state"
+        sm = np.full((T + 2) * P, 0xA5A5A5A5, np.uint32)
+        packed = (cells.reshape(words, 32, T) << shift[None, :, None]).sum(1)
+        for j in range(pk.n_fresh, T):
+            sm[j * P:j * P + words] = packed[:, j].astype(np.uint32)
+        sm[T * P:T * P + words] = 0
+        sm[(T + 1) * P:(T + 1) * P + words] = 0xFFFFFFFF
+        t = np.arange(words)
+        for x, y, z, w in ops.astype(np.int64):
+            v = [sm[(i & 0xFFFF) * P + t] for i in (x, x >> 16, y, y >> 16,
+                                                      z)]
+            sm[(z >> 16) * P + t] = gate(*v) ^ np.uint32(w)
+        for j in range(pk.n_written):
+            word = sm[j * P:j * P + words].astype(np.uint64)
+            bits = (word[:, None] >> shift[None, :]) & 1
+            out[row0:row0 + rows, cols[j]] = bits.reshape(-1)[:rows]
+    return out
+
+
+def test_bits_fields_derive_from_the_gate_fields():
+    """(ONES pads, negate) per opcode, and [s >= 3 - ones] of k 0/1 inputs
+    xor negate equals the byte form's formula on every input."""
+    assert kca.BITS_FIELDS.tolist() == [
+        [2, 0], [3, 0], [2, 1], [2, 0], [1, 1], [1, 0], [2, 1], [2, 0],
+        [1, 0], [0, 0], [1, 1]]
+    for opc, (ones, neg) in enumerate(kca.BITS_FIELDS):
+        k = int(kca.ARITY_BY_ID[opc])
+        t, eq, ng, lin, c0, c1 = kca.GATE_FIELDS[opc]
+        for v in np.ndindex(*(2,) * k):
+            s = sum(v)
+            want = (c0 + (c1 * v[0] if k else 0) if lin
+                    else int(((s == t) if eq else (s < t)) != bool(ng)))
+            assert int((s + ones >= 3) != bool(neg)) == want, (opc, v)
+
+
+@pytest.mark.parametrize("rows,words", [(1, 8), (31, 8), (33, 8), (33, 64),
+                                        (300, 8), (300, 16), (1000, 32),
+                                        (2100, 64)])
+def test_bits_emulation_equals_plain_and_jax(jx, rows, words):
+    """Random 0/1 states, every opcode, every fifth op reading its own
+    output; rows of 1, 31, 33 and off the block of ``words`` words."""
+    rng = np.random.default_rng(rows * 3 + words)
+    a = rng.integers(0, 2, (rows, 24), np.uint8)
+    opc, ins, out = random_program(rng, 150, 24)
+    pk = kca.pack_program(opc, ins, out, 24)
+    want = kca.execute_plain(torch.from_numpy(a), opc, ins, out).numpy()
+    np.testing.assert_array_equal(emulate_bits(a, pk, words), want)
+    np.testing.assert_array_equal(
+        np.asarray(jx.array.execute(jx.jnp.asarray(a), opc, ins, out)), want)
+
+
+@pytest.mark.parametrize("opc", range(11))
+def test_bits_emulation_every_opcode(jx, opc):
+    """Each opcode alone, then reading its own output column, on all 32
+    rows of 0/1 inputs of five columns."""
+    a = ((np.arange(32)[:, None] >> np.arange(5)) & 1).astype(np.uint8)
+    a = np.concatenate([a, np.zeros((32, 2), np.uint8)], 1)
+    ins = np.array([[0, 1, 2, 3, 4], [5, 0, 1, 2, 3]], np.int32)
+    opc_ = np.array([opc, opc], np.int32)
+    out = np.array([5, 5], np.int32)
+    pk = kca.pack_program(opc_, ins, out, 7)
+    want = np.asarray(jx.array.execute(jx.jnp.asarray(a), opc_, ins, out))
+    np.testing.assert_array_equal(emulate_bits(a, pk, 8), want)
+
+
+def test_bits_emulation_on_the_paper_alignment(jx):
+    """One alignment of the paper's layout (``plan_layout(2400, 100,
+    scratch_budget=128)``, 3,254 ops) on 40 rows of 0/1 cells."""
+    lay = tmatcher.plan_layout(2400, 100, scratch_budget=128)
+    prog, _ = tmatcher.compile_alignment(lay, 17, opt=True)
+    enc = prog.encode()
+    a = np.random.default_rng(9).integers(0, 2, (40, 2400), np.uint8)
+    pk = kca.pack_program(*enc, 2400)
+    want = np.asarray(jx.array.execute(jx.jnp.asarray(a), *enc))
+    np.testing.assert_array_equal(emulate_bits(a, pk, 8), want)
+    np.testing.assert_array_equal(
+        kca.execute_plain(torch.from_numpy(a), *enc).numpy(), want)
+
+
+def test_bits_emulation_catches_planted_errors():
+    """A wrong word formula, and each opcode's negation mask flipped or a
+    pad flipped between ONES and ZERO, make the emulation disagree."""
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, 2, (64, 8), np.uint8)
+    opc = np.arange(11, dtype=np.int32)
+    ins = np.tile(np.arange(5, dtype=np.int32), (11, 1))
+    out = np.full(11, 6, np.int32)
+    for planted in (lambda a, b, c, d, e: (a & b) | (c & d) | e,
+                    lambda a, b, c, d, e: a ^ b ^ c ^ d ^ e,
+                    lambda a, b, c, d, e: maj5_word(a, b, c, d, e) & a):
+        pk = kca.pack_program(opc, ins, out, 8)
+        assert not np.array_equal(emulate_bits(a, pk, 8, gate=planted),
+                                  emulate_bits(a, pk, 8))
+    for o in range(11):
+        pk = kca.pack_program(opc[o:o + 1], ins[o:o + 1], out[o:o + 1], 8)
+        good = pk.ops_bits.numpy().view(np.uint32)
+        np.testing.assert_array_equal(
+            emulate_bits(a, pk, 8),
+            kca.execute_plain(torch.from_numpy(a), opc[o:o + 1],
+                              ins[o:o + 1], out[o:o + 1]).numpy())
+        flipped = good.copy()
+        flipped[0, 3] ^= 0xFFFFFFFF
+        assert not np.array_equal(emulate_bits(a, pk, 8, ops=flipped),
+                                  emulate_bits(a, pk, 8))
+        k = int(kca.ARITY_BY_ID[o])            # a ONES / ZERO pad flipped
+        caught = []
+        for slot in range(k, kca.MAX_ARITY):
+            lo, word = slot % 2 * 16, slot // 2
+            local = int(good[0, word]) >> lo & 0xFFFF
+            other = pk.n_touched + (local == pk.n_touched)
+            planted = good.copy()
+            planted[0, word] = (planted[0, word] & ~np.uint32(0xFFFF << lo)
+                                | np.uint32(other << lo))
+            caught.append(not np.array_equal(
+                emulate_bits(a, pk, 8, ops=planted), emulate_bits(a, pk, 8)))
+        assert any(caught) or k == kca.MAX_ARITY, (o, caught)
+
+
+def test_pack_program_bits_words():
+    """Inputs, then ONES (local T + 1) and ZERO (local T) pads as
+    ``BITS_FIELDS`` says, the output's local, the negation mask."""
+    opc = np.array([0, 1, 2, 6, 8, 9, 10], np.int32)
+    ins = np.array([[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [3, 1, 0, 0, 0],
+                    [1, 0, 0, 0, 0], [0, 1, 3, 0, 0], [0, 1, 3, 4, 5],
+                    [5, 4, 3, 1, 0]], np.int32)
+    out = np.array([2, 2, 2, 6, 6, 7, 2], np.int32)
+    pk = kca.pack_program(opc, ins, out, 8)
+    T = pk.n_touched
+    local = {c: j for j, c in enumerate(pk.cols.numpy())}
+    w = pk.ops_bits.numpy().view(np.uint32).astype(np.int64)
+    slots = np.stack([w[:, 0] & 0xFFFF, w[:, 0] >> 16, w[:, 1] & 0xFFFF,
+                      w[:, 1] >> 16, w[:, 2] & 0xFFFF], -1)
+    Z, O = T, T + 1
+    L = [[local[c] for c in row] for row in ins]
+    assert slots.tolist() == [
+        [O, O, Z, Z, Z], [O, O, O, Z, Z], [L[2][0], L[2][1], O, O, Z],
+        [L[3][0], O, O, Z, Z], L[4][:3] + [O, Z], L[5], L[6][:4] + [O]]
+    assert [local[c] for c in out] == (w[:, 2] >> 16).tolist()
+    assert (w[:, 3] == 0xFFFFFFFF).tolist() == [False, False, True, True,
+                                                False, False, True]
+
+
+@pytest.mark.parametrize("touched,rows,sms,words,want", [
+    # chr1 layout (h): 2 waves at 16 and 32 words, the smaller wins.
+    (505, 620839, 132, None, (16, 17, 4096 + 507 * 68, 1213, 5)),
+    # the paper's array (g): one wave at 8 words.
+    (505, 10000, 132, None, (8, 9, 4096 + 507 * 36, 40, 8)),
+    (10, 4325376, 132, None, (64, 65, 4096 + 12 * 260, 2112, 8)),
+    (10, 1, 132, None, (8, 9, 4096 + 12 * 36, 1, 8)),
+    (505, 620839, 132, 32, (32, 33, 4096 + 507 * 132, 607, 3)),
+    (876, 10**6, 132, 64, (64, 65, 4096 + 878 * 260, 489, 1)),
+    (877, 10**6, 132, 64, None),
+    (6341, 100, 132, None, (8, 9, 4096 + 6343 * 36, 1, 1)),
+    (6342, 100, 132, None, None)])
+def test_bits_geometry(touched, rows, sms, words, want):
+    """Block sizes whose staging fits 227 KB, the fewest waves first,
+    then the smallest; resident blocks by an SM's 228 KB, less 1 KB a
+    block, at most 8 (registers)."""
+    geo = kca.bits_geometry(touched, rows, sms, words)
+    assert (None if geo is None else tuple(geo)) == want
+    for bad in ((0, 1, 1), (kca.MAX_LOCAL - 1, 1, 1), (5, 0, 1),
+                (5, 1, 0)):
+        with pytest.raises(ValueError):
+            kca.bits_geometry(*bad)
+    with pytest.raises(ValueError, match="words"):
+        kca.bits_geometry(5, 1, 1, words=12)
+
+
+def test_pick_form_rule():
+    """Bits where the touched cells are 0/1, no input reads 255 and the
+    staging fits; bytes otherwise.  A dropped output stays bits."""
+    rng = np.random.default_rng(3)
+    opc, ins, out = random_program(rng, 40, 16)
+    pk = kca.pack_program(opc, ins, out, 16)
+    assert kca.pick_form(pk, True, 1000, 132) == "bits"
+    assert kca.pick_form(pk, False, 1000, 132) == "bytes"
+    drops = kca.pack_program(opc, ins, np.where(out == 3, 99, out), 16)
+    assert not drops.reads_fill and kca.pick_form(drops, True, 9, 132) == \
+        "bits"
+    fill = ins.copy()
+    fill[opc == 7, 0] = 16
+    fills = kca.pack_program(opc, fill, out, 16)
+    assert fills.reads_fill and kca.pick_form(fills, True, 9, 132) == "bytes"
+    wide = kca.pack_program(np.full(7000, 7), np.zeros((7000, 5)),
+                            np.arange(7000), 7000)
+    assert kca.pick_form(wide, True, 9, 132) == "bytes"
+    long_rows = dataclasses.replace(pk, n_cols=kca.BITS_MAX_COLS + 1)
+    assert kca.pick_form(long_rows, True, 9, 132) == "bytes"
+
+
+def test_touched_binary_reads_only_staged_columns():
+    """Columns the program reads, or reads before it writes them, count;
+    untouched columns and columns written before any read do not."""
+    a = torch.zeros((5, 6), dtype=torch.uint8)
+    opc, ins = np.array([2, 7]), np.array([[2, 1, 0, 0, 0], [1, 0, 0, 0, 0]])
+    pk = kca.pack_program(opc, ins, np.array([2, 3]), 6)  # 2 read first
+    assert (pk.n_fresh, pk.cols.tolist()[:2]) == (1, [3, 2])
+    assert kca.touched_binary(a, pk)
+    a[3, 5] = 2                                  # untouched
+    a[0, 3] = 9                                  # written before any read
+    assert kca.touched_binary(a, pk)
+    a[4, 2] = 7                                  # read, then written
+    assert not kca.touched_binary(a, pk)
+    a[4, 2] = 1
+    a[0, 1] = 255                                # read only
+    assert not kca.touched_binary(a, pk)
+
+
+def test_cram_array_binary_flag(monkeypatch):
+    """True at construction; a write of a value above 1 clears it, 0/1
+    writes keep it; a program reading 255 clears it; ``run`` hands it to
+    the kernel's entry."""
+    seen = []
+    real = kca.cram_execute_
+    monkeypatch.setattr(kca, "cram_execute_",
+                        lambda st, pk, binary=None: seen.append(binary)
+                        or real(st, pk, binary))
+    arr = tarray.CRAMArray(4, 8, device="cpu")
+    assert arr.binary
+    arr.write_row(0, 0, [1, 0, 1])
+    arr.write_column_rows(2, np.ones((4, 2), np.uint8))
+    arr.write_column_rows(4, torch.ones((1, 3), dtype=torch.uint8))
+    assert arr.binary
+    arr.run(program(PORT, [("INV", (0,), 7)]))
+    assert arr.binary and seen == [True]
+    arr.run(program(PORT, [("INV", (9,), 7)]))   # reads 255, writes 2
+    assert not arr.binary and seen == [True, True]
+    assert arr.state[:, 7].tolist() == [2] * 4
+    arr.run(program(PORT, [("COPY", (0,), 6)]))
+    assert seen[-1] is False
+    for write in (lambda a: a.write_row(1, 0, [0, 2]),
+                  lambda a: a.write_column_rows(0, np.full((4, 1), 2)),
+                  lambda a: a.write_column_rows(
+                      0, torch.tensor([[0, 3]], dtype=torch.uint8))):
+        arr = tarray.CRAMArray(4, 8, device="cpu")
+        write(arr)
+        assert not arr.binary
+
+
+def test_matcher_array_stays_binary():
+    rng = np.random.default_rng(1)
+    m = tmatcher.Matcher(rng.integers(0, 4, (9, 30), np.uint8), 6,
+                         device="cpu")
+    m.load_pattern(rng.integers(0, 4, 6, np.uint8))
+    assert m.array.binary
+    m.run()
+    assert m.array.binary
+    m.load_patterns_per_row(rng.integers(0, 4, (9, 6), np.uint8))
+    assert m.array.binary
 
 
 # -- on the card ------------------------------------------------------------
 
 # chip_smoke.py phase 9 (a): (rows, cols, ops), one row, row counts off
 # the 128-row block, staged within and above 48 KB, 64 and 32 rows a
-# block, and unstaged.
+# block, and unstaged (the byte form's geometries); the bit-sliced form
+# runs each shape its staging fits at every block size that fits.
 GPU_SHAPES = [(1, 8, 60), (31, 16, 200), (33, 16, 200), (129, 40, 300),
               (1000, 64, 500), (257, 600, 400), (300, 3000, 2000),
               (100, 6000, 4000), (200, 9000, 6000)]
 
 
+def counts():
+    return (kca.cram_execute_bits.n_launches,
+            kca.cram_execute_bytes.n_launches)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,cols,n_ops", GPU_SHAPES)
 def test_kernel_matches_plain_on_card(cuda, rows, cols, n_ops):
+    """The byte form on random uint8 states, through both entries."""
     rng = np.random.default_rng(rows * 7 + cols)
     a = torch.from_numpy(rng.integers(0, 256, (rows, cols), np.uint8)).to(
         cuda)
     opc, ins, out = random_program(rng, n_ops, cols)
-    n0 = kca.cram_execute.n_launches
+    n0 = counts()
     got = kca.cram_execute(a, opc, ins, out)
     pk = kca.pack_program(opc, ins, out, cols, cuda)
     inplace = kca.cram_execute_(a.clone(), pk)
     want = kca.execute_plain(a, opc, ins, out)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(inplace, want)
-    assert kca.cram_execute.n_launches - n0 == 2
+    assert counts() == (n0[0], n0[1] + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("words", kca.BITS_WORDS)
+@pytest.mark.parametrize("rows,cols,n_ops", GPU_SHAPES)
+def test_bits_kernel_matches_plain_on_card(cuda, rows, cols, n_ops, words):
+    """The bit-sliced form on random 0/1 states at every block size its
+    staging fits, some output columns dropped; no staged byte above 1."""
+    rng = np.random.default_rng(rows * 5 + cols + words)
+    a = torch.from_numpy(rng.integers(0, 2, (rows, cols), np.uint8)).to(cuda)
+    opc, ins, out = random_program(rng, n_ops, cols)
+    out[7::13] = cols + 3
+    pk = kca.pack_program(opc, ins, out, cols, cuda)
+    if kca.bits_geometry(pk.n_touched, rows, 132, words) is None:
+        with pytest.raises(ValueError, match="do not fit"):
+            kca.cram_execute_bits(a.clone(), pk, words=words)
+        return
+    kca.over_one(cuda).zero_()
+    n0 = counts()
+    got = kca.cram_execute_bits(a.clone(), pk, words=words)
+    want = kca.execute_plain(a, opc, ins, out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert counts() == (n0[0] + 1, n0[1])
+    assert int(kca.over_one(cuda)) == 0
+
+
+@pytest.mark.gpu
+def test_form_choice_on_card(cuda):
+    """A 0/1 state takes the bits; one 2 in a touched column the bytes
+    (and the result keeps it); a program reading 255 the bytes."""
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.integers(0, 2, (500, 40), np.uint8)).to(cuda)
+    opc, ins, out = random_program(rng, 300, 40)
+    kca.over_one(cuda).zero_()
+    n0 = counts()
+    got = kca.cram_execute(a, opc, ins, out)
+    assert counts() == (n0[0] + 1, n0[1])
+    assert torch.equal(got, kca.execute_plain(a, opc, ins, out))
+    b = a.clone()
+    b[123, int(ins[0, 0])] = 2
+    got = kca.cram_execute(b, opc, ins, out)
+    assert counts() == (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(got, kca.execute_plain(b, opc, ins, out))
+    fill = ins.copy()
+    fill[:, 0] = 40
+    got = kca.cram_execute(a, opc, fill, out)
+    assert counts() == (n0[0] + 1, n0[1] + 2)
+    assert torch.equal(got, kca.execute_plain(a, opc, fill, out))
+    assert int(kca.over_one(cuda)) == 0
 
 
 @pytest.mark.gpu
 def test_empty_program_and_values_on_card(cuda):
     a = torch.tensor([[2, 0, 0], [5, 0, 0]], dtype=torch.uint8, device=cuda)
-    n0 = kca.cram_execute.n_launches
+    n0 = counts()
     empty = kca.cram_execute(a, np.zeros(0), np.zeros((0, 5)), np.zeros(0))
-    assert torch.equal(empty, a) and kca.cram_execute.n_launches == n0
+    assert torch.equal(empty, a) and counts() == n0
     got = kca.cram_execute(a, np.array([6, 7]), np.zeros((2, 5)),
                            np.array([1, 2]))
     assert got[:, 1].tolist() == [255, 252] and got[:, 2].tolist() == [2, 5]
@@ -593,5 +1012,9 @@ def test_matcher_on_card_matches_oracle(cuda):
     pat = rng.integers(0, 4, 12, np.uint8)
     m = tmatcher.Matcher(frags, pattern_chars=12, device=cuda)
     m.load_pattern(pat)
+    kca.over_one(cuda).zero_()
+    n0 = counts()
     np.testing.assert_array_equal(m.run(),
                                   tmatcher.sliding_scores(frags, pat))
+    assert counts() == (n0[0] + m.layout.n_alignments, n0[1])
+    assert int(kca.over_one(cuda)) == 0
