@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's match path on one NVIDIA card and check it.
+"""Drive the PyTorch port's match and LM serving paths on one NVIDIA card and
+check them.
 
 Run from the root of a checkout, on a machine with a CUDA device, the
 CUDA toolkit and PyTorch built for CUDA:
@@ -116,7 +117,22 @@ printing its wall time beside the card's name and power limit:
    launch's first op alone and its write-back alone, and the byte form
    timed on the same state.  The bit-sliced kernel's count of staged
    bytes above 1 must read 0.
-10. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line,
+10. LM serving through the port's entry points: llama3.2-1b at its full
+   width, (l1) f32 weights and (l2) its serving deployment (bf16
+   weights, int8 KV cache, 16 KV heads), seeded on the card; for each,
+   prefill + decode against the full forward, the speculative verify
+   window against token-by-token decode (logits within 3e-2 as relative
+   L2 error, argmax equal unless a near-tie), the card against the CPU
+   at 2 layers, ``generate_greedy`` over 4 prompts of 128 tokens, the
+   slot ``Engine`` over 8 requests in 4 slots and the
+   ``SpeculativeDecoder`` on a motif prompt, each stream equal to
+   ``generate_greedy``'s under the margin rule, ``match_swar`` launched
+   by the speculator (one ``propose``'s launch held against its plain
+   version and a numpy brute force); prefill and decode-step ms beside
+   the step's bound, the profiled step's device-busy share, tokens/s,
+   tokens per model call, ms a ``propose`` and peak memory.
+11. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
+   (``match_swar``'s launches count phase 10's), the script's wall time,
    the card's name and power limit, and ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -226,6 +242,20 @@ CRAM_BYTES_TIMED = 20
 # over the SWAR form's rows unpadded and its bound there.
 EXTRA_MS = ("bound_ms_first_build", "ms_a_chunk", "ms_unpadded",
             "bound_ms_unpadded", "ms_paper", "bound_ms_paper")
+# LM serving (phase 10): llama3.2-1b at its published width as the registry
+# holds it, (l1) f32 weights, and as the repo's serving deployment of it,
+# (l2) bf16 weights, int8 KV cache, KV heads padded to 16.  Sizes:
+# generate_greedy over LM_PROMPTS prompts of LM_PROMPT_LEN tokens; the
+# slot Engine over LM_REQUESTS requests of LM_MIN_PROMPT..LM_PROMPT_LEN
+# tokens in LM_SLOTS slots; the speculative decoder (k = LM_SPEC_K) on a
+# prompt of an LM_MOTIF-token motif repeated to LM_PROMPT_LEN tokens.
+LM_ARCH = "llama3.2-1b"
+LM_PROMPTS, LM_PROMPT_LEN, LM_MAX_NEW, LM_MAX_SEQ = 4, 128, 32, 512
+LM_REQUESTS, LM_SLOTS, LM_MIN_PROMPT = 8, 4, 16
+LM_MOTIF, LM_SPEC_NEW, LM_SPEC_K = 16, 128, 4
+LM_CHECK_STEPS = 4           # decode steps held against the full forward
+LM_TIMED_STEPS = 16          # decode steps timed at LM_SLOTS slots
+LM_RTOL = LM_ATOL = 3e-2     # the reference's bf16 logit tolerance
 
 
 def check(cond: bool, what: str) -> None:
@@ -1167,7 +1197,392 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
                   "cram_execute_bytes": launches_bytes}, info
 
 
+def lm_close(got, want, what: str) -> dict:
+    """``got`` against ``want`` (..., V) logits at the reference's bf16
+    tolerance, 3e-2, taken over the whole tensor: the relative L2 error
+    must be under it, and every row's argmax must agree unless ``want``'s
+    top-1/top-2 margin is under the elementwise tolerance (a near-tie,
+    counted).  Elementwise 3e-2 is reported, not required: at 128,256
+    logits a row, two bf16 paths of the same function differ past it at
+    a few elements (the reference's own paths do so on its smoke
+    configs)."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    diff = got - want
+    rel = float(diff.norm() / want.norm())
+    outside = float((diff.abs() > LM_ATOL + LM_RTOL * want.abs())
+                    .float().mean())
+    top2 = want.reshape(-1, want.shape[-1]).topk(2, -1).values
+    near = (top2[:, 0] - top2[:, 1]) < LM_ATOL + LM_RTOL * top2[:, 0].abs()
+    differ = (got.reshape(near.shape[0], -1).argmax(-1)
+              != want.reshape(near.shape[0], -1).argmax(-1))
+    out = {"max_abs": float(diff.abs().max()), "rel_l2": rel,
+           "frac_outside_elementwise": outside,
+           "argmax_near_ties": int(differ.sum())}
+    check(rel <= LM_RTOL, f"{what}: relative L2 error {rel:.4f} past "
+          f"{LM_RTOL} ({out})")
+    check(not bool((differ & ~near).any()), f"{what}: argmax differs "
+          f"where the margin is past the tolerance ({out})")
+    return out
+
+
+def lm_same_greedy(lm, prompt, want, got, what: str) -> bool:
+    """Greedy streams equal token for token; where they differ, the
+    margin rule: the top-1/top-2 logit margin of ``want``'s context at the
+    first differing step (the full forward on the same card) must be
+    under the logit tolerance, and the tie is printed.  True when equal."""
+    import numpy as np
+    import torch
+    want, got = np.asarray(want).reshape(-1), np.asarray(got).reshape(-1)
+    n = min(len(want), len(got))
+    diff = np.flatnonzero(want[:n] != got[:n])
+    if not len(diff):
+        check(len(want) == len(got), f"{what}: stream lengths")
+        return True
+    i = int(diff[0])
+    ctx = np.concatenate([np.asarray(prompt).reshape(-1), want[:i]])[None]
+    logits, _, _ = lm.forward({"tokens": ctx})
+    top2 = torch.topk(logits[0, -1].float(), 2).values.cpu()
+    margin = float(top2[0] - top2[1])
+    tol = LM_ATOL + LM_RTOL * abs(float(top2[0]))
+    check(margin < tol, f"{what}: streams differ at step {i} with a "
+          f"top-1/top-2 margin of {margin:.4f} past {tol:.4f}")
+    print(f"  {what}: near-tie at step {i} (margin {margin:.4f} < "
+          f"{tol:.4f}): {want[i]} vs {got[i]}; rest not compared")
+    return False
+
+
+def lm_propose_held(spec, suffix, k: int):
+    """One ``propose`` with its ``match_swar`` launch captured: the launch
+    against ``match_swar_plain`` on the same operands, bit for bit, and
+    the proposal against a numpy brute-force match of the crumbs.  The
+    launch made here is a comparison launch: callers read the path's
+    counters before it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import match_swar as ksw
+    from repro_torch.serving.ngram_cache import (CRUMBS_PER_TOKEN,
+                                                 tokens_to_crumbs)
+    seen = []
+    kernel = ksw.match_swar
+
+    def capture(*args, **kw):
+        out = kernel(*args, **kw)
+        seen.append((args, kw, out))
+        return out
+    capture.n_launches = 0      # the kernel's own count lands here
+    ksw.match_swar = capture
+    try:
+        prop, conf = spec.propose(suffix, k=k)
+    finally:
+        ksw.match_swar = kernel
+    check(len(seen) == 1, f"one match_swar launch a propose ({len(seen)})")
+    args, kw, out = seen[0]
+    plain = ksw.match_swar_plain(*args, **kw)
+    check(torch.equal(out, plain), "propose's match_swar equals its plain "
+          "version")
+    # Brute force over the history's crumbs, zero-padded to the folded
+    # rows' alignments (each row holds `step` alignments, no overlap).
+    hist = np.asarray(spec.history, np.int64)
+    sfx = np.asarray(suffix, np.int64).reshape(-1)[-spec.suffix_tokens:]
+    crumbs, pat = tokens_to_crumbs(hist), tokens_to_crumbs(sfx)
+    P = len(pat)
+    frag = min(spec.fragment_tokens * CRUMBS_PER_TOKEN, len(crumbs))
+    step = frag - (P - 1)
+    n_rows = max(1, -(-max(len(crumbs) - (P - 1), 1) // step))
+    padded = np.zeros(n_rows * step + P - 1, np.uint8)
+    padded[:len(crumbs)] = crumbs
+    windows = np.lib.stride_tricks.sliding_window_view(padded, P)
+    scores = (windows[:n_rows * step] == pat).sum(1)
+    p = int(scores.argmax())
+    cp = p + P
+    tok = cp // CRUMBS_PER_TOKEN + (1 if cp % CRUMBS_PER_TOKEN else 0)
+    check(np.array_equal(prop, hist[tok:tok + k])
+          and conf == scores[p] / P,
+          "proposal equals a numpy brute-force match of the crumbs")
+    shape = {"rows": int(args[0].shape[0]), "words": int(args[0].shape[1]),
+             "n_locs": int(kw["n_locs"]),
+             "pattern_chars": int(kw["pattern_chars"])}
+    if out.is_cuda:
+        shape["kernel_ms"] = cuda_ms(lambda: kernel(*args, **kw), 200)
+        shape["plain_ms"] = cuda_ms(lambda: ksw.match_swar_plain(*args, **kw),
+                                    20)
+    return shape
+
+
+def lm_step_profile(lm, caches, toks, pos, sync):
+    """One decode step under ``torch.profiler``: wall ms, device-busy ms and
+    the five kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.device_time import device_us
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        lm.decode_step(caches, toks, pos)
+        sync()
+        wall = (time.perf_counter() - t) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = device_us(ev)
+        if us > 0:
+            by_kernel[ev.key] = (us / 1e3, ev.count)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:5]
+    return wall, busy, sum(n for _, n in by_kernel.values()), top
+
+
+def lm_phase(configs, *, zero_counts, read_counts, sync, device="cuda",
+             profile_step=True):
+    """Phase 10: LM serving through the port's entry points, for each
+    ``(label, cfg)`` of ``configs``.
+
+    Seeded weights on ``device``; checks: prefill + decode against the full
+    forward (the int8 cache's own full forward -- a forward over the whole
+    sequence through a fresh cache -- where ``kv_quant`` is on, since the
+    int8 cache is lossy against a forward that keeps K/V in bf16); the
+    continuation (the speculative verify) against token-by-token decode;
+    every Engine stream against the request's ``generate_greedy`` and the
+    speculative stream against ``generate_greedy``, under the margin rule;
+    the card's logits against the same port code on the CPU at the
+    config's width and 2 layers; one ``propose``'s ``match_swar`` launch
+    against its plain version and its proposal against a numpy brute
+    force; the ``match_swar`` counter above 0 over the speculator.
+    Returns (match_swar launches of the speculators' runs, info)."""
+    spec_launches, info = 0, {}
+    for label, cfg in configs:
+        n, info[label] = lm_serve_config(
+            label, cfg, zero_counts=zero_counts, read_counts=read_counts,
+            sync=sync, device=device, profile_step=profile_step)
+        spec_launches += n
+    return spec_launches, info
+
+
+def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
+                    profile_step):
+    """Phase 10 for one config: (match_swar launches of its speculator,
+    what it measured).  Everything it allocates is freed on return."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as lmm
+    from repro_torch.models.spec import leaves
+    from repro_torch.serving.engine import Engine, Request, generate_greedy
+    from repro_torch.serving.speculative import SpeculativeDecoder
+
+    cuda = torch.device(device).type == "cuda"
+    t_cfg = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    out = {"config": cfg.name, "kv_quant": cfg.kv_quant,
+           "param_dtype": cfg.param_dtype, "kv_heads": cfg.padded_kv_heads}
+    lm = lmm.init_params(cfg, SEED, device)
+    sync()
+    out["n_params"] = sum(p.numel() for p in lm.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    out["weight_bytes"] = w_bytes
+    out["init_s"] = time.perf_counter() - t_cfg
+    rng = np.random.default_rng(SEED)
+    P, S = LM_PROMPTS, LM_PROMPT_LEN
+    toks = rng.integers(0, cfg.vocab, (P, S + LM_CHECK_STEPS),
+                        dtype=np.int32)
+    prompts = toks[:, :S]
+
+    # -- prefill + decode against the full forward ---------------------
+    caches = lm.init_cache(P, LM_MAX_SEQ)
+    last, caches = lm.prefill({"tokens": prompts}, caches)
+    steps = [last]
+    for t in range(S, S + LM_CHECK_STEPS - 1):
+        logits, caches = lm.decode_step(caches, toks[:, t:t + 1], t)
+        steps.append(logits)
+    got = torch.stack(steps, 1)
+    if cfg.kv_quant:
+        full, _, _ = lm.forward({"tokens": toks[:, :-1]},
+                                caches=lm.init_cache(P, LM_MAX_SEQ),
+                                cache_index=0)
+        plain_full, _, _ = lm.forward({"tokens": toks[:, :-1]})
+        out["err_vs_bf16_forward"] = float(
+            (got - plain_full[:, S - 1:]).abs().max())
+        del plain_full
+    else:
+        full, _, _ = lm.forward({"tokens": toks[:, :-1]})
+    out["err_prefill_decode"] = lm_close(
+        got, full[:, S - 1:], f"{label} prefill + decode vs forward")
+
+    # -- the continuation (verify) against token-by-token decode -------
+    window = toks[:1, S:S + LM_CHECK_STEPS]
+    c1 = lm.init_cache(1, LM_MAX_SEQ)
+    lm.prefill({"tokens": prompts[:1]}, c1)
+    win, _, _ = lm.forward({"tokens": window}, caches=c1, cache_index=S)
+    c2 = lm.init_cache(1, LM_MAX_SEQ)
+    lm.prefill({"tokens": prompts[:1]}, c2)
+    steps = [lm.decode_step(c2, window[:, i:i + 1], S + i)[0]
+             for i in range(LM_CHECK_STEPS)]
+    out["err_verify"] = lm_close(win[0], torch.cat(steps, 0),
+                                 f"{label} verify vs decode")
+    del c1, c2, full, got, steps, win
+
+    # -- prefill and decode-step time at LM_SLOTS slots ------------------
+    times = []
+    for _ in range(3):
+        c = lm.init_cache(P, LM_MAX_SEQ)
+        sync()
+        t = time.perf_counter()
+        lm.prefill({"tokens": prompts}, c)
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    out["prefill_ms"] = min(times)
+    out["prefill_ms_runs"] = times
+    pos = np.full(P, S, np.int32)
+    tok1 = toks[:, S:S + 1]
+    lm.decode_step(c, tok1, pos)
+    sync()
+    t = time.perf_counter()
+    for _ in range(LM_TIMED_STEPS):
+        lm.decode_step(c, tok1, pos)
+    sync()
+    step_ms = (time.perf_counter() - t) * 1e3 / LM_TIMED_STEPS
+    out["decode_step_ms"] = step_ms
+    out["decode_tok_s"] = P / step_ms * 1e3
+    kv_bytes = sum(x.numel() * x.element_size() for _, x in leaves(c))
+    out["kv_bytes"] = kv_bytes
+    out["step_bound_ms"] = (w_bytes + kv_bytes) / HBM_BW * 1e3
+    if profile_step:
+        wall, busy, n_kern, top = lm_step_profile(lm, c, tok1, pos, sync)
+        out.update(profiled_step_ms=wall, device_busy_ms=busy,
+                   device_busy_share=busy / wall,
+                   kernels_per_step=n_kern,
+                   top_kernels=[[name[:60], round(ms, 4), n]
+                                for name, (ms, n) in top])
+    del c
+
+    # -- generate_greedy --------------------------------------------------
+    sync()
+    t = time.perf_counter()
+    gg = generate_greedy(cfg, lm, prompts, max_new=LM_MAX_NEW,
+                         max_seq=LM_MAX_SEQ)
+    out["generate_s"] = time.perf_counter() - t
+    check(gg.shape == (P, LM_MAX_NEW) and (gg >= 0).all()
+          and (gg < cfg.padded_vocab).all(), f"{label} generate_greedy")
+
+    # -- the slot engine ------------------------------------------------
+    lens = rng.integers(LM_MIN_PROMPT, S + 1, LM_REQUESTS)
+    lens[:2] = (LM_MIN_PROMPT, S)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n, dtype=np.int32),
+                    max_new=LM_MAX_NEW) for n in lens]
+    eng = Engine(cfg, lm, max_seq=LM_MAX_SEQ, n_slots=LM_SLOTS)
+    decode, n_calls = eng._decode, [0]
+
+    def counted(toks_):
+        n_calls[0] += 1
+        return decode(toks_)
+    eng._decode = counted
+    sync()
+    t = time.perf_counter()
+    eng.run(list(reqs))
+    sync()
+    out["engine_s"] = time.perf_counter() - t
+    out["engine_tokens"] = sum(len(r.out) for r in reqs)
+    out["engine_decode_calls"] = n_calls[0]
+    ties = 0
+    for r in reqs:
+        check(len(r.out) == LM_MAX_NEW and r.done, f"{label} request")
+        ref = generate_greedy(cfg, lm, r.prompt[None], max_new=LM_MAX_NEW,
+                              max_seq=LM_MAX_SEQ)[0]
+        ties += not lm_same_greedy(lm, r.prompt, ref, r.out,
+                                   f"{label} engine")
+    out["engine_ties"] = ties
+    del eng
+
+    # -- speculative decoding through match_swar ----------------------
+    motif = rng.integers(0, cfg.vocab, LM_MOTIF, dtype=np.int32)
+    prompt = np.tile(motif, S // LM_MOTIF)
+    ref = generate_greedy(cfg, lm, prompt[None], max_new=LM_SPEC_NEW,
+                          max_seq=LM_MAX_SEQ)[0]
+    dec = SpeculativeDecoder(cfg, lm, max_seq=LM_MAX_SEQ, k=LM_SPEC_K)
+    propose, propose_s = dec.spec.propose, []
+
+    def timed_propose(*a, **kw):
+        t0 = time.perf_counter()
+        res = propose(*a, **kw)
+        propose_s.append(time.perf_counter() - t0)
+        return res
+    dec.spec.propose = timed_propose
+    sync()
+    zero_counts()
+    t = time.perf_counter()
+    spec_out, stats = dec.generate(prompt, max_new=LM_SPEC_NEW)
+    sync()
+    out["spec_s"] = time.perf_counter() - t
+    counts = read_counts()
+    check(counts["match_swar"] > 0, f"{label} speculator launched "
+          "match_swar")
+    out["spec_launches"] = {k: v for k, v in counts.items() if v}
+    out["spec_tie"] = not lm_same_greedy(lm, prompt, ref, spec_out,
+                                         f"{label} speculative")
+    out.update(spec_calls=stats.model_calls,
+               spec_tokens=stats.tokens_out,
+               spec_tokens_per_call=stats.tokens_per_call,
+               spec_acceptance=stats.acceptance,
+               proposes=len(propose_s),
+               propose_ms=1e3 * sum(propose_s) / max(len(propose_s), 1))
+    dec.spec.propose = propose
+    out["propose_launch"] = lm_propose_held(
+        dec.spec, list(prompt) + list(spec_out), LM_SPEC_K)
+
+    # -- the card against the CPU, the config's width and 2 layers ------
+    if cuda:
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        card = lmm.init_params(cfg2, SEED, device)
+        cpu = copy.deepcopy(card).cpu()
+        x = toks[:1, :16]
+        want, _, _ = cpu.forward({"tokens": x})
+        got, _, _ = card.forward({"tokens": x})
+        out["err_card_vs_cpu_2_layers"] = lm_close(
+            got, want, f"{label} card vs CPU at 2 layers")
+        del card, cpu
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["wall_s"] = time.perf_counter() - t_cfg
+    print(f"  ({label}) {cfg.name}: {out['n_params']:,} params "
+          f"({w_bytes / 1e9:.3f} GB {cfg.param_dtype}), kv_quant "
+          f"{cfg.kv_quant}, {cfg.padded_kv_heads} KV heads")
+    print(f"  ({label}) prefill {P}x{S} {out['prefill_ms']:.2f} ms; "
+          f"decode step at {P} slots {step_ms:.3f} ms (bound "
+          f"{out['step_bound_ms']:.3f} ms: weights + KV over "
+          f"{HBM_BW / 1e12:.2f} TB/s), {out['decode_tok_s']:.1f} tok/s"
+          + (f"; device busy {100 * out['device_busy_share']:.1f}% of "
+             f"one profiled step ({out['kernels_per_step']} kernels)"
+             if profile_step else ""))
+    print(f"  ({label}) speculative: {stats.tokens_out} tokens in "
+          f"{stats.model_calls} calls ({stats.tokens_per_call:.2f} a "
+          f"call), acceptance {stats.acceptance:.3f}, "
+          f"{len(propose_s)} proposes at {out['propose_ms']:.2f} ms; "
+          f"match_swar launches {counts['match_swar']}")
+    for key in ("err_prefill_decode", "err_verify",
+                "err_card_vs_cpu_2_layers"):
+        if key in out:
+            e = out[key]
+            print(f"  ({label}) {key[4:]}: max abs {e['max_abs']:.4f}, "
+                  f"relative L2 {e['rel_l2']:.5f}, "
+                  f"{100 * e['frac_outside_elementwise']:.4f}% of "
+                  f"elements past 3e-2 elementwise, "
+                  f"{e['argmax_near_ties']} argmax near-ties")
+    print(f"  ({label}) "
+          + (f"peak {out['peak_bytes'] / 2**30:.2f} GiB above the "
+             f"phase's start; " if cuda
+             else "") + f"{out['wall_s']:.1f} s; card: {Phase.card}")
+    return counts["match_swar"], out
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2074,11 +2489,22 @@ def main() -> int:
         kernels.extend(cram_rows)
         print("cram " + json.dumps(cram_info))
 
-    # -- 10. summary ---------------------------------------------------------
-    # Each kernel's launches come from its own path's run.
+    # -- 10. LM serving -------------------------------------------------------
+    with Phase("phase 10: LM serving, llama3.2-1b at full width"):
+        from repro_torch.configs import get_config
+        lm_launches, lm_info = lm_phase(
+            [("l1", get_config(LM_ARCH)),
+             ("l2", get_config(LM_ARCH, optimized=True, kind="serve"))],
+            zero_counts=zero_counts, read_counts=read_counts,
+            sync=torch.cuda.synchronize)
+        print("lm " + json.dumps(lm_info))
+
+    # -- 11. summary ---------------------------------------------------------
+    # Each kernel's launches come from its own path's run; match_swar's
+    # path is (e)-(f)'s verify and phase 10's speculators.
     path_launches = dict(launches)
     path_launches["match_mxu"] = launches_c2["match_mxu"]
-    path_launches["match_swar"] = launches_ef["match_swar"]
+    path_launches["match_swar"] = launches_ef["match_swar"] + lm_launches
     path_launches["filter_qgram"] = launches_ef["filter_qgram"]
     path_launches["bank_prefilter"] = launches_bank["bank_prefilter"]
     path_launches["popcount"] = launches_bulk["popcount"]
@@ -2104,6 +2530,7 @@ def main() -> int:
         {"name": r["name"], "n_launches": r["n_launches"],
          "matches_plain": r["matches_plain"]} for r in rows_out]))
     print(json.dumps({"kernels": rows_out}))
+    print(f"chip_smoke: total {time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,17 +16,25 @@ the reference holds, and these functions build the port's equivalent on
 * ``bank_forms_from_numpy`` -- a JAX ``PatternBank``'s ``planes()`` and
   ``filter_operands()`` (uint32 planes and signatures, int32 slacks) as
   the port bank's device forms.
+* ``params_from_numpy`` -- a JAX ``init_params`` tree (``jax.tree.map(
+  np.asarray, params)``) as a ``CausalLM``, leaf for leaf, every path,
+  shape and dtype checked against the port's ``param_specs``.
+* ``cache_from_numpy`` -- a JAX cache tree (``init_cache``, or one a
+  prefill filled) as the port's cache tree, checked the same way.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.match.corpus import PackedCorpus
+from repro_torch.models import model as _model
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.spec import leaves
 
 
 def corpus_from_numpy(fragments: np.ndarray, *,
@@ -66,3 +74,57 @@ def bank_forms_from_numpy(planes: np.ndarray, sigs: np.ndarray,
             swar_words_from_numpy(sigs, device),
             torch.from_numpy(np.array(s)).to(
                 resolve_device(device)))
+
+
+def _leaf_tensor(path: str, a: np.ndarray, want: torch.dtype,
+                 shape, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{path}: shape {a.shape}, the port's spec says "
+                         f"{tuple(shape)}")
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: carry the bits
+        if want != torch.bfloat16:
+            raise ValueError(f"{path}: dtype bfloat16, the port's spec says "
+                             f"{want}")
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    t = torch.from_numpy(np.array(a))
+    if t.dtype != want:
+        raise ValueError(f"{path}: dtype {a.dtype}, the port's spec says "
+                         f"{want}")
+    return t.to(dev)
+
+
+def _tree_from_numpy(specs, tree, dev: torch.device) -> Dict[str, Any]:
+    want, got = dict(leaves(specs)), dict(leaves(tree))
+    if set(want) != set(got):
+        raise ValueError(f"tree paths differ from the port's specs: missing "
+                         f"{sorted(set(want) - set(got))}, extra "
+                         f"{sorted(set(got) - set(want))}")
+    out: Dict[str, Any] = {}
+    for path, s in want.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = _leaf_tensor(path, got[path], s.dtype, s.shape, dev)
+    return out
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
+                      device: DeviceLike = None) -> "_model.CausalLM":
+    """The reference's parameter tree (numpy leaves) as a ``CausalLM``."""
+    dev = resolve_device(device)
+    return _model.CausalLM(cfg, _tree_from_numpy(_model.param_specs(cfg),
+                                                 tree, dev))
+
+
+def cache_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
+                     device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's cache tree (numpy leaves) as the port's; batch and
+    length are read off its first ``k`` leaf."""
+    dev = resolve_device(device)
+    k = next(v for p, v in leaves(tree) if p.endswith("/k"))
+    batch, seq_len = k.shape[-4], k.shape[-2]
+    return _tree_from_numpy(_model.cache_specs(cfg, batch, seq_len), tree,
+                            dev)

@@ -13,11 +13,18 @@ standing ``PatternBank`` -- mostly benign docs, a few with planted bank
 hits -- over a sliding-window corpus, and reports per-tick bank-launch
 counts, hit latency, and prefilter survivor fractions.
 
-Both run on the card unless ``--device cpu`` is given, print the same
+``--workload lm`` (the default, as in the reference) boots a seeded
+random model of ``--arch`` (the reference's ``--smoke`` flag is kept: it
+defaults to on and cannot be turned off), serves ``--requests`` synthetic
+prompts through the slot ``Engine``, and reports decode throughput and the
+n-gram speculator's acceptance over the generated streams (the CRAM-PM
+matcher in the serving plane: ``match_swar`` on the card).
+
+All run on the card unless ``--device cpu`` is given and print the same
 report lines as ``repro.launch.serve`` (the match workload's also counts
-``failed=`` queries, and any makes the run fail), and return the
-service's ``ServiceStats.snapshot()``.  ``--workload lm`` (the LM serving engine)
-is refused: the port has no LM substrate yet.
+``failed=`` queries, and any makes the run fail).  The match and stream
+workloads return the service's ``ServiceStats.snapshot()``, the lm
+workload its counts and streams.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Dict
 
 import numpy as np
 
+from repro_torch.configs import ARCHS
 from repro_torch.obs import Observability
 
 
@@ -280,6 +288,47 @@ def run_stream(args) -> Dict:
     return svc.stats.snapshot()
 
 
+def run_lm(args, params=None) -> Dict:
+    """Synthetic LM requests through the slot engine, then the n-gram
+    speculator over the generated streams.  ``params`` (a ``CausalLM`` of
+    ``--arch``'s config) replaces the seeded initialisation."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.ngram_cache import NgramSpeculator, verify
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if params is None:
+        params = model.init_params(cfg, 0, device=args.device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, args.prompt_len,
+                                        dtype=np.int32),
+                    max_new=args.max_new)
+            for _ in range(args.requests)]
+    eng = Engine(cfg, params, max_seq=args.max_seq, n_slots=args.slots)
+    t0 = time.perf_counter()
+    eng.run(list(reqs))
+    dt = time.perf_counter() - t0
+    total = sum(len(r.out) for r in reqs)
+    print(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
+          f"({total/dt:.1f} tok/s)")
+
+    # n-gram speculation demo on the generated streams
+    spec = NgramSpeculator(device=params.device)
+    acc, tries = 0, 0
+    for r in reqs:
+        spec.feed(r.out)
+    for r in reqs:
+        if len(r.out) > 8:
+            prop, conf = spec.propose(r.out[:4], k=4)
+            acc += verify(prop, np.asarray(r.out[4:8]))
+            tries += 4
+    if tries:
+        print(f"ngram speculator acceptance: {acc}/{tries}")
+    return {"n_requests": len(reqs), "n_tokens": total, "n_accepted": acc,
+            "n_tried": tries, "streams": [list(r.out) for r in reqs]}
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The reference launcher's flags, plus ``--device`` and ``--profiler``
     (in place of ``--jax-profiler``)."""
@@ -289,7 +338,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the CUDA "
                          "card; 'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--arch", choices=list(ARCHS), default="llama3.2-1b",
+                    help="lm workload: architecture (a dense one: the port "
+                         "has no other block family yet)")
+    # The reference's flag: store_true with default True, so it is always
+    # on (the full width is driven through the library, chip_smoke.py).
+    ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--corpus-rows", type=int, default=64,
                     help="match workload: resident corpus rows")
     ap.add_argument("--fragment-chars", type=int, default=256,
@@ -349,9 +408,13 @@ def main(argv=None) -> Dict:
         return run_match_service(args)
     if args.workload == "stream":
         return run_stream(args)
-    ap.error("--workload lm needs the LM serving engine, which the port "
-             "does not have yet (ROADMAP Queue 1, item 16: the LM "
-             "substrate)")
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import check_ported
+    try:
+        check_ported(get_config(args.arch, smoke=args.smoke))
+    except NotImplementedError as exc:
+        ap.error(str(exc))
+    return run_lm(args)
 
 
 if __name__ == "__main__":

@@ -18,11 +18,14 @@ seconds monotone in R, P and Q.
 
 Timing is the host clock: the minimum of N readings, each a call that
 ends in ``torch.cuda.synchronize()``, the first call discarded (it
-builds the kernel library).  The curve prices *wall* seconds, which is
-what the planner compares and what ``FeedbackStore`` observes; CUDA
-events would leave out the launch and wrapper cost that ``beta`` is
-there to capture.  Operands are built once on the device from a seeded
-numpy generator, outside the timed call.
+builds the kernel library).  The readings are taken in N rounds over
+the whole grid, so a slow spell of the host lands on one reading of
+every point instead of on every reading of one kernel's points.  The
+curve prices *wall* seconds, which is what the planner compares and
+what ``FeedbackStore`` observes; CUDA events would leave out the launch
+and wrapper cost that ``beta`` is there to capture.  Operands are
+built once on the device from a seeded numpy generator, outside the
+timed call.
 
 The grid is the port's own: the JAX package's grid is sized for a TPU
 and its interpret mode, and on an H100 every one of its shapes prices
@@ -257,18 +260,26 @@ def calibration_dir() -> Path:
 
 # -- measurement --------------------------------------------------------------
 
-def _time_best(fn: Callable[[], object], repeats: int,
-               sync: Callable[[], None]) -> float:
-    """Min-of-N host-clock seconds of ``fn`` to ``sync``; the first call
-    is discarded (it builds and loads the kernel library)."""
-    fn()
-    sync()
-    best = math.inf
-    for _ in range(max(1, repeats)):
-        t0 = time.perf_counter()
+def _time_rounds(fns: Sequence[Callable[[], object]], repeats: int,
+                 sync: Callable[[], None]) -> List[float]:
+    """Min-of-N host-clock seconds of each of ``fns`` to ``sync``.
+
+    The N readings are taken in N rounds, each of which times every call
+    once, so a slow spell of the shared host raises one reading of every
+    point rather than all readings of the few points timed during it
+    (which tilts a curve).  The first call of each is discarded (it
+    builds and loads the kernel library).
+    """
+    for fn in fns:
         fn()
-        sync()
-        best = min(best, time.perf_counter() - t0)
+    sync()
+    best = [math.inf] * len(fns)
+    for _ in range(max(1, repeats)):
+        for i, fn in enumerate(fns):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            best[i] = min(best[i], time.perf_counter() - t0)
     return best
 
 
@@ -366,7 +377,7 @@ def measure(kernel: str, shape: Mapping, *, device: DeviceLike = None,
     ``FUSED``) at one shape."""
     dev = resolve_device(device)
     fn, analytic = _build_call(kernel, shape, dev)
-    return analytic, _time_best(fn, repeats, _sync_for(dev))
+    return analytic, _time_rounds([fn], repeats, _sync_for(dev))[0]
 
 
 # -- fitting ------------------------------------------------------------------
@@ -610,20 +621,22 @@ def autotune(*, fast: bool = False, device: DeviceLike = None,
     grid = FAST_GRID if fast else FULL_GRID
     curves: Dict[str, KernelCurve] = {}
     samples: Dict[str, List[dict]] = {}
+    calls = [_build_call(kernel, shape, dev)
+             for kernel in KERNELS for shape in grid[kernel]]
+    measured = _time_rounds([fn for fn, _ in calls], repeats, _sync_for(dev))
+    points = iter(zip(calls, measured))
     for kernel in KERNELS:
         xs, ys, rows = [], [], []
         for shape in grid[kernel]:
-            analytic, measured = measure(kernel, shape, device=dev,
-                                         repeats=repeats)
+            (_, analytic), m = next(points)
             xs.append(analytic)
-            ys.append(measured)
+            ys.append(m)
             rows.append({**shape, "analytic_s": analytic,
-                         "measured_s": round(measured, 9)})
+                         "measured_s": round(m, 9)})
             if verbose:
                 print(f"  {kernel} {shape}: analytic {analytic:.3g}s "
-                      f"measured {measured:.3g}s "
-                      f"(x{measured / max(analytic, 1e-300):.3g})",
-                      flush=True)
+                      f"measured {m:.3g}s "
+                      f"(x{m / max(analytic, 1e-300):.3g})", flush=True)
         curves[kernel] = fit_curve(xs, ys)
         samples[kernel] = rows
     return CalibrationTable(
@@ -723,9 +736,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "<repo>/calibration/torch)")
     ap.add_argument("--no-save", action="store_true",
                     help="fit and report only")
-    ap.add_argument("--check-stability", action="store_true",
-                    help="run the autotune twice and require identical "
-                         "(or cost-neutral) golden-matrix decisions")
+    ap.add_argument("--check-stability", type=int, nargs="?", const=1,
+                    default=0, metavar="N",
+                    help="run N more autotunes (default 1) and require "
+                         "each to make the first's golden-matrix "
+                         "decisions (or cost-neutral ones)")
     args = ap.parse_args(argv)
 
     table = autotune(fast=args.fast, verbose=True)
@@ -741,18 +756,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         path = table.save(args.out)
         print(f"CALIB saved {path}")
 
-    if args.check_stability:
+    n_failed = 0
+    for run in range(1, args.check_stability + 1):
         table2 = autotune(fast=args.fast)
         ok, rows = decisions_stable(table.cost_source(),
                                     table2.cost_source())
         for r in rows:
-            print(f"CALIB stability shape[{r['shape']}] "
-                  f"a={r['choice_a']} b={r['choice_b']} "
-                  f"stable={r['stable']} neutral={r['cost_neutral']}")
-        if not ok:
-            print("CALIB stability FAILED: decisions flipped between "
-                  "back-to-back calibration runs")
-            return 1
+            if args.check_stability == 1 or not r["stable"]:
+                print(f"CALIB stability shape[{r['shape']}] "
+                      f"a={r['choice_a']} b={r['choice_b']} "
+                      f"stable={r['stable']} neutral={r['cost_neutral']}")
+        print(f"CALIB stability run {run}: digest {table2.digest[:8]}, "
+              f"{'OK' if ok else 'FAILED'}; curves " + json.dumps(
+                  {k: [c.alpha, c.beta] for k, c in
+                   sorted(table2.curves.items())}))
+        n_failed += not ok
+    if n_failed:
+        print(f"CALIB stability FAILED: decisions flipped in {n_failed} "
+              f"of {args.check_stability} runs against the first")
+        return 1
+    if args.check_stability:
         print("CALIB stability OK")
     return 0
 

@@ -1,0 +1,379 @@
+"""Core LM layers (port of ``repro.models.layers``): norms, RoPE,
+memory-bounded causal attention with its KV cache, and the MLP.
+
+The math is plain PyTorch ops, as the reference's is plain ``jnp`` (no
+Pallas kernel sits on this path).  The casting points are the
+reference's, so bf16 rounding matches it:
+
+* activations are ``COMPUTE_DTYPE`` (bf16); weights are cast with
+  ``.to(x.dtype)`` at each use;
+* a projection (``einsum`` of two bf16 operands) rounds its result to
+  bf16, as JAX's default does;
+* attention scores and the PV product accumulate in f32, where the
+  reference passes ``preferred_element_type=f32``: the bf16 operands are
+  widened to f32 (each product is exact there) before the product;
+* the softmax weights are rounded to the value dtype before the PV
+  product (``p.astype(v.dtype)``).
+
+Caches are preallocated tensors updated **in place** (the reference
+updates functionally and returns the new tree; the port returns the same
+tree).  The semantics are the reference's: a scalar write position is
+clamped as ``lax.dynamic_update_slice`` clamps it, every decode call
+writes all rows at their own positions, and the causal mask
+``kv_pos <= pos`` hides rows past a row's position.
+
+Ported: the branches a decoder-only ``attn`` block reaches -- ``full``
+with and without a cache, the continuation at a cache offset (the
+speculative verify), ``decode`` with a scalar or per-row index, QKV bias,
+GQA grouping and the int8 KV cache (``kv_quant``).  Cross-attention,
+bidirectional and local (sliding-window) attention, and MoE wait for
+ROADMAP Queue 1 item 16b and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from .config import ModelConfig
+from .spec import P
+
+COMPUTE_DTYPE = torch.bfloat16
+NEG_INF = -1e30
+
+UNPORTED = ("not ported yet: ROADMAP Queue 1 item 16b (the other block "
+            "families: MoE, local attention, SSD, RG-LRU, encoder-decoder "
+            "and cross-attention, input_mode='embeddings')")
+
+
+def unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is {UNPORTED}")
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_specs(cfg: ModelConfig) -> Dict[str, P]:
+    if cfg.norm == "rms":
+        return {"scale": P((cfg.d_model,), ("embed",), "ones")}
+    return {"scale": P((cfg.d_model,), ("embed",), "ones"),
+            "bias": P((cfg.d_model,), ("embed",), "zeros")}
+
+
+def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    if cfg.norm == "rms":
+        var = x32.square().mean(-1, keepdim=True)
+        out = x32 * torch.rsqrt(var + 1e-6) * p["scale"]
+    else:
+        mu = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, keepdim=True, correction=0)
+        out = (x32 - mu) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
+    return out.to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, H, S, D); positions: (B, S) integer."""
+    if theta <= 0:
+        return x
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=x.device)
+                      * (math.log(theta) / half))
+    ang = positions[:, None, :, None].float() * freqs      # (B,1,S,half)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attention_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, hd = cfg.d_model, cfg.head_dim
+    H, K = cfg.padded_heads, cfg.padded_kv_heads
+    specs: Dict[str, Any] = {
+        "wq": P((d, H, hd), ("embed", "heads", None)),
+        "wk": P((d, K, hd), ("embed", "kv_heads", None)),
+        "wv": P((d, K, hd), ("embed", "kv_heads", None)),
+        "wo": P((H, hd, d), ("heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = P((H, hd), ("heads", None), "zeros")
+        specs["bk"] = P((K, hd), ("kv_heads", None), "zeros")
+        specs["bv"] = P((K, hd), ("kv_heads", None), "zeros")
+    return specs
+
+
+def _pick_block(skv: int, max_blk: int) -> int:
+    """Largest divisor of skv that is <= max_blk."""
+    b = min(max_blk, skv)
+    while skv % b:
+        b -= 1
+    return b
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` accumulated in f32 (``preferred_element_type=f32``)."""
+    return torch.matmul(a.float(), b.float())
+
+
+def _online_softmax_scan(q, k, v, *, q_offset, block_kv: int):
+    """Causal attention. q (B,H,Sq,D); k,v (B,K,Skv,D) -> (B,H,Sq,D).
+    Never materializes the full score matrix: walks KV blocks with a
+    running (max, denom, acc).  ``q_offset`` is (B,) or an int."""
+    B, H, Sq, D = q.shape
+    _, K, Skv, _ = k.shape
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    nb = Skv // block_kv
+    assert nb * block_kv == Skv, "Skv must be divisible by block_kv"
+    dev = q.device
+    qg = q.reshape(B, K, G, Sq, D)
+    kb = k.reshape(B, K, nb, block_kv, D)
+    vb = v.reshape(B, K, nb, block_kv, D)
+    q_off = torch.as_tensor(q_offset, dtype=torch.int64, device=dev)
+    q_pos = (q_off.reshape(-1, 1)
+             + torch.arange(Sq, device=dev)[None, :])       # (B|1, Sq)
+    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, K, G, Sq, D), dtype=torch.float32, device=dev)
+    for j in range(nb):
+        k_j, v_j = kb[:, :, j], vb[:, :, j]
+        s = _dot_f32(qg, k_j[:, :, None].transpose(-1, -2)) * scale
+        kv_pos = j * block_kv + torch.arange(block_kv, device=dev)
+        mask = q_pos[:, None, None, :, None] >= kv_pos
+        s = torch.where(mask, s, NEG_INF)
+        new_m = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - new_m)
+        p = torch.exp(s - new_m[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _dot_f32(p.to(v_j.dtype),
+                                               v_j[:, :, None])
+        m = new_m
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def scalar_index(cache_index) -> Optional[int]:
+    """The write position as an int when it is one position for all rows
+    (an int, a 0-d array or tensor); None for a per-row vector."""
+    if isinstance(cache_index, int):
+        return cache_index
+    if getattr(cache_index, "ndim", 1) == 0:
+        return int(cache_index)
+    return None
+
+
+def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
+                    mode: str, cache: Optional[Dict] = None,
+                    cache_index=None, local: bool = False,
+                    bidir: bool = False, xa=None):
+    """Attention sub-layer (projections + mixing + out projection).
+
+    mode: "full" (prefill over the whole sequence; with a cache and a
+    ``cache_index`` it is the continuation at that offset) or "decode"
+    (one new token against the cache).  Returns (out, cache): the cache
+    tree passed in, updated in place (None without one).
+    ``cache``: {"k","v": (B, K, S_max, hd)} (+ "k_scale","v_scale" for
+    the int8 cache).
+    """
+    if xa is not None:
+        raise unported("cross-attention")
+    if bidir:
+        raise unported("bidirectional attention")
+    if local:
+        raise unported("local (sliding-window) attention")
+    B = x.shape[0]
+    H, K, hd = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)[None, :, None, :]
+        k = k + p["bk"].to(x.dtype)[None, :, None, :]
+        v = v + p["bv"].to(x.dtype)[None, :, None, :]
+    use_rope = cfg.rope_theta > 0
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    if mode == "full":
+        offset = 0 if cache_index is None else scalar_index(cache_index)
+        if offset is None:
+            raise ValueError("full mode writes the cache at one offset for "
+                             "all rows; got a per-row cache_index")
+        if cache is not None:
+            # lax.dynamic_update_slice clamps the start into range.
+            S, S_max = k.shape[2], cache["k"].shape[2]
+            start = min(max(offset, 0), S_max - S)
+            if cfg.kv_quant:
+                kq, ks = _kv_quantize(k)
+                vq, vs = _kv_quantize(v)
+                cache["k"][:, :, start:start + S] = kq
+                cache["v"][:, :, start:start + S] = vq
+                cache["k_scale"][:, :, start:start + S] = ks
+                cache["v_scale"][:, :, start:start + S] = vs
+            else:
+                cache["k"][:, :, start:start + S] = k.to(cache["k"].dtype)
+                cache["v"][:, :, start:start + S] = v.to(cache["v"].dtype)
+        # Chunked continuation (speculative verify, prefill into a cache):
+        # queries attend the cached context too, so the KV source becomes
+        # the updated cache; the causal mask (q_pos = offset + i) hides
+        # stale higher positions.
+        continuation = cache is not None and cache_index is not None
+        if continuation:
+            if cfg.kv_quant:
+                kk = (cache["k"].to(COMPUTE_DTYPE)
+                      * cache["k_scale"][..., None].to(COMPUTE_DTYPE))
+                vv = (cache["v"].to(COMPUTE_DTYPE)
+                      * cache["v_scale"][..., None].to(COMPUTE_DTYPE))
+            else:
+                kk, vv = cache["k"], cache["v"]
+            kk, vv = kk.to(q.dtype), vv.to(q.dtype)
+            q_off = offset
+        else:
+            kk, vv, q_off = k, v, 0
+        out = _online_softmax_scan(
+            q, kk, vv, q_offset=q_off,
+            block_kv=_pick_block(kk.shape[2], cfg.attn_block_kv))
+    elif mode == "decode":
+        assert cache is not None
+        S_max = cache["k"].shape[2]
+        ci = scalar_index(cache_index)
+        kv_pos = torch.arange(S_max, device=x.device)
+        if ci is not None:
+            # dynamic_update_slice: one position for all rows, clamped.
+            c = min(max(ci, 0), S_max - 1)
+
+            def write(buf, val):
+                buf[:, :, c] = val[:, :, 0]
+            valid = (kv_pos <= ci)[None, :]
+        else:
+            # (B,) positions: row b writes at ci_b[b] (serving slots whose
+            # lengths diverge).
+            ci_b = torch.as_tensor(cache_index, device=x.device).long()
+            b_idx = torch.arange(B, device=x.device)
+
+            def write(buf, val):
+                buf[b_idx, :, ci_b] = val[:, :, 0]
+            valid = kv_pos[None, :] <= ci_b[:, None]
+        k_scale = v_scale = None
+        if cfg.kv_quant:
+            kq, ks = _kv_quantize(k)
+            vq, vs = _kv_quantize(v)
+            write(cache["k"], kq)
+            write(cache["v"], vq)
+            write(cache["k_scale"], ks)
+            write(cache["v_scale"], vs)
+            k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+        else:
+            write(cache["k"], k.to(cache["k"].dtype))
+            write(cache["v"], v.to(cache["v"].dtype))
+        kk, vv = cache["k"], cache["v"]
+        G = H // K
+        qg = q.reshape(B, K, G, 1, hd)
+        # int8 cache: the per-(b,k,s) scale is constant over hd, so it
+        # folds outside the dots (exact algebra).
+        s = _dot_f32(qg, kk.to(q.dtype)[:, :, None].transpose(-1, -2)) \
+            * (1.0 / math.sqrt(hd))      # "/ sqrt(hd)", compiled as XLA does
+        if k_scale is not None:
+            s = s * k_scale[:, :, None, None, :]
+        s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        if v_scale is not None:
+            pr = pr * v_scale[:, :, None, None, :]
+        out = _dot_f32(pr.to(COMPUTE_DTYPE),
+                       vv.to(COMPUTE_DTYPE)[:, :, None])
+        out = out.reshape(B, H, 1, hd).to(x.dtype)
+    else:
+        raise ValueError(mode)
+
+    y = torch.einsum("bhsk,hkd->bsd", out.to(x.dtype), p["wo"].to(x.dtype))
+    return y, cache
+
+
+def attn_cache_specs(cfg: ModelConfig, batch: int,
+                     seq_len: int) -> Dict[str, P]:
+    K, hd = cfg.padded_kv_heads, cfg.head_dim
+    ax = ("batch", "kv_heads", None, None)
+    if cfg.kv_quant:
+        sax = ("batch", "kv_heads", None)
+        return {
+            "k": P((batch, K, seq_len, hd), ax, "zeros", torch.int8),
+            "v": P((batch, K, seq_len, hd), ax, "zeros", torch.int8),
+            "k_scale": P((batch, K, seq_len), sax, "zeros", torch.float32),
+            "v_scale": P((batch, K, seq_len), sax, "zeros", torch.float32),
+        }
+    return {"k": P((batch, K, seq_len, hd), ax, "zeros", COMPUTE_DTYPE),
+            "v": P((batch, K, seq_len, hd), ax, "zeros", COMPUTE_DTYPE)}
+
+
+def _kv_quantize(x: torch.Tensor):
+    """(B,K,S,hd) -> (int8 values, f32 scale (B,K,S)).  Symmetric per-token
+    per-head scaling; exact dequant is x_q * scale."""
+    x32 = x.float()
+    amax = x32.abs().amax(-1)
+    # The compiled reference divides by the constant as XLA rewrites it, a
+    # multiply by its reciprocal (1 ulp off a true divide at times).
+    scale = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)
+    q = torch.round(x32 / scale[..., None])
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, P]:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "silu":
+        return {"wg": P((d, f), ("embed", "ff")),
+                "wu": P((d, f), ("embed", "ff")),
+                "wd": P((f, d), ("ff", "embed"))}
+    return {"wi": P((d, f), ("embed", "ff")),
+            "bi": P((f,), ("ff",), "zeros"),
+            "wo": P((f, d), ("ff", "embed")),
+            "bo": P((d,), ("embed",), "zeros")}
+
+
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    # XLA expands ``logistic`` into 1 / (1 + exp(-x)), each op rounded to
+    # the operand dtype.
+    return 1 / (1 + torch.exp(-x))
+
+
+# ``jax.nn.gelu``'s tanh form with its constants rounded to bf16, as the
+# reference traces them for bf16 operands: 0.044715 -> 0.044677734375 and
+# sqrt(2 / pi) -> 0.796875 (both exact in bf16, so a python float carries
+# them unchanged).
+_GELU_C3 = 0.044677734375
+_GELU_C = 0.796875
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    cdf = 0.5 * (1.0 + torch.tanh(_GELU_C * (x + _GELU_C3 * (x * x * x))))
+    return x * cdf
+
+
+def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The reference's MLP, op for op in the activation dtype: SwiGLU's
+    ``jax.nn.silu`` is x * logistic(x) and GELU is ``jax.nn.gelu``'s tanh
+    form (its default), so bf16 rounds where the reference's does."""
+    if cfg.act == "silu":
+        h = x @ p["wg"].to(x.dtype)
+        g = h * _logistic(h)
+        u = x @ p["wu"].to(x.dtype)
+        return (g * u) @ p["wd"].to(x.dtype)
+    h = _gelu_tanh(x @ p["wi"].to(x.dtype) + p["bi"].to(x.dtype))
+    return h @ p["wo"].to(x.dtype) + p["bo"].to(x.dtype)

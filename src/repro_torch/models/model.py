@@ -1,0 +1,319 @@
+"""Model assembly (port of ``repro.models.model``): parameter specs, the
+stacked layer layout, and the serving entry points.
+
+The layer stack is organized as repeating *units* (``cfg.block_pattern``):
+every full unit's parameters are stacked along a leading dim
+(``blocks/units/<i>/...``) and any remainder layers sit unrolled under
+``blocks/rest/<i>/...``, the reference's tree leaf for leaf, so JAX's
+``init_params`` tree carries across unchanged
+(``repro_torch.convert.params_from_numpy``).  Where the reference runs the
+units under ``lax.scan``, the port runs a Python loop over the stacked dim.
+Caches are stacked the same way and updated in place.
+
+Entry points: ``init_params`` (-> ``CausalLM``), ``forward``, ``prefill``,
+``decode_step``, ``cache_specs`` and ``init_cache``.  ``loss_fn`` belongs
+to training (ROADMAP item 16c).  The reference's ``constrain`` sharding
+hints are no-ops on one device and are left out (item 14).  Block families
+other than ``attn``, encoder-decoder models and ``input_mode="embeddings"``
+raise ``NotImplementedError`` (item 16b).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+
+from . import layers
+from .config import ModelConfig
+from .layers import COMPUTE_DTYPE, unported
+from .spec import P, initialize, leaves, stack, tree_map
+
+
+# ---------------------------------------------------------------------------
+# Block-level dispatch
+# ---------------------------------------------------------------------------
+
+def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    if kind != "attn":
+        raise unported(f"block kind {kind!r}")
+    return {"ln1": layers.norm_specs(cfg),
+            "attn": layers.attention_specs(cfg),
+            "ln2": layers.norm_specs(cfg),
+            "mlp": layers.mlp_specs(cfg)}
+
+
+def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
+                      seq_len: int) -> Dict[str, Any]:
+    if kind != "attn":
+        raise unported(f"block kind {kind!r}")
+    return {"attn": layers.attn_cache_specs(cfg, batch, seq_len)}
+
+
+def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions, mode: str,
+                cache=None, cache_index=None):
+    """Returns x after the block; ``cache`` (if any) is updated in place."""
+    if kind != "attn":
+        raise unported(f"block kind {kind!r}")
+    h = layers.apply_norm(cfg, p["ln1"], x)
+    a, _ = layers.attention_apply(
+        cfg, p["attn"], h, positions=positions, mode=mode,
+        cache=cache["attn"] if cache else None, cache_index=cache_index)
+    x = x + a
+    h = layers.apply_norm(cfg, p["ln2"], x)
+    return x + layers.mlp_apply(cfg, p["mlp"], h)
+
+
+# ---------------------------------------------------------------------------
+# Stack layout: full units stacked, remainder unrolled
+# ---------------------------------------------------------------------------
+
+def _unit_layout(cfg: ModelConfig,
+                 n_layers: int) -> Tuple[int, Tuple[str, ...]]:
+    unit = cfg.block_pattern
+    n_units = n_layers // len(unit)
+    rest = tuple(cfg.layer_pattern[n_units * len(unit): n_layers])
+    return n_units, rest
+
+
+def _stack_param_specs(cfg: ModelConfig, n_layers: int) -> Dict[str, Any]:
+    n_units, rest = _unit_layout(cfg, n_layers)
+    out: Dict[str, Any] = {}
+    if n_units:
+        out["units"] = stack(n_units, {str(i): block_specs(cfg, kind)
+                                       for i, kind in
+                                       enumerate(cfg.block_pattern)})
+    if rest:
+        out["rest"] = {str(i): block_specs(cfg, kind)
+                       for i, kind in enumerate(rest)}
+    return out
+
+
+def _stack_cache_specs(cfg: ModelConfig, n_layers: int, batch: int,
+                       seq_len: int) -> Dict[str, Any]:
+    n_units, rest = _unit_layout(cfg, n_layers)
+    out: Dict[str, Any] = {}
+    if n_units:
+        out["units"] = stack(n_units, {
+            str(i): block_cache_specs(cfg, kind, batch, seq_len)
+            for i, kind in enumerate(cfg.block_pattern)})
+    if rest:
+        out["rest"] = {str(i): block_cache_specs(cfg, kind, batch, seq_len)
+                       for i, kind in enumerate(rest)}
+    return out
+
+
+def _at(tree, u: int):
+    """Unit ``u`` of a stacked tree: a view of every leaf."""
+    if isinstance(tree, torch.Tensor):
+        return tree[u]
+    return {k: _at(v, u) for k, v in tree.items()}
+
+
+def _apply_stack(cfg: ModelConfig, stack_params, x, *, positions, mode,
+                 caches=None, cache_index=None):
+    pattern = cfg.block_pattern
+    if "units" in stack_params:
+        units = stack_params["units"]
+        n_units = next(leaves(units))[1].shape[0]
+        for u in range(n_units):
+            u_params = _at(units, u)
+            u_cache = _at(caches["units"], u) if caches else None
+            for i, kind in enumerate(pattern):
+                x = block_apply(cfg, kind, u_params[str(i)], x,
+                                positions=positions, mode=mode,
+                                cache=u_cache[str(i)] if u_cache else None,
+                                cache_index=cache_index)
+    if "rest" in stack_params:
+        # Remainder layers continue the pattern from a unit boundary.
+        for i, key in enumerate(sorted(stack_params["rest"], key=int)):
+            x = block_apply(cfg, pattern[i % len(pattern)],
+                            stack_params["rest"][key], x,
+                            positions=positions, mode=mode,
+                            cache=caches["rest"][key] if caches else None,
+                            cache_index=cache_index)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Whole-model specs and parameters
+# ---------------------------------------------------------------------------
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the port cannot build."""
+    if cfg.is_encdec:
+        raise unported(f"{cfg.name}: the encoder-decoder model")
+    if cfg.input_mode != "tokens":
+        raise unported(f"{cfg.name}: input_mode={cfg.input_mode!r}")
+    for kind in cfg.layer_pattern:
+        if kind != "attn":
+            raise unported(f"{cfg.name}: block kind {kind!r}")
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    check_ported(cfg)
+    d, V = cfg.d_model, cfg.padded_vocab
+    out: Dict[str, Any] = {
+        "embed": P((V, d), ("vocab", "embed"), "embed"),
+        "blocks": _stack_param_specs(cfg, cfg.n_layers),
+        "ln_f": layers.norm_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        out["unembed"] = P((d, V), ("embed", "vocab"))
+    if cfg.param_dtype == "bf16":
+        # Serving deployments hold weights in bf16.
+        out = tree_map(lambda s: P(s.shape, s.axes, s.init, torch.bfloat16),
+                       out)
+    return out
+
+
+def _to_param_tree(tree) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        k: (nn.Parameter(v, requires_grad=False)
+            if isinstance(v, torch.Tensor) else _to_param_tree(v))
+        for k, v in tree.items()})
+
+
+class CausalLM(nn.Module):
+    """A decoder-only LM: ``cfg`` plus the reference's parameter tree held
+    as nested ``ParameterDict``s (``params["blocks"]["units"]["0"]
+    ["attn"]["wq"]``, stacked unit dim first).  Serving only: parameters
+    take no gradient."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        self.params = _to_param_tree(tree)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"].device
+
+    def forward(self, batch, *, mode: str = "full", caches=None,
+                cache_index=None):
+        return forward(self.cfg, self, batch, mode=mode, caches=caches,
+                       cache_index=cache_index)
+
+    def prefill(self, batch, caches):
+        return prefill(self.cfg, self, batch, caches)
+
+    def decode_step(self, caches, tokens, cache_index):
+        return decode_step(self.cfg, self, caches, tokens, cache_index)
+
+    def init_cache(self, batch: int, seq_len: int):
+        return init_cache(self.cfg, batch, seq_len, device=self.device)
+
+
+Params = Union[CausalLM, Dict[str, Any]]
+
+
+def _tree(params: Params):
+    return params.params if isinstance(params, CausalLM) else params
+
+
+def _generator(generator: Union[int, torch.Generator],
+               device: torch.device) -> torch.Generator:
+    if isinstance(generator, torch.Generator):
+        return generator
+    return torch.Generator(device=device).manual_seed(int(generator))
+
+
+def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
+                device: DeviceLike = None) -> CausalLM:
+    """Seeded random parameters on ``device`` (``None``: the card).
+    ``generator`` is a seed or a ``torch.Generator`` on that device."""
+    dev = resolve_device(device)
+    with torch.no_grad():
+        tree = initialize(param_specs(cfg), _generator(generator, dev), dev)
+    return CausalLM(cfg, tree)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _positions(cache_index, B: int, S: int, device) -> torch.Tensor:
+    steps = torch.arange(S, device=device)
+    if cache_index is None:
+        return steps[None].expand(B, S)
+    ci = layers.scalar_index(cache_index)
+    if ci is not None:
+        return (ci + steps)[None].expand(B, S)
+    # Per-row cache positions (serving slots at diverging lengths).
+    return cache_index[:, None] + steps[None, :]
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
+            mode: str = "full", caches=None, cache_index=None):
+    """Returns (logits f32 (B, S, V), caches, aux).  ``caches`` is the
+    tree passed in, updated in place (None without one); ``aux`` is 0.0
+    (dense blocks have no auxiliary loss)."""
+    p = _tree(params)
+    embed = p["embed"]
+    dev = embed.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    B, S = tokens.shape
+    x = embed[tokens].to(COMPUTE_DTYPE)
+    if cache_index is not None and layers.scalar_index(cache_index) is None:
+        if caches is not None and not isinstance(cache_index, torch.Tensor):
+            # Host positions are checked before upload: the reference
+            # drops a write past the cache, the port refuses it.
+            s_max = next(leaves(caches))[1].shape[-2]
+            if not all(0 <= int(c) < s_max for c in cache_index):
+                raise ValueError(f"per-row cache_index "
+                                 f"{[int(c) for c in cache_index]} "
+                                 f"outside the cache's {s_max} positions")
+        cache_index = torch.as_tensor(cache_index, device=dev).long()
+    positions = _positions(cache_index, B, S, dev)
+    x = _apply_stack(cfg, p["blocks"], x, positions=positions, mode=mode,
+                     caches=caches, cache_index=cache_index)
+    x = layers.apply_norm(cfg, p["ln_f"], x)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, embed.to(x.dtype))
+    else:
+        logits = x @ p["unembed"].to(x.dtype)
+    return logits.float(), caches, 0.0
+
+
+# ---------------------------------------------------------------------------
+# Caches / serving entry points
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
+    check_ported(cfg)
+    return _stack_cache_specs(cfg, cfg.n_layers, batch, seq_len)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device: DeviceLike = None) -> Dict[str, Any]:
+    """Zeroed cache tree on ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    # Zeros draw nothing from the generator.
+    return initialize(cache_specs(cfg, batch, seq_len), None, dev)
+
+
+def prefill(cfg: ModelConfig, params: Params, batch, caches):
+    """Full-sequence forward that fills the decode cache; returns
+    (last_logits (B, V), caches)."""
+    logits, caches, _ = forward(cfg, params, batch, mode="full",
+                                caches=caches, cache_index=0)
+    return logits[:, -1], caches
+
+
+def decode_step(cfg: ModelConfig, params: Params, caches, tokens,
+                cache_index):
+    """One decode step: tokens (B, 1) -> (logits (B, V), caches).
+
+    ``cache_index`` is a scalar (all rows at the same position) or a (B,)
+    vector of per-row positions; each row's KV is written at its own
+    position either way.
+    """
+    logits, caches, _ = forward(cfg, params, {"tokens": tokens},
+                                mode="decode", caches=caches,
+                                cache_index=cache_index)
+    return logits[:, -1], caches

@@ -438,6 +438,34 @@ def test_autotune_on_the_cpu_fits_every_kernel(monkeypatch):
     assert all(len(table.samples[k]) == 2 for k in tcal.KERNELS)
 
 
+def test_autotune_takes_its_readings_in_rounds_over_the_grid(monkeypatch):
+    """Each point is called once to warm up and then once a round, every
+    point in every round; its sample is the least of its readings."""
+    monkeypatch.setattr(tcal, "FAST_GRID",
+                        {k: [v, v] for k, v in TINY.items()})
+    points = [(k, i) for k in tcal.KERNELS for i in range(2)]
+    made, calls, now = [], [], [0.0]
+
+    def fake_call(kernel, shape, dev):
+        key = points[len(made)]
+        made.append(key)
+
+        def fn():
+            # Round r's reading of point j lasts 1 + (j + r) % 3 seconds,
+            # so only the least of three rounds is 1 for every point.
+            r = calls.count(key) - 1
+            calls.append(key)
+            now[0] += 1.0 + (points.index(key) + r) % 3
+        return fn, 1e-6
+
+    monkeypatch.setattr(tcal, "_build_call", fake_call)
+    monkeypatch.setattr(tcal.time, "perf_counter", lambda: now[0])
+    table = tcal.autotune(fast=True, device="cpu", repeats=3)
+    assert calls == points * 4          # the warm-up, then three rounds
+    for k in tcal.KERNELS:
+        assert [s["measured_s"] for s in table.samples[k]] == [1.0, 1.0]
+
+
 def test_engine_records_feedback_and_replans():
     """A calibrated engine records runtimes; a bucket priced far below
     what the CPU takes is re-priced, and the compiled query re-plans onto

@@ -52,7 +52,11 @@ def test_imports_with_jax_blocked():
     "repro_torch.launch.serve", "repro_torch.data.dedup",
     "repro_torch.match.calibrate", "repro_torch.obs.lint_spans",
     "repro_torch.core.array", "repro_torch.core.matcher",
-    "repro_torch.core.costmodel", "repro_torch.kernels.cram_array"])
+    "repro_torch.core.costmodel", "repro_torch.kernels.cram_array",
+    "repro_torch.models.config", "repro_torch.models.spec",
+    "repro_torch.models.layers", "repro_torch.models.model",
+    "repro_torch.configs", "repro_torch.serving.ngram_cache",
+    "repro_torch.serving.engine", "repro_torch.serving.speculative"])
 def test_slice_modules_import_with_jax_blocked(module):
     code = (
         "import sys, importlib\n"
@@ -98,7 +102,13 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
     from repro_torch.match import calibrate
     from repro_torch.core.array import CRAMArray
     from repro_torch.core.matcher import Matcher
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serving.ngram_cache import NgramSpeculator
     frags = np.zeros((8, 16), np.uint8)
+    lm_cfg = get_config("llama3.2-1b", smoke=True)
+    lm_tree = {k.removeprefix("params."): v.numpy() for k, v in
+               model.init_params(lm_cfg, 0, device="cpu").state_dict().items()}
     calls = [lambda: resolve_device(),
              lambda: resolve_device("cuda"),
              lambda: PackedCorpus(frags),
@@ -121,13 +131,30 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
              lambda: calibrate.bench_provenance(),
              lambda: calibrate.device_kind(),
              lambda: CRAMArray(8, 16),
-             lambda: Matcher(frags, 4)]
+             lambda: Matcher(frags, 4),
+             lambda: model.init_params(lm_cfg),
+             lambda: model.init_cache(lm_cfg, 1, 8),
+             lambda: NgramSpeculator(),
+             lambda: convert.params_from_numpy(lm_cfg, _nest(lm_tree)),
+             lambda: serve.main(["--workload", "lm"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # Named CPU runs the plain versions.
     assert resolve_device("cpu").type == "cpu"
     assert MatchEngine(frags, device="cpu").device.type == "cpu"
+
+
+def _nest(flat):
+    """{"a.b": x} -> {"a": {"b": x}} (a state dict as the reference's tree)."""
+    out = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split(".")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
 
 
 def test_engine_adopts_the_corpus_device_and_refuses_the_index():
