@@ -117,20 +117,32 @@ printing its wall time beside the card's name and power limit:
    launch's first op alone and its write-back alone, and the byte form
    timed on the same state.  The bit-sliced kernel's count of staged
    bytes above 1 must read 0.
-10. LM serving through the port's entry points: llama3.2-1b at its full
-   width, (l1) f32 weights and (l2) its serving deployment (bf16
-   weights, int8 KV cache, 16 KV heads), seeded on the card; for each,
-   prefill + decode against the full forward, the speculative verify
-   window against token-by-token decode (logits within 3e-2 as relative
-   L2 error, argmax equal unless a near-tie), the card against the CPU
-   at 2 layers, ``generate_greedy`` over 4 prompts of 128 tokens, the
-   slot ``Engine`` over 8 requests in 4 slots and the
-   ``SpeculativeDecoder`` on a motif prompt, each stream equal to
-   ``generate_greedy``'s under the margin rule, ``match_swar`` launched
-   by the speculator (one ``propose``'s launch held against its plain
-   version and a numpy brute force); prefill and decode-step ms beside
-   the step's bound, the profiled step's device-busy share, tokens/s,
-   tokens per model call, ms a ``propose`` and peak memory.
+10. LM serving through the port's entry points, seeded on the card at
+   full width: llama3.2-1b, (l1) f32 weights and (l2) its serving
+   deployment (bf16 weights, int8 KV cache, 16 KV heads); (m)
+   olmoe-1b-7b's serving deployment (64 experts top-8, bf16 weights,
+   int8 KV cache) and (r) recurrentgemma-9b's (RG-LRU and local
+   attention, block-diagonal gates, f32 weights).  For each: the card
+   against the CPU at the config's width and reduced depth,
+   ``generate_greedy`` over 4 prompts of 128 tokens, the slot ``Engine``
+   and the ``SpeculativeDecoder`` on a motif prompt, ``match_swar``
+   launched by the speculator (one ``propose``'s launch held against its
+   plain version and a numpy brute force); prefill and decode-step ms
+   beside the step's bound, the profiled step's device-busy share and
+   kernels, tokens/s, tokens per model call, ms a ``propose`` and peak
+   memory.  Logits are held within 3e-2 as relative L2 error with argmax
+   equal unless a near-tie, streams under the margin rule, each against
+   what the reference's semantics make equal (``lm_serve_config``):
+   (l1)/(l2) prefill + decode and the verify window against the full
+   forward and token-by-token decode, every stream against
+   ``generate_greedy``; (m) the same forward checks where no call dropped
+   an MoE assignment (the drops printed), the Engine against a
+   ``decode_step`` loop, the speculator against ``generate_greedy`` when
+   its verifies dropped nothing, ``moe_route`` card against CPU integer
+   for integer; (r) a 4,096-token block-local forward against the
+   windowed prefill and decode past the window, the Engine against the
+   same Engine on the CPU at 3 layers, the speculator up to its first
+   rejecting verify.
 11. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
    (``match_swar``'s launches count phase 10's), the script's wall time,
    the card's name and power limit, and ``{"ok": true, "device":
@@ -256,6 +268,22 @@ LM_MOTIF, LM_SPEC_NEW, LM_SPEC_K = 16, 128, 4
 LM_CHECK_STEPS = 4           # decode steps held against the full forward
 LM_TIMED_STEPS = 16          # decode steps timed at LM_SLOTS slots
 LM_RTOL = LM_ATOL = 3e-2     # the reference's bf16 logit tolerance
+# (m) olmoe-1b-7b and (r) recurrentgemma-9b, each as the repo's serving
+# deployment of it, at full width: the Engine serves LM_MR_REQUESTS
+# requests of LM_MIN_PROMPT..2 * LM_MIN_PROMPT tokens, LM_MR_NEW new each
+# (fewer than (l1)/(l2)'s: their streams are held against a decode loop or
+# not at all, and their steps take more launches).  (r) also runs a
+# cacheless forward of LM_LONG tokens (two local windows: the block-local
+# path) held on its last LM_LONG_TAIL + 1 positions against the windowed
+# scan and against decode past the window, and its Engine at reduced
+# depth on the card and on the CPU: LM_CPU_REQUESTS requests of
+# LM_CPU_PROMPT tokens (a range), LM_CPU_NEW new each, in LM_CPU_SLOTS
+# slots, so that one is admitted beside a running one (a CPU decode call
+# at that width takes ~1-2 s: most of it the 256,000-id tied embedding).
+LM_MOE_ARCH, LM_HYBRID_ARCH = "olmoe-1b-7b", "recurrentgemma-9b"
+LM_MR_REQUESTS, LM_MR_NEW = 6, 16
+LM_LONG, LM_LONG_TAIL = 4096, 4
+LM_CPU_REQUESTS, LM_CPU_PROMPT, LM_CPU_NEW, LM_CPU_SLOTS = 3, (2, 4), 3, 2
 
 
 def check(cond: bool, what: str) -> None:
@@ -1197,6 +1225,25 @@ def cram_phase(frags_chr1, read, planted, *, zero_counts, read_counts,
                   "cram_execute_bytes": launches_bytes}, info
 
 
+def lm_errors(got, want) -> dict:
+    """``got`` against ``want`` (..., V) logits: max abs and relative L2
+    error, the share of elements past 3e-2 elementwise, and the rows whose
+    argmax differs (``differ``) and whose ``want`` top-1/top-2 margin is
+    under the elementwise tolerance (``near``)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    diff = got - want
+    top2 = want.reshape(-1, want.shape[-1]).topk(2, -1).values
+    near = (top2[:, 0] - top2[:, 1]) < LM_ATOL + LM_RTOL * top2[:, 0].abs()
+    differ = (got.reshape(near.shape[0], -1).argmax(-1)
+              != want.reshape(near.shape[0], -1).argmax(-1))
+    return {"max_abs": float(diff.abs().max()),
+            "rel_l2": float(diff.norm() / want.norm()),
+            "frac_outside_elementwise": float(
+                (diff.abs() > LM_ATOL + LM_RTOL * want.abs()).float().mean()),
+            "argmax_near_ties": int(differ.sum()),
+            "argmax_past_margin": int((differ & ~near).sum())}
+
+
 def lm_close(got, want, what: str) -> dict:
     """``got`` against ``want`` (..., V) logits at the reference's bf16
     tolerance, 3e-2, taken over the whole tensor: the relative L2 error
@@ -1206,33 +1253,92 @@ def lm_close(got, want, what: str) -> dict:
     logits a row, two bf16 paths of the same function differ past it at
     a few elements (the reference's own paths do so on its smoke
     configs)."""
-    import torch
-    got, want = got.float().cpu(), want.float().cpu()
-    diff = got - want
-    rel = float(diff.norm() / want.norm())
-    outside = float((diff.abs() > LM_ATOL + LM_RTOL * want.abs())
-                    .float().mean())
-    top2 = want.reshape(-1, want.shape[-1]).topk(2, -1).values
-    near = (top2[:, 0] - top2[:, 1]) < LM_ATOL + LM_RTOL * top2[:, 0].abs()
-    differ = (got.reshape(near.shape[0], -1).argmax(-1)
-              != want.reshape(near.shape[0], -1).argmax(-1))
-    out = {"max_abs": float(diff.abs().max()), "rel_l2": rel,
-           "frac_outside_elementwise": outside,
-           "argmax_near_ties": int(differ.sum())}
-    check(rel <= LM_RTOL, f"{what}: relative L2 error {rel:.4f} past "
-          f"{LM_RTOL} ({out})")
-    check(not bool((differ & ~near).any()), f"{what}: argmax differs "
-          f"where the margin is past the tolerance ({out})")
+    out = lm_errors(got, want)
+    check(out["rel_l2"] <= LM_RTOL, f"{what}: relative L2 error "
+          f"{out['rel_l2']:.4f} past {LM_RTOL} ({out})")
+    check(not out["argmax_past_margin"], f"{what}: argmax differs where "
+          f"the margin is past the tolerance ({out})")
     return out
 
 
-def lm_same_greedy(lm, prompt, want, got, what: str) -> bool:
-    """Greedy streams equal token for token; where they differ, the
-    margin rule: the top-1/top-2 logit margin of ``want``'s context at the
-    first differing step (the full forward on the same card) must be
-    under the logit tolerance, and the tie is printed.  True when equal."""
-    import numpy as np
+def lm_compare(out, key: str, got, want, what: str, dropped: int) -> None:
+    """``out[key]`` = ``lm_close`` of the comparison when none of its calls
+    dropped an MoE assignment (it is held: ``what`` joins ``out["held"]``);
+    else the reference's capacity semantics make the two sides different
+    functions, and the errors are recorded, not checked."""
+    if dropped:
+        out[key] = dict(lm_errors(got, want), held=False, dropped=dropped)
+        print(f"  {what}: not held, {dropped} assignments dropped")
+    else:
+        out[key] = dict(lm_close(got, want, what), held=True)
+        out["held"].append(what)
+
+
+class MoEDrops:
+    """While open, counts the assignments ``layers.moe_route`` drops (a
+    wrapper over it, looked up by ``moe_apply`` at each call); ``dropped``
+    holds the count once closed, 0 where no MoE layer ran.  With
+    ``keep_gates`` it also keeps every call's gates."""
+
+    def __init__(self, keep_gates: bool = False):
+        self.keep_gates, self.gates, self._n = keep_gates, [], []
+        self.dropped = None
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.route = layers, layers.moe_route
+
+        def counting(cfg, gates):
+            r = self.route(cfg, gates)
+            self._n.append((~r.keep).sum())
+            if self.keep_gates:
+                self.gates.append(gates)
+            return r
+        layers.moe_route = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.route
+        self.dropped = sum(int(n) for n in self._n)
+        return False
+
+
+class Calls:
+    """While open, counts the calls of ``module.name`` (a wrapper over it,
+    looked up at each call): ``n``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def counting(*args, **kw):
+            self.n += 1
+            return self.fn(*args, **kw)
+        setattr(self.module, self.name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+
+def lm_top2(logits):
+    """(top-1, top-2) values of one row of logits, as floats."""
     import torch
+    t = torch.topk(logits.float().reshape(-1), 2).values.cpu()
+    return float(t[0]), float(t[1])
+
+
+def lm_same_greedy(lm, prompt, want, got, what: str, top2_at=None) -> bool:
+    """Greedy streams equal token for token; where they differ, the
+    margin rule: the top-1/top-2 logit margin behind ``want``'s token at
+    the first differing step must be under the logit tolerance, and the
+    tie is printed.  ``top2_at(i)`` gives that step's (top-1, top-2)
+    logits as ``want``'s own run computed them; by default the full
+    forward over ``want``'s context on the same card.  True when equal."""
+    import numpy as np
     want, got = np.asarray(want).reshape(-1), np.asarray(got).reshape(-1)
     n = min(len(want), len(got))
     diff = np.flatnonzero(want[:n] != got[:n])
@@ -1240,16 +1346,554 @@ def lm_same_greedy(lm, prompt, want, got, what: str) -> bool:
         check(len(want) == len(got), f"{what}: stream lengths")
         return True
     i = int(diff[0])
-    ctx = np.concatenate([np.asarray(prompt).reshape(-1), want[:i]])[None]
-    logits, _, _ = lm.forward({"tokens": ctx})
-    top2 = torch.topk(logits[0, -1].float(), 2).values.cpu()
-    margin = float(top2[0] - top2[1])
-    tol = LM_ATOL + LM_RTOL * abs(float(top2[0]))
+    if top2_at is None:
+        ctx = np.concatenate([np.asarray(prompt).reshape(-1), want[:i]])
+        top1, top2 = lm_top2(lm.forward({"tokens": ctx[None]})[0][0, -1])
+    else:
+        top1, top2 = top2_at(i)
+    margin = top1 - top2
+    tol = LM_ATOL + LM_RTOL * abs(top1)
     check(margin < tol, f"{what}: streams differ at step {i} with a "
           f"top-1/top-2 margin of {margin:.4f} past {tol:.4f}")
     print(f"  {what}: near-tie at step {i} (margin {margin:.4f} < "
           f"{tol:.4f}): {want[i]} vs {got[i]}; rest not compared")
     return False
+
+
+def lm_greedy_top2(lm, prompt, want, max_seq: int):
+    """``top2_at`` for a stream of ``generate_greedy``: step i's logits
+    recomputed by its own calls (prefill, then ``want``'s first i tokens
+    decoded)."""
+    import numpy as np
+
+    def top2_at(i):
+        caches = lm.init_cache(1, max_seq)
+        logits, _ = lm.prefill({"tokens": np.asarray(prompt)[None]}, caches)
+        for t in range(i):
+            logits, _ = lm.decode_step(caches, np.array([[want[t]]]),
+                                       len(prompt) + t)
+        return lm_top2(logits[0])
+    return top2_at
+
+
+def lm_decode_greedy(lm, prompt, max_new: int, max_seq: int):
+    """A greedy continuation of one prompt by ``decode_step`` alone (the
+    prompt fed token by token, as the slot ``Engine`` admits it): (tokens,
+    each step's (top-1, top-2) logits)."""
+    import numpy as np
+    import torch
+    caches = lm.init_cache(1, max_seq)
+    for t, tok in enumerate(prompt):
+        logits, _ = lm.decode_step(caches, np.array([[tok]]), t)
+    out, top2 = [], []
+    for t in range(max_new):
+        top2.append(lm_top2(logits[0]))
+        out.append(int(torch.argmax(logits[0])))
+        if t + 1 < max_new:
+            logits, _ = lm.decode_step(caches, np.array([[out[-1]]]),
+                                       len(prompt) + t)
+    return out, top2
+
+
+def lm_engine_run(lm, cfg, prompts, max_new: int, n_slots: int, sync,
+                  record: bool = False):
+    """The slot ``Engine`` over ``prompts``: (requests, decode calls, wall
+    s, each request's (top-1, top-2) logits step by step when
+    ``record``: the first token's from its admission, the rest from the
+    sampler's rows of the slots active at that step)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import Engine, Request
+    reqs = [Request(prompt=p, max_new=max_new) for p in prompts]
+    top2 = {}
+
+    def sampler(logits):
+        if record:
+            t = torch.topk(logits.float(), 2, -1).values.cpu()
+            for i, r in enumerate(eng.slot_req):
+                if r is not None and not r.done:
+                    top2.setdefault(id(r), []).append(
+                        (float(t[i, 0]), float(t[i, 1])))
+        return torch.argmax(logits, -1)
+    eng = Engine(cfg, lm, max_seq=LM_MAX_SEQ, n_slots=n_slots,
+                 sampler=sampler)
+    decode, n_calls = eng._decode, [0]
+
+    def counted(toks_):
+        n_calls[0] += 1
+        return decode(toks_)
+    eng._decode = counted
+    sync()
+    t = time.perf_counter()
+    eng.run(list(reqs))
+    sync()
+    wall = time.perf_counter() - t
+    for r in reqs:
+        check(len(r.out) == max_new and r.done, f"{cfg.name} request")
+    steps = [[tuple(np.sort(np.asarray(r._last_logits, np.float32))[::-1][:2]
+                    .tolist())] + top2.get(id(r), []) for r in reqs]
+    return reqs, n_calls[0], wall, steps if record else None
+
+
+def lm_forward_checks(lm, cfg, label, toks, out) -> None:
+    """Prefill + decode against the full forward (the int8 cache's own
+    full forward where ``kv_quant`` is on), and the continuation (the
+    speculative verify) against token-by-token decode.  MoE configs run
+    the rows one at a time, so that B*S stays under the group size, and a
+    comparison is held only where neither side dropped an assignment."""
+    import torch
+    P, S = toks.shape[0], LM_PROMPT_LEN
+    moe = cfg.family == "moe"
+    rows = [toks[i:i + 1] for i in range(P)] if moe else [toks]
+    got, want, plain = [], [], []
+    drops = {"prefill": 0, "decode": 0, "forward": 0}
+    for x in rows:
+        caches = lm.init_cache(x.shape[0], LM_MAX_SEQ)
+        with MoEDrops(keep_gates=moe and not got) as d:
+            last, caches = lm.prefill({"tokens": x[:, :S]}, caches)
+        drops["prefill"] += d.dropped
+        if d.gates:
+            out.update(lm_route_check(cfg, d.gates))
+        steps = [last]
+        with MoEDrops() as d:
+            for t in range(S, S + LM_CHECK_STEPS - 1):
+                logits, caches = lm.decode_step(caches, x[:, t:t + 1], t)
+                steps.append(logits)
+        drops["decode"] += d.dropped
+        got.append(torch.stack(steps, 1))
+        with MoEDrops() as d:
+            if cfg.kv_quant:
+                full, _, _ = lm.forward({"tokens": x[:, :-1]},
+                                        caches=lm.init_cache(x.shape[0],
+                                                             LM_MAX_SEQ),
+                                        cache_index=0)
+            else:
+                full, _, _ = lm.forward({"tokens": x[:, :-1]})
+        drops["forward"] += d.dropped
+        want.append(full[:, S - 1:])
+        if cfg.kv_quant:
+            plain.append(lm.forward({"tokens": x[:, :-1]})[0][:, S - 1:])
+        del full
+    got, want = torch.cat(got), torch.cat(want)
+    if plain:
+        out["err_vs_bf16_forward"] = float(
+            (got - torch.cat(plain)).abs().max())
+    lm_compare(out, "err_prefill_decode", got, want,
+               f"{label} prefill + decode vs forward",
+               drops["prefill"] + drops["decode"] + drops["forward"])
+
+    # -- the continuation (verify) against token-by-token decode -------
+    prompts = toks[:, :S]
+    window = toks[:1, S:S + LM_CHECK_STEPS]
+    c1 = lm.init_cache(1, LM_MAX_SEQ)
+    lm.prefill({"tokens": prompts[:1]}, c1)
+    with MoEDrops() as d:
+        win, _, _ = lm.forward({"tokens": window}, caches=c1, cache_index=S)
+    drops["verify"] = d.dropped
+    c2 = lm.init_cache(1, LM_MAX_SEQ)
+    lm.prefill({"tokens": prompts[:1]}, c2)
+    with MoEDrops() as d:
+        steps = [lm.decode_step(c2, window[:, i:i + 1], S + i)[0]
+                 for i in range(LM_CHECK_STEPS)]
+    drops["verify_decode"] = d.dropped
+    lm_compare(out, "err_verify", win[0], torch.cat(steps, 0),
+               f"{label} verify vs decode",
+               drops["verify"] + drops["verify_decode"])
+    if moe:
+        out["moe_drops"] = drops
+
+
+def lm_route_check(cfg, gates) -> dict:
+    """``moe_route`` on the card against the same function on the CPU, on
+    the same f32 gates (every layer's of one prefill): experts, capacity
+    positions and the keep mask integer for integer, the renormalized
+    gates within 1e-6; with the count of tokens whose top k + 1 gates
+    hold a tie."""
+    import torch
+
+    from repro_torch.models import layers
+    g = torch.cat(gates, 0)
+    card, cpu = layers.moe_route(cfg, g), layers.moe_route(cfg, g.cpu())
+    check(card.C == cpu.C and all(
+        torch.equal(getattr(card, n).cpu(), getattr(cpu, n))
+        for n in ("idx", "pos", "keep")),
+        f"{cfg.name}: moe_route on the card equals the CPU's")
+    err = float((card.probs.cpu() - cpu.probs).abs().max())
+    check(err <= 1e-6, f"{cfg.name}: moe_route's gates, card vs CPU {err}")
+    top = torch.sort(g, -1, descending=True).values[..., :cfg.top_k + 1]
+    return {"route_assignments": int(cpu.idx.numel()), "route_C": cpu.C,
+            "route_dropped": int((~cpu.keep).sum()),
+            "route_ties": int((top[..., 1:] == top[..., :-1]).any(-1).sum()),
+            "route_probs_err": err}
+
+
+def lm_window_checks(lm, cfg, label, rng, out) -> None:
+    """Local attention at a length of LM_LONG tokens: the cacheless
+    forward (block-local: the window divides the length) against the same
+    tokens through a cache (the windowed scan) on the last positions, and
+    a prefill then decode steps past the window against the forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers
+    n, tail, w = LM_LONG, LM_LONG_TAIL, cfg.local_window
+    check(n % w == 0 and n >= 2 * w, f"{label}: {n} tokens span whole "
+          f"windows of {w}")
+    x = rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+    with Calls(layers, "_local_block_attention") as blocks:
+        full = lm.forward({"tokens": x})[0][:, n - tail - 1:].clone()
+    with Calls(layers, "_online_softmax_scan") as scans:
+        scan = lm.forward({"tokens": x}, caches=lm.init_cache(1, n),
+                          cache_index=0)[0][:, n - tail - 1:]
+    n_local = sum(k == "local_attn" for k in cfg.layer_pattern)
+    check(blocks.n == n_local and scans.n == n_local,
+          f"{label}: block-local calls {blocks.n}, windowed scans "
+          f"{scans.n}, local layers {n_local}")
+    out["err_block_local_vs_scan"] = lm_close(
+        scan, full, f"{label} block-local forward vs windowed prefill")
+    caches = lm.init_cache(1, n)
+    last, caches = lm.prefill({"tokens": x[:, :n - tail]}, caches)
+    steps = [last] + [lm.decode_step(caches, x[:, t:t + 1], t)[0]
+                      for t in range(n - tail, n)]
+    out["err_decode_past_window"] = lm_close(
+        torch.stack(steps, 1)[0], full[0],
+        f"{label} decode past the window vs forward")
+    out["held"] += [f"{label} block-local forward vs windowed prefill",
+                    f"{label} decode past the window vs forward"]
+    out["window_calls"] = {"block_local": blocks.n, "scan": scans.n}
+
+
+def lm_phase(configs, *, zero_counts, read_counts, sync, device="cuda",
+             profile_step=True):
+    """Phase 10: LM serving through the port's entry points, for each
+    ``(label, cfg)`` of ``configs``: seeded weights on ``device``, the
+    checks of ``lm_serve_config``, and what it measured.  Returns
+    (match_swar launches of the speculators' runs, info)."""
+    spec_launches, info = 0, {}
+    for label, cfg in configs:
+        n, info[label] = lm_serve_config(
+            label, cfg, zero_counts=zero_counts, read_counts=read_counts,
+            sync=sync, device=device, profile_step=profile_step)
+        spec_launches += n
+    return spec_launches, info
+
+
+def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
+                    profile_step):
+    """Phase 10 for one config: (match_swar launches of its speculator,
+    what it measured).  Everything it allocates is freed on return.
+
+    Every config: prefill and decode-step time at LM_PROMPTS slots (and a
+    profiled step), ``generate_greedy``, the slot ``Engine``, the
+    ``SpeculativeDecoder`` on a motif prompt (one ``propose``'s
+    ``match_swar`` launch against its plain version and its proposal
+    against a numpy brute force; the ``match_swar`` counter above 0), and
+    the card's logits against the same port code on the CPU at the
+    config's width and reduced depth.  What each stream and each forward
+    is held against follows the reference's semantics:
+
+    * dense: prefill + decode against the full forward (the int8 cache's
+      own full forward where ``kv_quant`` is on, since the int8 cache is
+      lossy against a forward that keeps K/V in bf16), the continuation
+      (the verify) against token-by-token decode, every Engine stream and
+      the speculative stream against ``generate_greedy`` under the margin
+      rule;
+    * MoE: per-group capacity makes calls that dropped an assignment
+      different functions, so a comparison is held only where none of
+      its calls dropped one (drops counted by a wrapper over
+      ``moe_route``, printed); the Engine (at most LM_SLOTS tokens a call:
+      no drop) against a greedy loop of ``decode_step`` alone (no drop
+      either); ``moe_route`` on the card against the CPU on one prefill's
+      gates;
+    * hybrid (local attention and RG-LRU): the block-local forward
+      against the windowed prefill and decode past the window
+      (``lm_window_checks``); the Engine driven and timed, its streams
+      held on the card against the same Engine on the CPU at reduced
+      depth, since the reference's Engine steps every slot's recurrent
+      state on its neighbours' admissions; the speculative stream against
+      ``generate_greedy`` up to the first verify that rejected a proposal
+      (which leaves the rejected tokens in the recurrent state)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as lmm
+    from repro_torch.models.spec import leaves
+    from repro_torch.serving.engine import generate_greedy
+    from repro_torch.serving.speculative import SpeculativeDecoder
+
+    moe, hybrid = cfg.family == "moe", cfg.family == "hybrid"
+    cuda = torch.device(device).type == "cuda"
+    t_cfg = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    out = {"config": cfg.name, "family": cfg.family,
+           "kv_quant": cfg.kv_quant, "param_dtype": cfg.param_dtype,
+           "kv_heads": cfg.padded_kv_heads, "held": []}
+    lm = lmm.init_params(cfg, SEED, device)
+    sync()
+    out["n_params"] = sum(p.numel() for p in lm.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    out["weight_bytes"] = w_bytes
+    out["init_s"] = time.perf_counter() - t_cfg
+    rng = np.random.default_rng(SEED)
+    P, S = LM_PROMPTS, LM_PROMPT_LEN
+    toks = rng.integers(0, cfg.vocab, (P, S + LM_CHECK_STEPS),
+                        dtype=np.int32)
+    prompts = toks[:, :S]
+
+    # -- checks against the full forward ---------------------------------
+    if hybrid:
+        lm_window_checks(lm, cfg, label, rng, out)
+    else:
+        lm_forward_checks(lm, cfg, label, toks, out)
+
+    # -- prefill and decode-step time at LM_SLOTS slots ------------------
+    times = []
+    for _ in range(3):
+        c = lm.init_cache(P, LM_MAX_SEQ)
+        sync()
+        t = time.perf_counter()
+        lm.prefill({"tokens": prompts}, c)
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    out["prefill_ms"] = min(times)
+    out["prefill_ms_runs"] = times
+    pos = np.full(P, S, np.int32)
+    tok1 = toks[:, S:S + 1]
+    lm.decode_step(c, tok1, pos)
+    sync()
+    t = time.perf_counter()
+    for _ in range(LM_TIMED_STEPS):
+        lm.decode_step(c, tok1, pos)
+    sync()
+    step_ms = (time.perf_counter() - t) * 1e3 / LM_TIMED_STEPS
+    out["decode_step_ms"] = step_ms
+    out["decode_tok_s"] = P / step_ms * 1e3
+    kv_bytes = sum(x.numel() * x.element_size() for _, x in leaves(c))
+    out["kv_bytes"] = kv_bytes
+    out["step_bound_ms"] = (w_bytes + kv_bytes) / HBM_BW * 1e3
+    if profile_step:
+        wall, busy, n_kern, top = lm_step_profile(lm, c, tok1, pos, sync)
+        out.update(profiled_step_ms=wall, device_busy_ms=busy,
+                   device_busy_share=busy / wall,
+                   kernels_per_step=n_kern,
+                   top_kernels=[[name[:60], round(ms, 4), n]
+                                for name, (ms, n) in top])
+    del c
+
+    # -- generate_greedy --------------------------------------------------
+    sync()
+    t = time.perf_counter()
+    gg = generate_greedy(cfg, lm, prompts, max_new=LM_MAX_NEW,
+                         max_seq=LM_MAX_SEQ)
+    out["generate_s"] = time.perf_counter() - t
+    check(gg.shape == (P, LM_MAX_NEW) and (gg >= 0).all()
+          and (gg < cfg.padded_vocab).all(), f"{label} generate_greedy")
+
+    # -- the slot engine ------------------------------------------------
+    if moe or hybrid:
+        lens = rng.integers(LM_MIN_PROMPT, 2 * LM_MIN_PROMPT + 1,
+                            LM_MR_REQUESTS)
+        max_new = LM_MR_NEW
+    else:
+        lens = rng.integers(LM_MIN_PROMPT, S + 1, LM_REQUESTS)
+        lens[:2] = (LM_MIN_PROMPT, S)
+        max_new = LM_MAX_NEW
+    eng_prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+                   for n in lens]
+    with MoEDrops() as d:
+        reqs, n_calls, out["engine_s"], _ = lm_engine_run(
+            lm, cfg, eng_prompts, max_new, LM_SLOTS, sync)
+    out["engine_tokens"] = sum(len(r.out) for r in reqs)
+    out["engine_decode_calls"] = n_calls
+    ties = 0
+    if moe:
+        with MoEDrops() as d_ref:
+            for r in reqs:
+                ref, top2 = lm_decode_greedy(lm, r.prompt, max_new,
+                                             LM_MAX_SEQ)
+                ties += not lm_same_greedy(lm, r.prompt, ref, r.out,
+                                           f"{label} engine",
+                                           top2_at=top2.__getitem__)
+        out["moe_drops"].update(engine=d.dropped, decode_loop=d_ref.dropped)
+        check(d.dropped == d_ref.dropped == 0, f"{label}: the Engine and "
+              "the decode loop drop nothing")
+        out["held"].append(f"{label} engine vs decode loop")
+    elif not hybrid:
+        for r in reqs:
+            ref = generate_greedy(cfg, lm, r.prompt[None], max_new=max_new,
+                                  max_seq=LM_MAX_SEQ)[0]
+            ties += not lm_same_greedy(lm, r.prompt, ref, r.out,
+                                       f"{label} engine")
+        out["held"].append(f"{label} engine vs generate_greedy")
+    out["engine_ties"] = ties
+
+    # -- speculative decoding through match_swar ----------------------
+    motif = rng.integers(0, cfg.vocab, LM_MOTIF, dtype=np.int32)
+    prompt = np.tile(motif, S // LM_MOTIF)
+    ref = generate_greedy(cfg, lm, prompt[None], max_new=LM_SPEC_NEW,
+                          max_seq=LM_MAX_SEQ)[0]
+    dec = SpeculativeDecoder(cfg, lm, max_seq=LM_MAX_SEQ, k=LM_SPEC_K)
+    propose, propose_s = dec.spec.propose, []
+
+    def timed_propose(*a, **kw):
+        t0 = time.perf_counter()
+        res = propose(*a, **kw)
+        propose_s.append(time.perf_counter() - t0)
+        return res
+    dec.spec.propose = timed_propose
+    verify, verifies = dec._verify, []
+
+    def recorded_verify(caches, window, start):
+        with MoEDrops() as d:
+            greedy, caches = verify(caches, window, start)
+        verifies.append((start, window[0], greedy[0], d.dropped))
+        return greedy, caches
+    dec._verify = recorded_verify
+    sync()
+    zero_counts()
+    t = time.perf_counter()
+    spec_out, stats = dec.generate(prompt, max_new=LM_SPEC_NEW)
+    sync()
+    out["spec_s"] = time.perf_counter() - t
+    counts = read_counts()
+    check(counts["match_swar"] > 0, f"{label} speculator launched "
+          "match_swar")
+    out["spec_launches"] = {k: v for k, v in counts.items() if v}
+    n_held, spec_what = len(spec_out), f"{label} speculative"
+    if hybrid:
+        out["spec_first_rejecting_verify"] = None
+        for i, (start, window, greedy, _) in enumerate(verifies):
+            n_acc = next((j for j in range(LM_SPEC_K)
+                          if window[j + 1] != greedy[j]), LM_SPEC_K)
+            if n_acc < LM_SPEC_K:
+                # The tokens out after this call are right; the next calls
+                # start from a state with the rejected tokens in it.
+                n_held = start - len(prompt) + n_acc + 2
+                out["spec_first_rejecting_verify"] = i
+                break
+        spec_what += (f" up to its verify #{i} (the first to reject)"
+                      if out["spec_first_rejecting_verify"] is not None
+                      else " (no verify rejected)")
+    verify_dropped = sum(v[3] for v in verifies)
+    if moe:
+        out["moe_drops"]["verify"] = verify_dropped
+        out["spec_verifies_dropping"] = sum(1 for v in verifies if v[3])
+    out["spec_held_tokens"] = 0 if verify_dropped else n_held
+    if verify_dropped:
+        out["spec_tie"] = None
+        print(f"  {spec_what}: not held, {verify_dropped} assignments "
+              f"dropped in {out['spec_verifies_dropping']} of its "
+              f"{len(verifies)} verify calls")
+    else:
+        out["spec_tie"] = not lm_same_greedy(
+            lm, prompt, ref[:n_held], spec_out[:n_held], spec_what,
+            top2_at=lm_greedy_top2(lm, prompt, ref, LM_MAX_SEQ)
+            if moe else None)
+        out["held"].append(spec_what)
+    out.update(spec_calls=stats.model_calls,
+               spec_tokens=stats.tokens_out,
+               spec_tokens_per_call=stats.tokens_per_call,
+               spec_acceptance=stats.acceptance,
+               spec_verifies=len(verifies),
+               proposes=len(propose_s),
+               propose_ms=1e3 * sum(propose_s) / max(len(propose_s), 1))
+    dec.spec.propose = propose
+    out["propose_launch"] = lm_propose_held(
+        dec.spec, list(prompt) + list(spec_out), LM_SPEC_K)
+    del dec, lm
+
+    # -- the card against the CPU, the config's width, reduced depth ----
+    # Hybrid: one whole unit (rglru, rglru, local_attn), local attention
+    # included; the rest, 2 layers.
+    n_small = len(cfg.block_pattern) if hybrid else 2
+    out["cpu_layers"] = n_small
+    cfg2 = dataclasses.replace(cfg, n_layers=n_small)
+    if cuda or hybrid:
+        card = lmm.init_params(cfg2, SEED, device)
+        cpu = copy.deepcopy(card).cpu()
+    if cuda:
+        x = toks[:1, :16]
+        want, _, _ = cpu.forward({"tokens": x})
+        got, _, _ = card.forward({"tokens": x})
+        out["err_card_vs_cpu"] = lm_close(
+            got, want, f"{label} card vs CPU at {n_small} layers")
+        out["held"].append(f"{label} card vs CPU at {n_small} layers")
+    if hybrid:
+        twin = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+                for n in rng.integers(LM_CPU_PROMPT[0], LM_CPU_PROMPT[1] + 1,
+                                      LM_CPU_REQUESTS)]
+        want, _, out["engine_twin_cpu_s"], top2 = lm_engine_run(
+            cpu, cfg2, twin, LM_CPU_NEW, LM_CPU_SLOTS, lambda: None,
+            record=True)
+        got, _, _, _ = lm_engine_run(card, cfg2, twin, LM_CPU_NEW,
+                                     LM_CPU_SLOTS, sync)
+        what = f"{label} engine, card vs CPU at {n_small} layers"
+        out["engine_twin_ties"] = sum(
+            not lm_same_greedy(cpu, w.prompt, w.out, g.out, what,
+                               top2_at=steps.__getitem__)
+            for w, g, steps in zip(want, got, top2))
+        out["held"].append(what)
+    if cuda or hybrid:
+        del card, cpu
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["wall_s"] = time.perf_counter() - t_cfg
+    lm_print(label, cfg, out, counts, profile_step, cuda)
+    return counts["match_swar"], out
+
+
+def lm_print(label, cfg, out, counts, profile_step, cuda) -> None:
+    """Phase 10's lines for one config."""
+    print(f"  ({label}) {cfg.name}: {out['n_params']:,} params "
+          f"({out['weight_bytes'] / 1e9:.3f} GB {cfg.param_dtype}), "
+          f"kv_quant {cfg.kv_quant}, {cfg.padded_kv_heads} KV heads")
+    print(f"  ({label}) prefill {LM_PROMPTS}x{LM_PROMPT_LEN} "
+          f"{out['prefill_ms']:.2f} ms; decode step at {LM_PROMPTS} slots "
+          f"{out['decode_step_ms']:.3f} ms (bound "
+          f"{out['step_bound_ms']:.3f} ms: weights + KV over "
+          f"{HBM_BW / 1e12:.2f} TB/s), {out['decode_tok_s']:.1f} tok/s"
+          + (f"; device busy {100 * out['device_busy_share']:.1f}% of "
+             f"one profiled step ({out['kernels_per_step']} kernels)"
+             if profile_step else ""))
+    print(f"  ({label}) engine: {out['engine_tokens']} tokens in "
+          f"{out['engine_decode_calls']} decode calls, "
+          f"{out['engine_s']:.2f} s")
+    print(f"  ({label}) speculative: {out['spec_tokens']} tokens in "
+          f"{out['spec_calls']} calls ({out['spec_tokens_per_call']:.2f} a "
+          f"call), acceptance {out['spec_acceptance']:.3f}, "
+          f"{out['proposes']} proposes at {out['propose_ms']:.2f} ms; "
+          f"match_swar launches {counts['match_swar']}")
+    if "moe_drops" in out:
+        print(f"  ({label}) MoE assignments dropped: {out['moe_drops']}; "
+              f"moe_route card vs CPU equal on {out['route_assignments']} "
+              f"assignments ({out['route_ties']} tokens with tied gates in "
+              f"their top {cfg.top_k + 1}, {out['route_dropped']} dropped "
+              f"at C = {out['route_C']})")
+    if "window_calls" in out:
+        print(f"  ({label}) local attention: {out['window_calls']}; "
+              f"speculative stream held for {out['spec_held_tokens']} "
+              f"tokens (first rejecting verify: "
+              f"{out['spec_first_rejecting_verify']}); the Engine at "
+              f"{out['cpu_layers']} layers on the CPU "
+              f"{out['engine_twin_cpu_s']:.1f} s")
+    for key, e in out.items():
+        if key.startswith("err_") and isinstance(e, dict):
+            print(f"  ({label}) {key[4:]}: max abs {e['max_abs']:.4f}, "
+                  f"relative L2 {e['rel_l2']:.5f}, "
+                  f"{100 * e['frac_outside_elementwise']:.4f}% of "
+                  f"elements past 3e-2 elementwise, "
+                  f"{e['argmax_near_ties']} argmax near-ties"
+                  + ("" if e.get("held", True) else " (not held)"))
+    print(f"  ({label}) held: {'; '.join(out['held'])}")
+    print(f"  ({label}) "
+          + (f"peak {out['peak_bytes'] / 2**30:.2f} GiB above the "
+             f"phase's start; " if cuda
+             else "") + f"{out['wall_s']:.1f} s; card: {Phase.card}")
 
 
 def lm_propose_held(spec, suffix, k: int):
@@ -1334,251 +1978,6 @@ def lm_step_profile(lm, caches, toks, pos, sync):
     busy = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:5]
     return wall, busy, sum(n for _, n in by_kernel.values()), top
-
-
-def lm_phase(configs, *, zero_counts, read_counts, sync, device="cuda",
-             profile_step=True):
-    """Phase 10: LM serving through the port's entry points, for each
-    ``(label, cfg)`` of ``configs``.
-
-    Seeded weights on ``device``; checks: prefill + decode against the full
-    forward (the int8 cache's own full forward -- a forward over the whole
-    sequence through a fresh cache -- where ``kv_quant`` is on, since the
-    int8 cache is lossy against a forward that keeps K/V in bf16); the
-    continuation (the speculative verify) against token-by-token decode;
-    every Engine stream against the request's ``generate_greedy`` and the
-    speculative stream against ``generate_greedy``, under the margin rule;
-    the card's logits against the same port code on the CPU at the
-    config's width and 2 layers; one ``propose``'s ``match_swar`` launch
-    against its plain version and its proposal against a numpy brute
-    force; the ``match_swar`` counter above 0 over the speculator.
-    Returns (match_swar launches of the speculators' runs, info)."""
-    spec_launches, info = 0, {}
-    for label, cfg in configs:
-        n, info[label] = lm_serve_config(
-            label, cfg, zero_counts=zero_counts, read_counts=read_counts,
-            sync=sync, device=device, profile_step=profile_step)
-        spec_launches += n
-    return spec_launches, info
-
-
-def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
-                    profile_step):
-    """Phase 10 for one config: (match_swar launches of its speculator,
-    what it measured).  Everything it allocates is freed on return."""
-    import copy
-
-    import numpy as np
-    import torch
-
-    from repro_torch.models import model as lmm
-    from repro_torch.models.spec import leaves
-    from repro_torch.serving.engine import Engine, Request, generate_greedy
-    from repro_torch.serving.speculative import SpeculativeDecoder
-
-    cuda = torch.device(device).type == "cuda"
-    t_cfg = time.perf_counter()
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-    out = {"config": cfg.name, "kv_quant": cfg.kv_quant,
-           "param_dtype": cfg.param_dtype, "kv_heads": cfg.padded_kv_heads}
-    lm = lmm.init_params(cfg, SEED, device)
-    sync()
-    out["n_params"] = sum(p.numel() for p in lm.parameters())
-    w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
-    out["weight_bytes"] = w_bytes
-    out["init_s"] = time.perf_counter() - t_cfg
-    rng = np.random.default_rng(SEED)
-    P, S = LM_PROMPTS, LM_PROMPT_LEN
-    toks = rng.integers(0, cfg.vocab, (P, S + LM_CHECK_STEPS),
-                        dtype=np.int32)
-    prompts = toks[:, :S]
-
-    # -- prefill + decode against the full forward ---------------------
-    caches = lm.init_cache(P, LM_MAX_SEQ)
-    last, caches = lm.prefill({"tokens": prompts}, caches)
-    steps = [last]
-    for t in range(S, S + LM_CHECK_STEPS - 1):
-        logits, caches = lm.decode_step(caches, toks[:, t:t + 1], t)
-        steps.append(logits)
-    got = torch.stack(steps, 1)
-    if cfg.kv_quant:
-        full, _, _ = lm.forward({"tokens": toks[:, :-1]},
-                                caches=lm.init_cache(P, LM_MAX_SEQ),
-                                cache_index=0)
-        plain_full, _, _ = lm.forward({"tokens": toks[:, :-1]})
-        out["err_vs_bf16_forward"] = float(
-            (got - plain_full[:, S - 1:]).abs().max())
-        del plain_full
-    else:
-        full, _, _ = lm.forward({"tokens": toks[:, :-1]})
-    out["err_prefill_decode"] = lm_close(
-        got, full[:, S - 1:], f"{label} prefill + decode vs forward")
-
-    # -- the continuation (verify) against token-by-token decode -------
-    window = toks[:1, S:S + LM_CHECK_STEPS]
-    c1 = lm.init_cache(1, LM_MAX_SEQ)
-    lm.prefill({"tokens": prompts[:1]}, c1)
-    win, _, _ = lm.forward({"tokens": window}, caches=c1, cache_index=S)
-    c2 = lm.init_cache(1, LM_MAX_SEQ)
-    lm.prefill({"tokens": prompts[:1]}, c2)
-    steps = [lm.decode_step(c2, window[:, i:i + 1], S + i)[0]
-             for i in range(LM_CHECK_STEPS)]
-    out["err_verify"] = lm_close(win[0], torch.cat(steps, 0),
-                                 f"{label} verify vs decode")
-    del c1, c2, full, got, steps, win
-
-    # -- prefill and decode-step time at LM_SLOTS slots ------------------
-    times = []
-    for _ in range(3):
-        c = lm.init_cache(P, LM_MAX_SEQ)
-        sync()
-        t = time.perf_counter()
-        lm.prefill({"tokens": prompts}, c)
-        sync()
-        times.append((time.perf_counter() - t) * 1e3)
-    out["prefill_ms"] = min(times)
-    out["prefill_ms_runs"] = times
-    pos = np.full(P, S, np.int32)
-    tok1 = toks[:, S:S + 1]
-    lm.decode_step(c, tok1, pos)
-    sync()
-    t = time.perf_counter()
-    for _ in range(LM_TIMED_STEPS):
-        lm.decode_step(c, tok1, pos)
-    sync()
-    step_ms = (time.perf_counter() - t) * 1e3 / LM_TIMED_STEPS
-    out["decode_step_ms"] = step_ms
-    out["decode_tok_s"] = P / step_ms * 1e3
-    kv_bytes = sum(x.numel() * x.element_size() for _, x in leaves(c))
-    out["kv_bytes"] = kv_bytes
-    out["step_bound_ms"] = (w_bytes + kv_bytes) / HBM_BW * 1e3
-    if profile_step:
-        wall, busy, n_kern, top = lm_step_profile(lm, c, tok1, pos, sync)
-        out.update(profiled_step_ms=wall, device_busy_ms=busy,
-                   device_busy_share=busy / wall,
-                   kernels_per_step=n_kern,
-                   top_kernels=[[name[:60], round(ms, 4), n]
-                                for name, (ms, n) in top])
-    del c
-
-    # -- generate_greedy --------------------------------------------------
-    sync()
-    t = time.perf_counter()
-    gg = generate_greedy(cfg, lm, prompts, max_new=LM_MAX_NEW,
-                         max_seq=LM_MAX_SEQ)
-    out["generate_s"] = time.perf_counter() - t
-    check(gg.shape == (P, LM_MAX_NEW) and (gg >= 0).all()
-          and (gg < cfg.padded_vocab).all(), f"{label} generate_greedy")
-
-    # -- the slot engine ------------------------------------------------
-    lens = rng.integers(LM_MIN_PROMPT, S + 1, LM_REQUESTS)
-    lens[:2] = (LM_MIN_PROMPT, S)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n, dtype=np.int32),
-                    max_new=LM_MAX_NEW) for n in lens]
-    eng = Engine(cfg, lm, max_seq=LM_MAX_SEQ, n_slots=LM_SLOTS)
-    decode, n_calls = eng._decode, [0]
-
-    def counted(toks_):
-        n_calls[0] += 1
-        return decode(toks_)
-    eng._decode = counted
-    sync()
-    t = time.perf_counter()
-    eng.run(list(reqs))
-    sync()
-    out["engine_s"] = time.perf_counter() - t
-    out["engine_tokens"] = sum(len(r.out) for r in reqs)
-    out["engine_decode_calls"] = n_calls[0]
-    ties = 0
-    for r in reqs:
-        check(len(r.out) == LM_MAX_NEW and r.done, f"{label} request")
-        ref = generate_greedy(cfg, lm, r.prompt[None], max_new=LM_MAX_NEW,
-                              max_seq=LM_MAX_SEQ)[0]
-        ties += not lm_same_greedy(lm, r.prompt, ref, r.out,
-                                   f"{label} engine")
-    out["engine_ties"] = ties
-    del eng
-
-    # -- speculative decoding through match_swar ----------------------
-    motif = rng.integers(0, cfg.vocab, LM_MOTIF, dtype=np.int32)
-    prompt = np.tile(motif, S // LM_MOTIF)
-    ref = generate_greedy(cfg, lm, prompt[None], max_new=LM_SPEC_NEW,
-                          max_seq=LM_MAX_SEQ)[0]
-    dec = SpeculativeDecoder(cfg, lm, max_seq=LM_MAX_SEQ, k=LM_SPEC_K)
-    propose, propose_s = dec.spec.propose, []
-
-    def timed_propose(*a, **kw):
-        t0 = time.perf_counter()
-        res = propose(*a, **kw)
-        propose_s.append(time.perf_counter() - t0)
-        return res
-    dec.spec.propose = timed_propose
-    sync()
-    zero_counts()
-    t = time.perf_counter()
-    spec_out, stats = dec.generate(prompt, max_new=LM_SPEC_NEW)
-    sync()
-    out["spec_s"] = time.perf_counter() - t
-    counts = read_counts()
-    check(counts["match_swar"] > 0, f"{label} speculator launched "
-          "match_swar")
-    out["spec_launches"] = {k: v for k, v in counts.items() if v}
-    out["spec_tie"] = not lm_same_greedy(lm, prompt, ref, spec_out,
-                                         f"{label} speculative")
-    out.update(spec_calls=stats.model_calls,
-               spec_tokens=stats.tokens_out,
-               spec_tokens_per_call=stats.tokens_per_call,
-               spec_acceptance=stats.acceptance,
-               proposes=len(propose_s),
-               propose_ms=1e3 * sum(propose_s) / max(len(propose_s), 1))
-    dec.spec.propose = propose
-    out["propose_launch"] = lm_propose_held(
-        dec.spec, list(prompt) + list(spec_out), LM_SPEC_K)
-
-    # -- the card against the CPU, the config's width and 2 layers ------
-    if cuda:
-        cfg2 = dataclasses.replace(cfg, n_layers=2)
-        card = lmm.init_params(cfg2, SEED, device)
-        cpu = copy.deepcopy(card).cpu()
-        x = toks[:1, :16]
-        want, _, _ = cpu.forward({"tokens": x})
-        got, _, _ = card.forward({"tokens": x})
-        out["err_card_vs_cpu_2_layers"] = lm_close(
-            got, want, f"{label} card vs CPU at 2 layers")
-        del card, cpu
-        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
-    out["wall_s"] = time.perf_counter() - t_cfg
-    print(f"  ({label}) {cfg.name}: {out['n_params']:,} params "
-          f"({w_bytes / 1e9:.3f} GB {cfg.param_dtype}), kv_quant "
-          f"{cfg.kv_quant}, {cfg.padded_kv_heads} KV heads")
-    print(f"  ({label}) prefill {P}x{S} {out['prefill_ms']:.2f} ms; "
-          f"decode step at {P} slots {step_ms:.3f} ms (bound "
-          f"{out['step_bound_ms']:.3f} ms: weights + KV over "
-          f"{HBM_BW / 1e12:.2f} TB/s), {out['decode_tok_s']:.1f} tok/s"
-          + (f"; device busy {100 * out['device_busy_share']:.1f}% of "
-             f"one profiled step ({out['kernels_per_step']} kernels)"
-             if profile_step else ""))
-    print(f"  ({label}) speculative: {stats.tokens_out} tokens in "
-          f"{stats.model_calls} calls ({stats.tokens_per_call:.2f} a "
-          f"call), acceptance {stats.acceptance:.3f}, "
-          f"{len(propose_s)} proposes at {out['propose_ms']:.2f} ms; "
-          f"match_swar launches {counts['match_swar']}")
-    for key in ("err_prefill_decode", "err_verify",
-                "err_card_vs_cpu_2_layers"):
-        if key in out:
-            e = out[key]
-            print(f"  ({label}) {key[4:]}: max abs {e['max_abs']:.4f}, "
-                  f"relative L2 {e['rel_l2']:.5f}, "
-                  f"{100 * e['frac_outside_elementwise']:.4f}% of "
-                  f"elements past 3e-2 elementwise, "
-                  f"{e['argmax_near_ties']} argmax near-ties")
-    print(f"  ({label}) "
-          + (f"peak {out['peak_bytes'] / 2**30:.2f} GiB above the "
-             f"phase's start; " if cuda
-             else "") + f"{out['wall_s']:.1f} s; card: {Phase.card}")
-    return counts["match_swar"], out
 
 
 def main() -> int:
@@ -2490,11 +2889,15 @@ def main() -> int:
         print("cram " + json.dumps(cram_info))
 
     # -- 10. LM serving -------------------------------------------------------
-    with Phase("phase 10: LM serving, llama3.2-1b at full width"):
+    with Phase("phase 10: LM serving at full width: llama3.2-1b, "
+               "olmoe-1b-7b, recurrentgemma-9b"):
         from repro_torch.configs import get_config
+        serve = dict(optimized=True, kind="serve")
         lm_launches, lm_info = lm_phase(
             [("l1", get_config(LM_ARCH)),
-             ("l2", get_config(LM_ARCH, optimized=True, kind="serve"))],
+             ("l2", get_config(LM_ARCH, **serve)),
+             ("m", get_config(LM_MOE_ARCH, **serve)),
+             ("r", get_config(LM_HYBRID_ARCH, **serve))],
             zero_counts=zero_counts, read_counts=read_counts,
             sync=torch.cuda.synchronize)
         print("lm " + json.dumps(lm_info))

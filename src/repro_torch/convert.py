@@ -122,9 +122,14 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
 def cache_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                      device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's cache tree (numpy leaves) as the port's; batch and
-    length are read off its first ``k`` leaf."""
+    length are read off its first ``k`` leaf (a model with recurrent
+    layers only: batch off its first ``h`` leaf, no length)."""
     dev = resolve_device(device)
-    k = next(v for p, v in leaves(tree) if p.endswith("/k"))
-    batch, seq_len = k.shape[-4], k.shape[-2]
+    k = next((v for p, v in leaves(tree) if p.endswith("/k")), None)
+    if k is not None:
+        batch, seq_len = k.shape[-4], k.shape[-2]
+    else:
+        h = next(v for p, v in leaves(tree) if p.endswith("/h"))
+        batch, seq_len = h.shape[-2], 0
     return _tree_from_numpy(_model.cache_specs(cfg, batch, seq_len), tree,
                             dev)

@@ -339,8 +339,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to serve on (default: the CUDA "
                          "card; 'cpu' runs the kernels' plain versions)")
     ap.add_argument("--arch", choices=list(ARCHS), default="llama3.2-1b",
-                    help="lm workload: architecture (a dense one: the port "
-                         "has no other block family yet)")
+                    help="lm workload: architecture (dense, MoE and the "
+                         "RG-LRU hybrid run; SSD, encoder-decoder and "
+                         "embeddings-input archs are refused)")
     # The reference's flag: store_true with default True, so it is always
     # on (the full width is driven through the library, chip_smoke.py).
     ap.add_argument("--smoke", action="store_true", default=True)

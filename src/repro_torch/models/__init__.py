@@ -1,10 +1,11 @@
 """LM model stack (port of ``repro.models``): config, param specs, layers,
-and assembly.  The dense decoder (``attn`` blocks) is ported; the other
-block families wait for ROADMAP Queue 1 item 16b."""
+the RG-LRU block and assembly.  Dense, local-attention, MoE and RG-LRU
+blocks are ported; SSD, the encoder-decoder and embeddings input wait for
+ROADMAP Queue 1 item 16b."""
 
-from . import config, layers, model, spec
+from . import config, layers, model, rglru, spec, ssm
 from .config import SHAPES, InputShape, ModelConfig, shape_applicable
 from .model import CausalLM
 
-__all__ = ["config", "layers", "model", "spec", "CausalLM",
+__all__ = ["config", "layers", "model", "rglru", "spec", "ssm", "CausalLM",
            "SHAPES", "InputShape", "ModelConfig", "shape_applicable"]

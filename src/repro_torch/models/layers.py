@@ -1,5 +1,6 @@
 """Core LM layers (port of ``repro.models.layers``): norms, RoPE,
-memory-bounded causal attention with its KV cache, and the MLP.
+memory-bounded causal attention with its KV cache (global and
+sliding-window), the MLP, and the GShard-style MoE.
 
 The math is plain PyTorch ops, as the reference's is plain ``jnp`` (no
 Pallas kernel sits on this path).  The casting points are the
@@ -22,18 +23,21 @@ clamped as ``lax.dynamic_update_slice`` clamps it, every decode call
 writes all rows at their own positions, and the causal mask
 ``kv_pos <= pos`` hides rows past a row's position.
 
-Ported: the branches a decoder-only ``attn`` block reaches -- ``full``
-with and without a cache, the continuation at a cache offset (the
-speculative verify), ``decode`` with a scalar or per-row index, QKV bias,
-GQA grouping and the int8 KV cache (``kv_quant``).  Cross-attention,
-bidirectional and local (sliding-window) attention, and MoE wait for
-ROADMAP Queue 1 item 16b and raise ``NotImplementedError``.
+Ported: the branches decoder-only ``attn``, ``local_attn`` and ``moe``
+blocks reach -- ``full`` with and without a cache, the continuation at a
+cache offset (the speculative verify), ``decode`` with a scalar or
+per-row index, QKV bias, GQA grouping, the int8 KV cache (``kv_quant``),
+the sliding window (block-local on a cacheless forward whose length the
+window divides, a windowed scan otherwise, a windowed mask in decode) and
+the MoE's top-k routing with per-group capacity (``moe_route``).
+Cross-attention and bidirectional attention wait for ROADMAP Queue 1 item
+16b and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,8 +48,8 @@ COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
 
 UNPORTED = ("not ported yet: ROADMAP Queue 1 item 16b (the other block "
-            "families: MoE, local attention, SSD, RG-LRU, encoder-decoder "
-            "and cross-attention, input_mode='embeddings')")
+            "families: SSD, encoder-decoder and cross-attention, "
+            "input_mode='embeddings')")
 
 
 def unported(what: str) -> NotImplementedError:
@@ -128,10 +132,12 @@ def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def _online_softmax_scan(q, k, v, *, q_offset, block_kv: int):
+def _online_softmax_scan(q, k, v, *, q_offset, block_kv: int,
+                         window: Optional[int] = None):
     """Causal attention. q (B,H,Sq,D); k,v (B,K,Skv,D) -> (B,H,Sq,D).
     Never materializes the full score matrix: walks KV blocks with a
-    running (max, denom, acc).  ``q_offset`` is (B,) or an int."""
+    running (max, denom, acc).  ``q_offset`` is (B,) or an int; a
+    ``window`` also hides keys ``window`` or more positions back."""
     B, H, Sq, D = q.shape
     _, K, Skv, _ = k.shape
     G = H // K
@@ -153,6 +159,8 @@ def _online_softmax_scan(q, k, v, *, q_offset, block_kv: int):
         s = _dot_f32(qg, k_j[:, :, None].transpose(-1, -2)) * scale
         kv_pos = j * block_kv + torch.arange(block_kv, device=dev)
         mask = q_pos[:, None, None, :, None] >= kv_pos
+        if window is not None:
+            mask &= (q_pos[:, None, None, :, None] - kv_pos) < window
         s = torch.where(mask, s, NEG_INF)
         new_m = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - new_m)
@@ -163,6 +171,45 @@ def _online_softmax_scan(q, k, v, *, q_offset, block_kv: int):
         m = new_m
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def _local_block_attention(q, k, v, *, window: int):
+    """Sliding-window causal attention in block-local form: each query
+    chunk of ``window`` positions attends to the (previous, own) key
+    chunks only, one (w x 2w) score tile at a time.  Shapes as in
+    ``_online_softmax_scan``; needs Sq == Skv, a multiple of the window."""
+    B, H, S, D = q.shape
+    K = k.shape[1]
+    G = H // K
+    w = window
+    nc = S // w
+    assert nc * w == S
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    qg = q.reshape(B, K, G, nc, w, D)
+    kc = k.reshape(B, K, nc, w, D)
+    vc = v.reshape(B, K, nc, w, D)
+    qi = torch.arange(w, device=dev)[:, None] + w     # position in the 2w span
+    ki = torch.arange(2 * w, device=dev)[None, :]
+    mask = (qi >= ki) & ((qi - ki) < w)                # (w, 2w)
+    mask0 = mask & (ki >= w)                           # no previous chunk
+    outs = []
+    for c in range(nc):
+        if c:
+            kp, vp = kc[:, :, c - 1], vc[:, :, c - 1]
+        else:
+            kp = torch.zeros_like(kc[:, :, 0])
+            vp = torch.zeros_like(vc[:, :, 0])
+        k2 = torch.cat([kp, kc[:, :, c]], 2)          # (B,K,2w,D)
+        v2 = torch.cat([vp, vc[:, :, c]], 2)
+        s = _dot_f32(qg[:, :, :, c], k2[:, :, None].transpose(-1, -2)) \
+            * scale
+        s = torch.where(mask if c else mask0, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = _dot_f32(p.to(v2.dtype), v2[:, :, None])
+        outs.append(o.to(q.dtype))
+    out = torch.stack(outs, 3)                        # (B,K,G,nc,w,D)
+    return out.reshape(B, H, S, D)
 
 
 def scalar_index(cache_index) -> Optional[int]:
@@ -192,8 +239,6 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
         raise unported("cross-attention")
     if bidir:
         raise unported("bidirectional attention")
-    if local:
-        raise unported("local (sliding-window) attention")
     B = x.shape[0]
     H, K, hd = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim
     q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
@@ -207,6 +252,7 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.local_window if local else None
 
     if mode == "full":
         offset = 0 if cache_index is None else scalar_index(cache_index)
@@ -244,9 +290,12 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
             q_off = offset
         else:
             kk, vv, q_off = k, v, 0
-        out = _online_softmax_scan(
-            q, kk, vv, q_offset=q_off,
-            block_kv=_pick_block(kk.shape[2], cfg.attn_block_kv))
+        if local and not continuation and kk.shape[2] % window == 0:
+            out = _local_block_attention(q, kk, vv, window=window)
+        else:
+            out = _online_softmax_scan(
+                q, kk, vv, q_offset=q_off, window=window,
+                block_kv=_pick_block(kk.shape[2], cfg.attn_block_kv))
     elif mode == "decode":
         assert cache is not None
         S_max = cache["k"].shape[2]
@@ -259,6 +308,8 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
             def write(buf, val):
                 buf[:, :, c] = val[:, :, 0]
             valid = (kv_pos <= ci)[None, :]
+            if window is not None:
+                valid = valid & ((ci - kv_pos) < window)[None, :]
         else:
             # (B,) positions: row b writes at ci_b[b] (serving slots whose
             # lengths diverge).
@@ -268,6 +319,8 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
             def write(buf, val):
                 buf[b_idx, :, ci_b] = val[:, :, 0]
             valid = kv_pos[None, :] <= ci_b[:, None]
+            if window is not None:
+                valid &= (ci_b[:, None] - kv_pos[None, :]) < window
         k_scale = v_scale = None
         if cfg.kv_quant:
             kq, ks = _kv_quantize(k)
@@ -377,3 +430,99 @@ def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
         return (g * u) @ p["wd"].to(x.dtype)
     h = _gelu_tanh(x @ p["wi"].to(x.dtype) + p["bi"].to(x.dtype))
     return h @ p["wo"].to(x.dtype) + p["bo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE (GShard-style grouped capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, P]:
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    return {
+        "router": P((d, E), ("embed", "experts")),
+        "wg": P((E, d, f), ("experts", "embed", "ff")),
+        "wu": P((E, d, f), ("experts", "embed", "ff")),
+        "wd": P((E, f, d), ("experts", "ff", "embed")),
+    }
+
+
+class MoERoute(NamedTuple):
+    """Token-choice top-k routing of (G, Sg) tokens, each field (G, Sg, k)
+    but ``C``: the chosen experts (``idx``, best first), their
+    renormalized gates (``probs``), each assignment's position in its
+    expert's buffer (``pos``) and whether it fits under the capacity
+    ``C`` (``keep``; a dropped assignment contributes nothing)."""
+
+    idx: torch.Tensor
+    probs: torch.Tensor
+    C: int
+    pos: torch.Tensor
+    keep: torch.Tensor
+
+
+def moe_route(cfg: ModelConfig, gates: torch.Tensor) -> MoERoute:
+    """The reference's routing (``moe_apply``'s top-k and capacity loop)
+    on f32 gates (G, Sg, E), integer for integer.
+
+    Top-k breaks ties by the lower expert index, as ``jax.lax.top_k``
+    does: a stable descending sort keeps equal gates in index order.  An
+    assignment's position is the count of earlier assignments to its
+    expert in slot-major order (every token's first choice, then every
+    token's second, ...), dropped ones included, as the reference's
+    per-slot cumsum plus running counts gives it."""
+    G, Sg, E = gates.shape
+    k = cfg.top_k
+    probs, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    probs, idx = probs[..., :k], idx[..., :k]
+    probs = probs / torch.clamp_min(probs.sum(-1, keepdim=True), 1e-9)
+    C = max(int(k * Sg * cfg.capacity_factor / E), 4)
+    slot_major = idx.transpose(1, 2).reshape(G, k * Sg, 1)
+    # (G, k*Sg, E) one-hot in slot-major order, counted along the tokens.
+    onehot = (slot_major == torch.arange(E, device=gates.device)).int()
+    pos = (torch.cumsum(onehot, 1) - 1).gather(2, slot_major)
+    pos = pos.reshape(G, k, Sg).transpose(1, 2)
+    return MoERoute(idx, probs, C, pos, pos < C)
+
+
+def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out, aux_loss).  Token-choice top-k with per-group
+    capacity.  Where the reference multiplies one-hot dispatch and combine
+    tensors, the port writes each kept assignment's token into its
+    expert's buffer slot and gathers each token's k expert outputs back,
+    summed under its gate weights: the same sums, since each buffer slot
+    holds at most one token.  Every expert runs on its whole buffer,
+    empty slots too, as the reference's do."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    Sg = min(cfg.moe_group_size, T)
+    G = T // Sg
+    if G * Sg != T:
+        raise AssertionError("tokens must divide the MoE group size")
+    xt = x.reshape(G, Sg, d)
+    logits = torch.einsum("gsd,de->gse", xt, p["router"].to(x.dtype))
+    gates = torch.softmax(logits.float(), -1)
+    r = moe_route(cfg, gates)
+    C = r.C
+    # Buffer slot of each assignment; a dropped one goes to a spare row.
+    g_base = torch.arange(G, device=x.device)[:, None, None] * (E * C)
+    slot = torch.where(r.keep, g_base + r.idx * C + r.pos, G * E * C)
+    ein = x.new_zeros((G * E * C + 1, d))
+    ein[slot.reshape(-1)] = xt[:, :, None].expand(G, Sg, k, d).reshape(-1, d)
+    ein = ein[:-1].view(G, E, C, d)
+    h = torch.einsum("gecd,edf->gecf", ein, p["wg"].to(ein.dtype))
+    h = h * _logistic(h)
+    u = torch.einsum("gecd,edf->gecf", ein, p["wu"].to(ein.dtype))
+    eo = torch.einsum("gecf,efd->gecd", h * u, p["wd"].to(ein.dtype))
+    # combine.astype(eo.dtype): the gate weights round to bf16; the sum of
+    # a token's k products runs in f32 and rounds once, as the einsum's.
+    w = torch.where(r.keep, r.probs, 0.0).to(eo.dtype)
+    picked = eo.reshape(G * E * C, d)[torch.where(r.keep, slot, 0)]
+    out = _dot_f32(w[..., None, :], picked).to(eo.dtype)   # (G,Sg,1,d)
+    # Load-balance aux loss (Switch): E * sum_e f_e * P_e.
+    f_e = (r.idx[..., 0, None] == torch.arange(E, device=x.device)
+           ).float().mean((0, 1))
+    p_e = gates.mean((0, 1))
+    aux = E * torch.sum(f_e * p_e)
+    return out.reshape(B, S, d), aux

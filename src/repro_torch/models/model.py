@@ -13,21 +13,22 @@ Caches are stacked the same way and updated in place.
 Entry points: ``init_params`` (-> ``CausalLM``), ``forward``, ``prefill``,
 ``decode_step``, ``cache_specs`` and ``init_cache``.  ``loss_fn`` belongs
 to training (ROADMAP item 16c).  The reference's ``constrain`` sharding
-hints are no-ops on one device and are left out (item 14).  Block families
-other than ``attn``, encoder-decoder models and ``input_mode="embeddings"``
-raise ``NotImplementedError`` (item 16b).
+hints are no-ops on one device and are left out (item 14).  Block kinds
+``attn``, ``local_attn``, ``moe`` and ``rglru`` are ported; ``ssd``,
+encoder-decoder models and ``input_mode="embeddings"`` raise
+``NotImplementedError`` (item 16b).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from . import layers
+from . import layers, rglru
 from .config import ModelConfig
 from .layers import COMPUTE_DTYPE, unported
 from .spec import P, initialize, leaves, stack, tree_map
@@ -37,34 +38,58 @@ from .spec import P, initialize, leaves, stack, tree_map
 # Block-level dispatch
 # ---------------------------------------------------------------------------
 
+PORTED_KINDS = ("attn", "local_attn", "moe", "rglru")
+
+
 def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    if kind != "attn":
-        raise unported(f"block kind {kind!r}")
-    return {"ln1": layers.norm_specs(cfg),
-            "attn": layers.attention_specs(cfg),
-            "ln2": layers.norm_specs(cfg),
-            "mlp": layers.mlp_specs(cfg)}
+    if kind in ("attn", "local_attn", "moe"):
+        d: Dict[str, Any] = {"ln1": layers.norm_specs(cfg),
+                             "attn": layers.attention_specs(cfg),
+                             "ln2": layers.norm_specs(cfg)}
+        if kind == "moe":
+            d["moe"] = layers.moe_specs(cfg)
+        else:
+            d["mlp"] = layers.mlp_specs(cfg)
+        return d
+    if kind == "rglru":
+        return {"ln1": layers.norm_specs(cfg),
+                "rglru": rglru.rglru_specs(cfg),
+                "ln2": layers.norm_specs(cfg),
+                "mlp": layers.mlp_specs(cfg)}
+    raise unported(f"block kind {kind!r}")
 
 
 def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
                       seq_len: int) -> Dict[str, Any]:
-    if kind != "attn":
-        raise unported(f"block kind {kind!r}")
-    return {"attn": layers.attn_cache_specs(cfg, batch, seq_len)}
+    if kind in ("attn", "local_attn", "moe"):
+        return {"attn": layers.attn_cache_specs(cfg, batch, seq_len)}
+    if kind == "rglru":
+        return {"rglru": rglru.rglru_cache_specs(cfg, batch)}
+    raise unported(f"block kind {kind!r}")
 
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions, mode: str,
                 cache=None, cache_index=None):
-    """Returns x after the block; ``cache`` (if any) is updated in place."""
-    if kind != "attn":
+    """Returns (x after the block, the MoE load-balance loss or None);
+    ``cache`` (if any) is updated in place."""
+    if kind not in PORTED_KINDS:
         raise unported(f"block kind {kind!r}")
     h = layers.apply_norm(cfg, p["ln1"], x)
-    a, _ = layers.attention_apply(
-        cfg, p["attn"], h, positions=positions, mode=mode,
-        cache=cache["attn"] if cache else None, cache_index=cache_index)
-    x = x + a
+    if kind == "rglru":
+        r, _ = rglru.rglru_apply(cfg, p["rglru"], h, mode=mode,
+                                 cache=cache["rglru"] if cache else None)
+        x = x + r
+    else:
+        a, _ = layers.attention_apply(
+            cfg, p["attn"], h, positions=positions, mode=mode,
+            cache=cache["attn"] if cache else None, cache_index=cache_index,
+            local=kind == "local_attn")
+        x = x + a
     h = layers.apply_norm(cfg, p["ln2"], x)
-    return x + layers.mlp_apply(cfg, p["mlp"], h)
+    if kind == "moe":
+        m, aux = layers.moe_apply(cfg, p["moe"], h)
+        return x + m, aux
+    return x + layers.mlp_apply(cfg, p["mlp"], h), None
 
 
 # ---------------------------------------------------------------------------
@@ -115,27 +140,31 @@ def _at(tree, u: int):
 
 def _apply_stack(cfg: ModelConfig, stack_params, x, *, positions, mode,
                  caches=None, cache_index=None):
+    """Returns (x, the summed MoE aux loss: a 0-d f32 tensor)."""
     pattern = cfg.block_pattern
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers_run = []
     if "units" in stack_params:
         units = stack_params["units"]
         n_units = next(leaves(units))[1].shape[0]
         for u in range(n_units):
             u_params = _at(units, u)
             u_cache = _at(caches["units"], u) if caches else None
-            for i, kind in enumerate(pattern):
-                x = block_apply(cfg, kind, u_params[str(i)], x,
-                                positions=positions, mode=mode,
-                                cache=u_cache[str(i)] if u_cache else None,
-                                cache_index=cache_index)
+            layers_run += [(kind, u_params[str(i)],
+                            u_cache[str(i)] if u_cache else None)
+                           for i, kind in enumerate(pattern)]
     if "rest" in stack_params:
         # Remainder layers continue the pattern from a unit boundary.
-        for i, key in enumerate(sorted(stack_params["rest"], key=int)):
-            x = block_apply(cfg, pattern[i % len(pattern)],
-                            stack_params["rest"][key], x,
-                            positions=positions, mode=mode,
-                            cache=caches["rest"][key] if caches else None,
-                            cache_index=cache_index)
-    return x
+        layers_run += [(pattern[i % len(pattern)], stack_params["rest"][key],
+                        caches["rest"][key] if caches else None)
+                       for i, key in enumerate(sorted(stack_params["rest"],
+                                                      key=int))]
+    for kind, p, cache in layers_run:
+        x, aux = block_apply(cfg, kind, p, x, positions=positions, mode=mode,
+                             cache=cache, cache_index=cache_index)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +178,7 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.input_mode != "tokens":
         raise unported(f"{cfg.name}: input_mode={cfg.input_mode!r}")
     for kind in cfg.layer_pattern:
-        if kind != "attn":
+        if kind not in PORTED_KINDS:
             raise unported(f"{cfg.name}: block kind {kind!r}")
 
 
@@ -247,12 +276,23 @@ def _positions(cache_index, B: int, S: int, device) -> torch.Tensor:
     return cache_index[:, None] + steps[None, :]
 
 
+def _attn_cache_len(caches) -> Optional[int]:
+    """Positions an attention cache holds, read off its first ``k`` leaf;
+    None without caches or without an attention layer (a recurrent
+    layer's cache has no positions)."""
+    if caches is None:
+        return None
+    return next((t.shape[-2] for path, t in leaves(caches)
+                 if path.endswith("/k")), None)
+
+
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             mode: str = "full", caches=None, cache_index=None):
     """Returns (logits f32 (B, S, V), caches, aux).  ``caches`` is the
-    tree passed in, updated in place (None without one); ``aux`` is 0.0
-    (dense blocks have no auxiliary loss)."""
+    tree passed in, updated in place (None without one); ``aux`` is the
+    MoE load-balance loss summed over the layers, a 0-d f32 tensor (0
+    without MoE blocks)."""
     p = _tree(params)
     embed = p["embed"]
     dev = embed.device
@@ -260,24 +300,24 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     B, S = tokens.shape
     x = embed[tokens].to(COMPUTE_DTYPE)
     if cache_index is not None and layers.scalar_index(cache_index) is None:
-        if caches is not None and not isinstance(cache_index, torch.Tensor):
+        s_max = _attn_cache_len(caches)
+        if s_max is not None and not isinstance(cache_index, torch.Tensor):
             # Host positions are checked before upload: the reference
             # drops a write past the cache, the port refuses it.
-            s_max = next(leaves(caches))[1].shape[-2]
             if not all(0 <= int(c) < s_max for c in cache_index):
                 raise ValueError(f"per-row cache_index "
                                  f"{[int(c) for c in cache_index]} "
                                  f"outside the cache's {s_max} positions")
         cache_index = torch.as_tensor(cache_index, device=dev).long()
     positions = _positions(cache_index, B, S, dev)
-    x = _apply_stack(cfg, p["blocks"], x, positions=positions, mode=mode,
-                     caches=caches, cache_index=cache_index)
+    x, aux = _apply_stack(cfg, p["blocks"], x, positions=positions,
+                          mode=mode, caches=caches, cache_index=cache_index)
     x = layers.apply_norm(cfg, p["ln_f"], x)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, embed.to(x.dtype))
     else:
         logits = x @ p["unembed"].to(x.dtype)
-    return logits.float(), caches, 0.0
+    return logits.float(), caches, aux
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,7 @@ def test_imports_with_jax_blocked():
     "repro_torch.core.costmodel", "repro_torch.kernels.cram_array",
     "repro_torch.models.config", "repro_torch.models.spec",
     "repro_torch.models.layers", "repro_torch.models.model",
+    "repro_torch.models.rglru", "repro_torch.models.ssm",
     "repro_torch.configs", "repro_torch.serving.ngram_cache",
     "repro_torch.serving.engine", "repro_torch.serving.speculative"])
 def test_slice_modules_import_with_jax_blocked(module):

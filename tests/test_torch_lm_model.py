@@ -37,7 +37,8 @@ from repro_torch.models import spec as tspec
 
 TOL = dict(rtol=3e-2, atol=3e-2)
 DENSE = ["llama3.2-1b", "stablelm-3b", "qwen1.5-32b", "internlm2-20b"]
-UNPORTED = [a for a in ARCHS if a not in DENSE]
+PORTED = DENSE + ["olmoe-1b-7b", "moonshot-v1-16b-a3b", "recurrentgemma-9b"]
+UNPORTED = [a for a in ARCHS if a not in PORTED]
 VARIANTS = {"smoke": dict(smoke=True), "full": dict(),
             "train": dict(optimized=True, kind="train"),
             "serve": dict(optimized=True, kind="serve")}
@@ -103,12 +104,25 @@ def test_unknown_arch_is_refused():
         tget("gpt-5")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_n_params_matches_reference(jx, arch):
     for kw in (dict(), dict(optimized=True, kind="serve")):
         assert tget(arch, **kw).n_params() == jx.get_config(
             arch, **kw).n_params()
-    assert tget(arch).n_active_params() == tget(arch).n_params()
+        assert tget(arch, **kw).n_active_params() == jx.get_config(
+            arch, **kw).n_active_params()
+    if arch in DENSE:
+        assert tget(arch).n_active_params() == tget(arch).n_params()
+
+
+def test_moe_and_hybrid_full_width_counts():
+    """The reference's own counts at full width, the serving deployments'
+    too (recurrentgemma's block-diagonal gates are smaller)."""
+    serve = dict(optimized=True, kind="serve")
+    assert tget("olmoe-1b-7b", **serve).n_params() == 6_919_096_320
+    assert tget("recurrentgemma-9b").n_params() == 7_484_321_792
+    assert tget("recurrentgemma-9b", **serve).n_params() == 6_666_432_512
+    assert tget("olmoe-1b-7b").n_active_params() == 1_281_951_744
 
 
 def test_llama_full_width_counts():
@@ -136,17 +150,17 @@ def test_unported_families_raise(arch):
 def test_unported_layer_branches_raise():
     cfg = tget("llama3.2-1b", smoke=True)
     x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
-    for kw in (dict(local=True), dict(bidir=True), dict(xa=x)):
+    for kw in (dict(bidir=True), dict(xa=x)):
         with pytest.raises(NotImplementedError, match="item 16b"):
             tl.attention_apply(cfg, {}, x, positions=None, mode="full", **kw)
     with pytest.raises(NotImplementedError, match="item 16b"):
-        tm.block_specs(cfg, "moe")
+        tm.block_specs(cfg, "ssd")
 
 
 # -- specs and initialisation ------------------------------------------------
 
 def test_param_tree_matches_reference_leaf_for_leaf(jx):
-    for arch in DENSE:
+    for arch in PORTED:
         for kw in (dict(smoke=True), dict(optimized=True, kind="serve")):
             cj, ct = jx.get_config(arch, **kw), tget(arch, **kw)
             want = jx.spec.abstract(jx.model.param_specs(cj))

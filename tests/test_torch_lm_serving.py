@@ -361,9 +361,10 @@ def test_lm_launcher_seeded_run_on_cpu(capsys):
     assert "served 2 requests, 20 tokens" in capsys.readouterr().out
 
 
-def test_chip_smoke_lm_phase_rehearses_on_cpu(monkeypatch):
-    """``chip_smoke.py``'s phase 10 at smoke size on the CPU: every check
-    runs (a counting wrapper stands in for the card's launch counter)."""
+def load_chip_smoke(monkeypatch):
+    """``chip_smoke.py`` as a module with phase 10's sizes cut to smoke
+    size, and a counting wrapper patched over ``match_swar`` (it stands in
+    for the card's launch counter): (module, the count)."""
     import importlib.util
     from pathlib import Path
 
@@ -374,7 +375,9 @@ def test_chip_smoke_lm_phase_rehearses_on_cpu(monkeypatch):
     spec.loader.exec_module(cs)
     for name, value in dict(LM_PROMPT_LEN=32, LM_MAX_NEW=8, LM_MAX_SEQ=96,
                             LM_SPEC_NEW=24, LM_MIN_PROMPT=4,
-                            LM_REQUESTS=5).items():
+                            LM_REQUESTS=5, LM_LONG=64, LM_LONG_TAIL=4,
+                            LM_MR_REQUESTS=3, LM_MR_NEW=6,
+                            LM_CPU_REQUESTS=3, LM_CPU_NEW=3).items():
         monkeypatch.setattr(cs, name, value)
     count = {"match_swar": 0}
     kernel = ksw.match_swar
@@ -383,6 +386,13 @@ def test_chip_smoke_lm_phase_rehearses_on_cpu(monkeypatch):
         count["match_swar"] += 1
         return kernel(*args, **kw)
     monkeypatch.setattr(ksw, "match_swar", counting)
+    return cs, count
+
+
+def test_chip_smoke_lm_phase_rehearses_on_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 10 at smoke size on the CPU: every check
+    runs (a counting wrapper stands in for the card's launch counter)."""
+    cs, count = load_chip_smoke(monkeypatch)
     serve = dataclasses.replace(CFG, kv_quant=True, param_dtype="bf16",
                                 n_kv_heads=4)
     launches, info = cs.lm_phase(
