@@ -122,7 +122,11 @@ printing its wall time beside the card's name and power limit:
    deployment (bf16 weights, int8 KV cache, 16 KV heads); (m)
    olmoe-1b-7b's serving deployment (64 experts top-8, bf16 weights,
    int8 KV cache) and (r) recurrentgemma-9b's (RG-LRU and local
-   attention, block-diagonal gates, f32 weights).  For each: the card
+   attention, block-diagonal gates, f32 weights); (s) mamba2-130m (24 SSD
+   layers, f32) and (w) whisper-tiny (4 encoder and 4 decoder layers,
+   f32) as the registry holds them, and (p) pixtral-12b's serving
+   deployment (40 layers, bf16 weights, int8 KV cache, 16 KV heads;
+   prefill from seeded embeddings).  For each: the card
    against the CPU at the config's width and reduced depth,
    ``generate_greedy`` over 4 prompts of 128 tokens, the slot ``Engine``
    and the ``SpeculativeDecoder`` on a motif prompt, ``match_swar``
@@ -142,7 +146,15 @@ printing its wall time beside the card's name and power limit:
    for integer; (r) a 4,096-token block-local forward against the
    windowed prefill and decode past the window, the Engine against the
    same Engine on the CPU at 3 layers, the speculator up to its first
-   rejecting verify.
+   rejecting verify; (s) (r)'s Engine and speculator checks at full
+   depth, the dense forward checks, and a 2,048-token forward (8 chunks)
+   against a prefill of its first half plus a continuation; (w)
+   ``encode`` of 4 x 1,500 seeded frames, prefill and decode with the
+   encoder output against the forward over the frames, the token path
+   held as (l1)'s (the reference serves tokens only: each cross layer
+   attends its own cache); (p) a prefill of seeded embeddings plus token
+   decode against the forward over the joined embeddings, the token
+   path as (l2)'s.
 11. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
    (``match_swar``'s launches count phase 10's), the script's wall time,
    the card's name and power limit, and ``{"ok": true, "device":
@@ -284,6 +296,15 @@ LM_MOE_ARCH, LM_HYBRID_ARCH = "olmoe-1b-7b", "recurrentgemma-9b"
 LM_MR_REQUESTS, LM_MR_NEW = 6, 16
 LM_LONG, LM_LONG_TAIL = 4096, 4
 LM_CPU_REQUESTS, LM_CPU_PROMPT, LM_CPU_NEW, LM_CPU_SLOTS = 3, (2, 4), 3, 2
+# (s) mamba2-130m, (w) whisper-tiny, both as the registry holds them, and
+# (p) pixtral-12b's serving deployment, at full width: their Engines serve
+# (m)/(r)'s LM_MR_REQUESTS requests.  (s) also runs a cacheless forward
+# of LM_SSD_LONG tokens (8 chunks of 256) held against a prefill of its
+# first half plus a continuation of the second; its Engine's twin, on the
+# card and the CPU, is (r)'s (LM_CPU_* sizes) at full depth.
+LM_SSD_ARCH, LM_ENCDEC_ARCH, LM_EMBEDS_ARCH = ("mamba2-130m",
+                                               "whisper-tiny", "pixtral-12b")
+LM_SSD_LONG = 2048
 
 
 def check(cond: bool, what: str) -> None:
@@ -1436,44 +1457,63 @@ def lm_engine_run(lm, cfg, prompts, max_new: int, n_slots: int, sync,
     return reqs, n_calls[0], wall, steps if record else None
 
 
-def lm_forward_checks(lm, cfg, label, toks, out) -> None:
+def lm_forward_checks(lm, cfg, label, toks, out, extra=None) -> None:
     """Prefill + decode against the full forward (the int8 cache's own
     full forward where ``kv_quant`` is on), and the continuation (the
     speculative verify) against token-by-token decode.  MoE configs run
     the rows one at a time, so that B*S stays under the group size, and a
-    comparison is held only where neither side dropped an assignment."""
+    comparison is held only where neither side dropped an assignment.
+    ``extra``: an encoder-decoder's ``frames`` and ``enc_out`` (the
+    prefill, decode and verify take the encoder output, the full forward
+    encodes the frames), or an embeddings model's ``embeds`` (the prefill
+    takes them, the decode steps take tokens, and the full forward takes
+    the embeddings with the decoded tokens' embedding rows appended)."""
     import torch
     P, S = toks.shape[0], LM_PROMPT_LEN
     moe = cfg.family == "moe"
+    extra = extra or {}
+    enc, emb = extra.get("enc_out"), extra.get("embeds")
     rows = [toks[i:i + 1] for i in range(P)] if moe else [toks]
     got, want, plain = [], [], []
     drops = {"prefill": 0, "decode": 0, "forward": 0}
     for x in rows:
+        pre, full_in = {"tokens": x[:, :S]}, {"tokens": x[:, :-1]}
+        if enc is not None:
+            pre["enc_out"] = enc
+            full_in["frames"] = extra["frames"]
+        if emb is not None:
+            pre = {"embeds": emb}
+            tail = lm.params["embed"][torch.as_tensor(x[:, S:-1]).long()
+                                      .to(emb.device)]
+            # bf16, as forward casts embeddings and decode's token rows.
+            full_in = {"embeds": torch.cat([emb.bfloat16(),
+                                            tail.bfloat16()], 1)}
         caches = lm.init_cache(x.shape[0], LM_MAX_SEQ)
         with MoEDrops(keep_gates=moe and not got) as d:
-            last, caches = lm.prefill({"tokens": x[:, :S]}, caches)
+            last, caches = lm.prefill(pre, caches)
         drops["prefill"] += d.dropped
         if d.gates:
             out.update(lm_route_check(cfg, d.gates))
         steps = [last]
         with MoEDrops() as d:
             for t in range(S, S + LM_CHECK_STEPS - 1):
-                logits, caches = lm.decode_step(caches, x[:, t:t + 1], t)
+                logits, caches = lm.decode_step(caches, x[:, t:t + 1], t,
+                                                enc_out=enc)
                 steps.append(logits)
         drops["decode"] += d.dropped
         got.append(torch.stack(steps, 1))
         with MoEDrops() as d:
             if cfg.kv_quant:
-                full, _, _ = lm.forward({"tokens": x[:, :-1]},
+                full, _, _ = lm.forward(full_in,
                                         caches=lm.init_cache(x.shape[0],
                                                              LM_MAX_SEQ),
                                         cache_index=0)
             else:
-                full, _, _ = lm.forward({"tokens": x[:, :-1]})
+                full, _, _ = lm.forward(full_in)
         drops["forward"] += d.dropped
         want.append(full[:, S - 1:])
         if cfg.kv_quant:
-            plain.append(lm.forward({"tokens": x[:, :-1]})[0][:, S - 1:])
+            plain.append(lm.forward(full_in)[0][:, S - 1:])
         del full
     got, want = torch.cat(got), torch.cat(want)
     if plain:
@@ -1484,17 +1524,26 @@ def lm_forward_checks(lm, cfg, label, toks, out) -> None:
                drops["prefill"] + drops["decode"] + drops["forward"])
 
     # -- the continuation (verify) against token-by-token decode -------
-    prompts = toks[:, :S]
     window = toks[:1, S:S + LM_CHECK_STEPS]
+    pre1 = {"tokens": toks[:1, :S]}
+    enc1 = None if enc is None else enc[:1]
+    if enc is not None:
+        pre1["enc_out"] = enc1
+    if emb is not None:
+        pre1 = {"embeds": emb[:1]}
+    win_in = {"tokens": window}
+    if enc is not None:
+        win_in["enc_out"] = enc1
     c1 = lm.init_cache(1, LM_MAX_SEQ)
-    lm.prefill({"tokens": prompts[:1]}, c1)
+    lm.prefill(pre1, c1)
     with MoEDrops() as d:
-        win, _, _ = lm.forward({"tokens": window}, caches=c1, cache_index=S)
+        win, _, _ = lm.forward(win_in, caches=c1, cache_index=S)
     drops["verify"] = d.dropped
     c2 = lm.init_cache(1, LM_MAX_SEQ)
-    lm.prefill({"tokens": prompts[:1]}, c2)
+    lm.prefill(pre1, c2)
     with MoEDrops() as d:
-        steps = [lm.decode_step(c2, window[:, i:i + 1], S + i)[0]
+        steps = [lm.decode_step(c2, window[:, i:i + 1], S + i,
+                                enc_out=enc1)[0]
                  for i in range(LM_CHECK_STEPS)]
     drops["verify_decode"] = d.dropped
     lm_compare(out, "err_verify", win[0], torch.cat(steps, 0),
@@ -1502,6 +1551,41 @@ def lm_forward_checks(lm, cfg, label, toks, out) -> None:
                drops["verify"] + drops["verify_decode"])
     if moe:
         out["moe_drops"] = drops
+
+
+def lm_ssd_long_checks(lm, cfg, label, rng, out) -> None:
+    """SSD over LM_SSD_LONG tokens, many chunks: the cacheless forward
+    (the chunked form, its inter-chunk recurrence in closed form) against
+    a prefill of the first half plus a continuation of the second half at
+    its offset, on the continuation's first LM_LONG_TAIL + 1 positions,
+    where the state carried across the split weighs most (with the
+    seeded ``A_log`` = 0 it decays by ~exp(-0.7) a token)."""
+    import numpy as np
+
+    from repro_torch.models import ssm
+    n, tail, c = LM_SSD_LONG, LM_LONG_TAIL, cfg.ssm_chunk
+    h = n // 2
+    check(h % c == 0, f"{label}: {n} tokens split into halves of whole "
+          f"chunks of {c}")
+    x = rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+    with Calls(ssm, "_ssd_chunked") as chunked:
+        full = lm.forward({"tokens": x})[0][:, h:h + tail + 1].clone()
+    caches = lm.init_cache(1, LM_MAX_SEQ)
+    lm.prefill({"tokens": x[:, :h]}, caches)
+    cont = lm.forward({"tokens": x[:, h:]}, caches=caches,
+                      cache_index=h)[0][:, :tail + 1]
+    n_ssd = sum(k == "ssd" for k in cfg.layer_pattern)
+    check(chunked.n == n_ssd, f"{label}: chunked SSD calls {chunked.n}, "
+          f"SSD layers {n_ssd}")
+    what = f"{label} {n}-token forward vs prefill + continuation"
+    out["err_long_vs_continuation"] = lm_close(cont, full, what)
+    out["held"].append(what)
+    # How much the carried state moves those logits: the second half
+    # alone, from a zero state.
+    alone = lm.forward({"tokens": x[:, h:]})[0][:, :tail + 1]
+    out["ssd_long"] = {"tokens": n, "chunks": n // c, "calls": chunked.n,
+                       "state_moves_logits": float(
+                           (alone - cont).abs().max())}
 
 
 def lm_route_check(cfg, gates) -> dict:
@@ -1613,7 +1697,22 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
       depth, since the reference's Engine steps every slot's recurrent
       state on its neighbours' admissions; the speculative stream against
       ``generate_greedy`` up to the first verify that rejected a proposal
-      (which leaves the rejected tokens in the recurrent state)."""
+      (which leaves the rejected tokens in the recurrent state);
+    * SSD (mamba2): the dense forward checks (lengths of at most one
+      chunk), and an LM_SSD_LONG-token forward (many chunks) against a
+      prefill plus a continuation (``lm_ssd_long_checks``); the Engine
+      and the speculator as the hybrid's, the card against the CPU (its
+      logits and the Engine's twin) at full depth (the model is small);
+    * encoder-decoder (whisper): ``encode`` over LM_PROMPTS rows of
+      seeded frames, the forward checks with the encoder output (prefill,
+      decode and verify) against the full forward over the frames; the
+      token path (Engine, ``generate_greedy``, the speculator) held as
+      the dense one's: the reference serves tokens only, so each cross
+      layer attends its own cache (ROADMAP Queue 3), an attention-only
+      path for which the dense argument holds;
+    * embeddings input (pixtral): the forward checks from seeded
+      embeddings (``lm_forward_checks``' ``extra``), the token path as
+      the dense one's."""
     import copy
 
     import numpy as np
@@ -1625,6 +1724,9 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
     from repro_torch.serving.speculative import SpeculativeDecoder
 
     moe, hybrid = cfg.family == "moe", cfg.family == "hybrid"
+    ssd = "ssd" in cfg.layer_pattern
+    recurrent = hybrid or ssd      # the Engine and verify leak their state
+    new_family = ssd or cfg.is_encdec or cfg.input_mode == "embeddings"
     cuda = torch.device(device).type == "cuda"
     t_cfg = time.perf_counter()
     if cuda:
@@ -1644,12 +1746,43 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
     toks = rng.integers(0, cfg.vocab, (P, S + LM_CHECK_STEPS),
                         dtype=np.int32)
     prompts = toks[:, :S]
+    extra, dec_kw = {}, {}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    if cfg.is_encdec:
+        # Seeded stand-ins for the stub audio frontend's frame embeddings.
+        extra["frames"] = torch.randn(P, cfg.n_audio_frames, cfg.d_model,
+                                      generator=gen, device=device)
+        times = []
+        for _ in range(3):
+            sync()
+            t = time.perf_counter()
+            enc = lm.encode(extra["frames"])
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        out["encode_ms"], out["encode_ms_runs"] = min(times), times
+        check(enc.shape == extra["frames"].shape
+              and bool(torch.isfinite(enc).all()), f"{label} encode")
+        out["encode_shape"] = list(enc.shape)
+        extra["enc_out"] = dec_kw["enc_out"] = enc
+    if cfg.input_mode == "embeddings":
+        # Seeded stand-ins for the stub vision frontend's embeddings, at
+        # the token table's scale, bf16 as forward casts them.
+        extra["embeds"] = (torch.randn(P, S, cfg.d_model, generator=gen,
+                                       device=device)
+                           / cfg.d_model ** 0.5).bfloat16()
+    pre = {"tokens": prompts}
+    if "enc_out" in extra:
+        pre["enc_out"] = extra["enc_out"]
+    if "embeds" in extra:
+        pre = {"embeds": extra["embeds"]}
 
     # -- checks against the full forward ---------------------------------
     if hybrid:
         lm_window_checks(lm, cfg, label, rng, out)
     else:
-        lm_forward_checks(lm, cfg, label, toks, out)
+        lm_forward_checks(lm, cfg, label, toks, out, extra)
+    if ssd:
+        lm_ssd_long_checks(lm, cfg, label, rng, out)
 
     # -- prefill and decode-step time at LM_SLOTS slots ------------------
     times = []
@@ -1657,18 +1790,18 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
         c = lm.init_cache(P, LM_MAX_SEQ)
         sync()
         t = time.perf_counter()
-        lm.prefill({"tokens": prompts}, c)
+        lm.prefill(pre, c)
         sync()
         times.append((time.perf_counter() - t) * 1e3)
     out["prefill_ms"] = min(times)
     out["prefill_ms_runs"] = times
     pos = np.full(P, S, np.int32)
     tok1 = toks[:, S:S + 1]
-    lm.decode_step(c, tok1, pos)
+    lm.decode_step(c, tok1, pos, **dec_kw)
     sync()
     t = time.perf_counter()
     for _ in range(LM_TIMED_STEPS):
-        lm.decode_step(c, tok1, pos)
+        lm.decode_step(c, tok1, pos, **dec_kw)
     sync()
     step_ms = (time.perf_counter() - t) * 1e3 / LM_TIMED_STEPS
     out["decode_step_ms"] = step_ms
@@ -1677,13 +1810,14 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
     out["kv_bytes"] = kv_bytes
     out["step_bound_ms"] = (w_bytes + kv_bytes) / HBM_BW * 1e3
     if profile_step:
-        wall, busy, n_kern, top = lm_step_profile(lm, c, tok1, pos, sync)
+        wall, busy, n_kern, top = lm_step_profile(lm, c, tok1, pos, sync,
+                                                  dec_kw)
         out.update(profiled_step_ms=wall, device_busy_ms=busy,
                    device_busy_share=busy / wall,
                    kernels_per_step=n_kern,
                    top_kernels=[[name[:60], round(ms, 4), n]
                                 for name, (ms, n) in top])
-    del c
+    del c, extra, pre, dec_kw
 
     # -- generate_greedy --------------------------------------------------
     sync()
@@ -1695,7 +1829,7 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
           and (gg < cfg.padded_vocab).all(), f"{label} generate_greedy")
 
     # -- the slot engine ------------------------------------------------
-    if moe or hybrid:
+    if moe or hybrid or new_family:
         lens = rng.integers(LM_MIN_PROMPT, 2 * LM_MIN_PROMPT + 1,
                             LM_MR_REQUESTS)
         max_new = LM_MR_NEW
@@ -1708,6 +1842,10 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
     with MoEDrops() as d:
         reqs, n_calls, out["engine_s"], _ = lm_engine_run(
             lm, cfg, eng_prompts, max_new, LM_SLOTS, sync)
+    if cfg.is_encdec:
+        print(f"  ({label}) the token path (Engine, generate_greedy, "
+              "speculator) is the reference's: no encoder output, each "
+              "cross layer attends its own cache")
     out["engine_tokens"] = sum(len(r.out) for r in reqs)
     out["engine_decode_calls"] = n_calls
     ties = 0
@@ -1723,7 +1861,7 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
         check(d.dropped == d_ref.dropped == 0, f"{label}: the Engine and "
               "the decode loop drop nothing")
         out["held"].append(f"{label} engine vs decode loop")
-    elif not hybrid:
+    elif not recurrent:
         for r in reqs:
             ref = generate_greedy(cfg, lm, r.prompt[None], max_new=max_new,
                                   max_seq=LM_MAX_SEQ)[0]
@@ -1765,7 +1903,7 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
           "match_swar")
     out["spec_launches"] = {k: v for k, v in counts.items() if v}
     n_held, spec_what = len(spec_out), f"{label} speculative"
-    if hybrid:
+    if recurrent:
         out["spec_first_rejecting_verify"] = None
         for i, (start, window, greedy, _) in enumerate(verifies):
             n_acc = next((j for j in range(LM_SPEC_K)
@@ -1809,21 +1947,29 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
 
     # -- the card against the CPU, the config's width, reduced depth ----
     # Hybrid: one whole unit (rglru, rglru, local_attn), local attention
-    # included; the rest, 2 layers.
-    n_small = len(cfg.block_pattern) if hybrid else 2
+    # included; SSD: the whole depth (the model is small); the rest, 2
+    # layers (whisper's encoder keeps its depth).
+    n_small = (len(cfg.block_pattern) if hybrid else cfg.n_layers if ssd
+               else 2)
     out["cpu_layers"] = n_small
     cfg2 = dataclasses.replace(cfg, n_layers=n_small)
-    if cuda or hybrid:
+    if cuda or recurrent:
         card = lmm.init_params(cfg2, SEED, device)
         cpu = copy.deepcopy(card).cpu()
     if cuda:
-        x = toks[:1, :16]
-        want, _, _ = cpu.forward({"tokens": x})
-        got, _, _ = card.forward({"tokens": x})
+        x = {"tokens": toks[:1, :16]}
+        if cfg.is_encdec:
+            x["frames"] = torch.randn(1, cfg.n_audio_frames, cfg.d_model,
+                                      generator=gen, device=device)
+        if cfg.input_mode == "embeddings":
+            x = {"embeds": torch.randn(1, 16, cfg.d_model, generator=gen,
+                                       device=device) / cfg.d_model ** 0.5}
+        want, _, _ = cpu.forward(x)
+        got, _, _ = card.forward(x)
         out["err_card_vs_cpu"] = lm_close(
             got, want, f"{label} card vs CPU at {n_small} layers")
         out["held"].append(f"{label} card vs CPU at {n_small} layers")
-    if hybrid:
+    if recurrent:
         twin = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
                 for n in rng.integers(LM_CPU_PROMPT[0], LM_CPU_PROMPT[1] + 1,
                                       LM_CPU_REQUESTS)]
@@ -1838,7 +1984,7 @@ def lm_serve_config(label, cfg, *, zero_counts, read_counts, sync, device,
                                top2_at=steps.__getitem__)
             for w, g, steps in zip(want, got, top2))
         out["held"].append(what)
-    if cuda or hybrid:
+    if cuda or recurrent:
         del card, cpu
     if cuda:
         out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
@@ -1874,6 +2020,19 @@ def lm_print(label, cfg, out, counts, profile_step, cuda) -> None:
               f"assignments ({out['route_ties']} tokens with tied gates in "
               f"their top {cfg.top_k + 1}, {out['route_dropped']} dropped "
               f"at C = {out['route_C']})")
+    if "ssd_long" in out:
+        print(f"  ({label}) SSD: {out['ssd_long']['tokens']}-token forward "
+              f"in {out['ssd_long']['chunks']} chunks "
+              f"({out['ssd_long']['calls']} chunked calls; the carried "
+              f"state moves the logits held by up to "
+              f"{out['ssd_long']['state_moves_logits']:.4f}); speculative "
+              f"stream held for {out['spec_held_tokens']} tokens (first "
+              f"rejecting verify: {out['spec_first_rejecting_verify']}); "
+              f"the Engine on the CPU at {out['cpu_layers']} layers "
+              f"{out['engine_twin_cpu_s']:.1f} s")
+    if "encode_ms" in out:
+        print(f"  ({label}) encode {out['encode_shape']}: "
+              f"{out['encode_ms']:.2f} ms")
     if "window_calls" in out:
         print(f"  ({label}) local attention: {out['window_calls']}; "
               f"speculative stream held for {out['spec_held_tokens']} "
@@ -1955,9 +2114,10 @@ def lm_propose_held(spec, suffix, k: int):
     return shape
 
 
-def lm_step_profile(lm, caches, toks, pos, sync):
-    """One decode step under ``torch.profiler``: wall ms, device-busy ms and
-    the five kernels with the most device time."""
+def lm_step_profile(lm, caches, toks, pos, sync, dec_kw):
+    """One decode step (``dec_kw``: ``decode_step``'s keywords) under
+    ``torch.profiler``: wall ms, device-busy ms and the five kernels with
+    the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1965,7 +2125,7 @@ def lm_step_profile(lm, caches, toks, pos, sync):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        lm.decode_step(caches, toks, pos)
+        lm.decode_step(caches, toks, pos, **dec_kw)
         sync()
         wall = (time.perf_counter() - t) * 1e3
     by_kernel = {}
@@ -2890,14 +3050,18 @@ def main() -> int:
 
     # -- 10. LM serving -------------------------------------------------------
     with Phase("phase 10: LM serving at full width: llama3.2-1b, "
-               "olmoe-1b-7b, recurrentgemma-9b"):
+               "olmoe-1b-7b, recurrentgemma-9b, mamba2-130m, whisper-tiny, "
+               "pixtral-12b"):
         from repro_torch.configs import get_config
         serve = dict(optimized=True, kind="serve")
         lm_launches, lm_info = lm_phase(
             [("l1", get_config(LM_ARCH)),
              ("l2", get_config(LM_ARCH, **serve)),
              ("m", get_config(LM_MOE_ARCH, **serve)),
-             ("r", get_config(LM_HYBRID_ARCH, **serve))],
+             ("r", get_config(LM_HYBRID_ARCH, **serve)),
+             ("s", get_config(LM_SSD_ARCH)),
+             ("w", get_config(LM_ENCDEC_ARCH)),
+             ("p", get_config(LM_EMBEDS_ARCH, **serve))],
             zero_counts=zero_counts, read_counts=read_counts,
             sync=torch.cuda.synchronize)
         print("lm " + json.dumps(lm_info))

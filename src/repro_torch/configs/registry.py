@@ -3,9 +3,8 @@ resolution for launchers and tests.
 
 Every assigned architecture is a selectable config with a reduced ``smoke``
 variant of the same family (small widths / few experts / tiny vocab) used by
-the CPU parity tests.  The configs are data, copied from the reference, so
-every arch resolves; a model is built only from the families the port has
-brought up (``repro_torch.models.model``).
+the CPU parity tests.  The configs are data, copied from the reference;
+``repro_torch.models.model`` builds every one of them.
 """
 
 from __future__ import annotations

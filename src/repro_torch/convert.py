@@ -20,7 +20,10 @@ the reference holds, and these functions build the port's equivalent on
   np.asarray, params)``) as a ``CausalLM``, leaf for leaf, every path,
   shape and dtype checked against the port's ``param_specs``.
 * ``cache_from_numpy`` -- a JAX cache tree (``init_cache``, or one a
-  prefill filled) as the port's cache tree, checked the same way.
+  prefill or a decode filled) as the port's cache tree, checked the same
+  way; an SSD state comes in bf16 or f32 (the reference's dtype changes
+  with the call that last wrote it) and is widened to the port's f32
+  leaf exactly, its dtype kept in the tree's ``STATE_BF16`` flag.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.match.corpus import PackedCorpus
 from repro_torch.models import model as _model
+from repro_torch.models import ssm as _ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import leaves
 
@@ -77,17 +81,20 @@ def bank_forms_from_numpy(planes: np.ndarray, sigs: np.ndarray,
 
 
 def _leaf_tensor(path: str, a: np.ndarray, want: torch.dtype,
-                 shape, dev: torch.device) -> torch.Tensor:
+                 shape, dev: torch.device,
+                 widen: bool = False) -> torch.Tensor:
+    """One leaf; ``widen`` also takes a bf16 array for an f32 spec."""
     a = np.asarray(a)
     if tuple(a.shape) != tuple(shape):
         raise ValueError(f"{path}: shape {a.shape}, the port's spec says "
                          f"{tuple(shape)}")
     if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: carry the bits
-        if want != torch.bfloat16:
+        if want != torch.bfloat16 and not (widen and want == torch.float32):
             raise ValueError(f"{path}: dtype bfloat16, the port's spec says "
                              f"{want}")
         bits = np.ascontiguousarray(a).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+        t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+        return t.to(dev, want)          # bf16 -> f32 is exact
     t = torch.from_numpy(np.array(a))
     if t.dtype != want:
         raise ValueError(f"{path}: dtype {a.dtype}, the port's spec says "
@@ -95,7 +102,10 @@ def _leaf_tensor(path: str, a: np.ndarray, want: torch.dtype,
     return t.to(dev)
 
 
-def _tree_from_numpy(specs, tree, dev: torch.device) -> Dict[str, Any]:
+def _tree_from_numpy(specs, tree, dev: torch.device,
+                     widen: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """``tree`` checked against ``specs`` path for path; leaves whose path
+    ends with one of ``widen`` may be bf16 where the spec says f32."""
     want, got = dict(leaves(specs)), dict(leaves(tree))
     if set(want) != set(got):
         raise ValueError(f"tree paths differ from the port's specs: missing "
@@ -107,7 +117,8 @@ def _tree_from_numpy(specs, tree, dev: torch.device) -> Dict[str, Any]:
         *parents, leaf = path.split("/")
         for k in parents:
             node = node.setdefault(k, {})
-        node[leaf] = _leaf_tensor(path, got[path], s.dtype, s.shape, dev)
+        node[leaf] = _leaf_tensor(path, got[path], s.dtype, s.shape, dev,
+                                  widen=path.endswith(widen))
     return out
 
 
@@ -121,15 +132,27 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
 
 def cache_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                      device: DeviceLike = None) -> Dict[str, Any]:
-    """The reference's cache tree (numpy leaves) as the port's; batch and
-    length are read off its first ``k`` leaf (a model with recurrent
-    layers only: batch off its first ``h`` leaf, no length)."""
+    """The reference's cache tree (numpy leaves) as the port's.  Batch and
+    length are read off its first self-attention ``k`` leaf (a cross
+    cache's length is ``cfg.n_audio_frames``); a model with recurrent
+    layers only gives its batch from its first ``h`` or SSD ``state``
+    leaf, and no length.  SSD states may be bf16 or f32, all alike."""
     dev = resolve_device(device)
-    k = next((v for p, v in leaves(tree) if p.endswith("/k")), None)
+    flat = list(leaves(tree))
+    k = next((v for p, v in flat if p.endswith("/attn/k")), None)
     if k is not None:
         batch, seq_len = k.shape[-4], k.shape[-2]
     else:
-        h = next(v for p, v in leaves(tree) if p.endswith("/h"))
-        batch, seq_len = h.shape[-2], 0
-    return _tree_from_numpy(_model.cache_specs(cfg, batch, seq_len), tree,
-                            dev)
+        path, h = next((p, v) for p, v in flat
+                       if p.endswith(("/rglru/h", "/ssd/state")))
+        # h is (..., B, r); an SSD state (..., B, H, Pd, N).
+        batch, seq_len = h.shape[-4 if path.endswith("state") else -2], 0
+    out = _tree_from_numpy(_model.cache_specs(cfg, batch, seq_len), tree,
+                           dev, widen=("/ssd/state",))
+    states = {np.asarray(v).dtype.name for p, v in flat
+              if p.endswith("/ssd/state")}
+    if states:
+        if len(states) > 1:
+            raise ValueError(f"SSD states of several dtypes: {states}")
+        out[_ssm.STATE_BF16] = torch.tensor(states == {"bfloat16"})
+    return out

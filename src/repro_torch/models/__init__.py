@@ -1,7 +1,7 @@
 """LM model stack (port of ``repro.models``): config, param specs, layers,
-the RG-LRU block and assembly.  Dense, local-attention, MoE and RG-LRU
-blocks are ported; SSD, the encoder-decoder and embeddings input wait for
-ROADMAP Queue 1 item 16b."""
+the SSD and RG-LRU blocks and assembly.  Every family of the reference is
+ported: dense, local-attention, MoE, SSD and RG-LRU blocks, the
+encoder-decoder and embeddings input."""
 
 from . import config, layers, model, rglru, spec, ssm
 from .config import SHAPES, InputShape, ModelConfig, shape_applicable

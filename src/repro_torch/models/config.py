@@ -7,8 +7,7 @@ SSM / hybrid / enc-dec / stub-frontend).  The layer stack is a
 depth; homogeneous runs are stacked along a leading dim so each unit's
 parameters sit in one tensor per leaf.  Fields, properties, ``SHAPES`` and
 ``shape_applicable`` are the reference's; ``n_params`` counts the port's
-own specs (``repro_torch.models.model.param_specs``), which raise for a
-block family the port has not brought up yet.
+own specs (``repro_torch.models.model.param_specs``).
 """
 
 from __future__ import annotations
@@ -121,8 +120,7 @@ class ModelConfig:
         return self.n_enc_layers > 0
 
     def n_params(self) -> int:
-        """Parameter count of the port's specs (raises for a block family
-        the port has not brought up)."""
+        """Parameter count of the port's specs."""
         from . import model as _model  # lazy: avoid cycle
         from .spec import count_params
         return count_params(_model.param_specs(self))

@@ -23,15 +23,18 @@ clamped as ``lax.dynamic_update_slice`` clamps it, every decode call
 writes all rows at their own positions, and the causal mask
 ``kv_pos <= pos`` hides rows past a row's position.
 
-Ported: the branches decoder-only ``attn``, ``local_attn`` and ``moe``
-blocks reach -- ``full`` with and without a cache, the continuation at a
-cache offset (the speculative verify), ``decode`` with a scalar or
-per-row index, QKV bias, GQA grouping, the int8 KV cache (``kv_quant``),
-the sliding window (block-local on a cacheless forward whose length the
-window divides, a windowed scan otherwise, a windowed mask in decode) and
-the MoE's top-k routing with per-group capacity (``moe_route``).
-Cross-attention and bidirectional attention wait for ROADMAP Queue 1 item
-16b and raise ``NotImplementedError``.
+Ported: every branch of the reference -- ``full`` with and without a
+cache, the continuation at a cache offset (the speculative verify),
+``decode`` with a scalar or per-row index, QKV bias, GQA grouping, the
+int8 KV cache (``kv_quant``), the sliding window (block-local on a
+cacheless forward whose length the window divides, a windowed scan
+otherwise, a windowed mask in decode), bidirectional attention (the
+encoder's), cross-attention over an encoder output ``xa`` (its K/V
+written to the cross cache at 0 in full mode, read with every position
+valid in decode), and the MoE's top-k routing with per-group capacity
+(``moe_route``).  Without ``xa`` a cross-attention layer runs the
+reference's other branch: causal self-attention over its own cross cache
+(the reference's serving path, which never passes an encoder output).
 """
 
 from __future__ import annotations
@@ -46,14 +49,6 @@ from .spec import P
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
-
-UNPORTED = ("not ported yet: ROADMAP Queue 1 item 16b (the other block "
-            "families: SSD, encoder-decoder and cross-attention, "
-            "input_mode='embeddings')")
-
-
-def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is {UNPORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +98,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention
 # ---------------------------------------------------------------------------
 
-def attention_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def attention_specs(cfg: ModelConfig, cross: bool = False) -> Dict[str, Any]:
     d, hd = cfg.d_model, cfg.head_dim
     H, K = cfg.padded_heads, cfg.padded_kv_heads
     specs: Dict[str, Any] = {
@@ -112,7 +107,7 @@ def attention_specs(cfg: ModelConfig) -> Dict[str, Any]:
         "wv": P((d, K, hd), ("embed", "kv_heads", None)),
         "wo": P((H, hd, d), ("heads", None, "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:      # cross-attention carries no bias
         specs["bq"] = P((H, hd), ("heads", None), "zeros")
         specs["bk"] = P((K, hd), ("kv_heads", None), "zeros")
         specs["bv"] = P((K, hd), ("kv_heads", None), "zeros")
@@ -133,11 +128,12 @@ def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _online_softmax_scan(q, k, v, *, q_offset, block_kv: int,
-                         window: Optional[int] = None):
+                         window: Optional[int] = None, bidir: bool = False):
     """Causal attention. q (B,H,Sq,D); k,v (B,K,Skv,D) -> (B,H,Sq,D).
     Never materializes the full score matrix: walks KV blocks with a
     running (max, denom, acc).  ``q_offset`` is (B,) or an int; a
-    ``window`` also hides keys ``window`` or more positions back."""
+    ``window`` also hides keys ``window`` or more positions back;
+    ``bidir`` masks nothing (every query sees every key)."""
     B, H, Sq, D = q.shape
     _, K, Skv, _ = k.shape
     G = H // K
@@ -157,11 +153,12 @@ def _online_softmax_scan(q, k, v, *, q_offset, block_kv: int,
     for j in range(nb):
         k_j, v_j = kb[:, :, j], vb[:, :, j]
         s = _dot_f32(qg, k_j[:, :, None].transpose(-1, -2)) * scale
-        kv_pos = j * block_kv + torch.arange(block_kv, device=dev)
-        mask = q_pos[:, None, None, :, None] >= kv_pos
-        if window is not None:
-            mask &= (q_pos[:, None, None, :, None] - kv_pos) < window
-        s = torch.where(mask, s, NEG_INF)
+        if not bidir:
+            kv_pos = j * block_kv + torch.arange(block_kv, device=dev)
+            mask = q_pos[:, None, None, :, None] >= kv_pos
+            if window is not None:
+                mask &= (q_pos[:, None, None, :, None] - kv_pos) < window
+            s = torch.where(mask, s, NEG_INF)
         new_m = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - new_m)
         p = torch.exp(s - new_m[..., None])
@@ -222,6 +219,48 @@ def scalar_index(cache_index) -> Optional[int]:
     return None
 
 
+def _decode_write(cfg: ModelConfig, cache, k, v, cache_index,
+                  window: Optional[int]) -> torch.Tensor:
+    """Write decode's one new position of K/V into ``cache`` (quantized
+    for the int8 cache), each row at its position; returns the positions
+    each row may attend, (B|1, S_max) bool."""
+    B = k.shape[0]
+    S_max = cache["k"].shape[2]
+    ci = scalar_index(cache_index)
+    kv_pos = torch.arange(S_max, device=k.device)
+    if ci is not None:
+        # dynamic_update_slice: one position for all rows, clamped.
+        c = min(max(ci, 0), S_max - 1)
+
+        def write(buf, val):
+            buf[:, :, c] = val[:, :, 0]
+        valid = (kv_pos <= ci)[None, :]
+        if window is not None:
+            valid = valid & ((ci - kv_pos) < window)[None, :]
+    else:
+        # (B,) positions: row b writes at ci_b[b] (serving slots whose
+        # lengths diverge).
+        ci_b = torch.as_tensor(cache_index, device=k.device).long()
+        b_idx = torch.arange(B, device=k.device)
+
+        def write(buf, val):
+            buf[b_idx, :, ci_b] = val[:, :, 0]
+        valid = kv_pos[None, :] <= ci_b[:, None]
+        if window is not None:
+            valid &= (ci_b[:, None] - kv_pos[None, :]) < window
+    if cfg.kv_quant:
+        kq, ks = _kv_quantize(k)
+        vq, vs = _kv_quantize(v)
+        write(cache["k"], kq)
+        write(cache["v"], vq)
+        write(cache["k_scale"], ks)
+        write(cache["v_scale"], vs)
+    else:
+        write(cache["k"], k.to(cache["k"].dtype))
+        write(cache["v"], v.to(cache["v"].dtype))
+    return valid
+
+
 def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
                     mode: str, cache: Optional[Dict] = None,
                     cache_index=None, local: bool = False,
@@ -233,23 +272,25 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     (one new token against the cache).  Returns (out, cache): the cache
     tree passed in, updated in place (None without one).
     ``cache``: {"k","v": (B, K, S_max, hd)} (+ "k_scale","v_scale" for
-    the int8 cache).
+    the int8 cache).  ``bidir``: no causal mask (the encoder).  ``xa``
+    (B, Sx, d): cross-attention's keys and values come from it, without
+    RoPE, its K/V cached from position 0 in full mode; decode reads that
+    cache with every position valid.
     """
-    if xa is not None:
-        raise unported("cross-attention")
-    if bidir:
-        raise unported("bidirectional attention")
     B = x.shape[0]
     H, K, hd = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim
     q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)[None, :, None, :]
-        k = k + p["bk"].to(x.dtype)[None, :, None, :]
-        v = v + p["bv"].to(x.dtype)[None, :, None, :]
-    use_rope = cfg.rope_theta > 0
-    if use_rope:
+    k = v = None      # cross-attention decode reads the cached enc K/V
+    if mode != "decode" or xa is None:
+        kv_src = x if xa is None else xa
+        k = torch.einsum("bsd,dhk->bhsk", kv_src, p["wk"].to(x.dtype))
+        v = torch.einsum("bsd,dhk->bhsk", kv_src, p["wv"].to(x.dtype))
+        if "bk" in p:
+            k = k + p["bk"].to(x.dtype)[None, :, None, :]
+            v = v + p["bv"].to(x.dtype)[None, :, None, :]
+    if cfg.rope_theta > 0 and xa is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.local_window if local else None
@@ -259,7 +300,7 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
         if offset is None:
             raise ValueError("full mode writes the cache at one offset for "
                              "all rows; got a per-row cache_index")
-        if cache is not None:
+        if cache is not None and xa is None:
             # lax.dynamic_update_slice clamps the start into range.
             S, S_max = k.shape[2], cache["k"].shape[2]
             start = min(max(offset, 0), S_max - S)
@@ -273,12 +314,24 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
             else:
                 cache["k"][:, :, start:start + S] = k.to(cache["k"].dtype)
                 cache["v"][:, :, start:start + S] = v.to(cache["v"].dtype)
+        elif cache is not None:
+            # Cross-attention: the encoder's K/V, cast to the cache's dtype
+            # as the reference casts them, from position 0.
+            Sx = k.shape[2]
+            cache["k"][:, :, :Sx] = k.to(cache["k"].dtype)
+            cache["v"][:, :, :Sx] = v.to(cache["v"].dtype)
         # Chunked continuation (speculative verify, prefill into a cache):
         # queries attend the cached context too, so the KV source becomes
         # the updated cache; the causal mask (q_pos = offset + i) hides
         # stale higher positions.
-        continuation = cache is not None and cache_index is not None
-        if continuation:
+        continuation = (cache is not None and cache_index is not None
+                        and xa is None)
+        if xa is not None or bidir:
+            # Every query sees every key of k, v (not of the cache).
+            out = _online_softmax_scan(
+                q, k, v, q_offset=0, bidir=True,
+                block_kv=_pick_block(k.shape[2], cfg.attn_block_kv))
+        elif continuation:
             if cfg.kv_quant:
                 kk = (cache["k"].to(COMPUTE_DTYPE)
                       * cache["k_scale"][..., None].to(COMPUTE_DTYPE))
@@ -286,53 +339,23 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
                       * cache["v_scale"][..., None].to(COMPUTE_DTYPE))
             else:
                 kk, vv = cache["k"], cache["v"]
-            kk, vv = kk.to(q.dtype), vv.to(q.dtype)
-            q_off = offset
-        else:
-            kk, vv, q_off = k, v, 0
-        if local and not continuation and kk.shape[2] % window == 0:
-            out = _local_block_attention(q, kk, vv, window=window)
+            out = _online_softmax_scan(
+                q, kk.to(q.dtype), vv.to(q.dtype), q_offset=offset,
+                window=window,
+                block_kv=_pick_block(kk.shape[2], cfg.attn_block_kv))
+        elif local and k.shape[2] % window == 0:
+            out = _local_block_attention(q, k, v, window=window)
         else:
             out = _online_softmax_scan(
-                q, kk, vv, q_offset=q_off, window=window,
-                block_kv=_pick_block(kk.shape[2], cfg.attn_block_kv))
+                q, k, v, q_offset=0, window=window,
+                block_kv=_pick_block(k.shape[2], cfg.attn_block_kv))
     elif mode == "decode":
         assert cache is not None
-        S_max = cache["k"].shape[2]
-        ci = scalar_index(cache_index)
-        kv_pos = torch.arange(S_max, device=x.device)
-        if ci is not None:
-            # dynamic_update_slice: one position for all rows, clamped.
-            c = min(max(ci, 0), S_max - 1)
-
-            def write(buf, val):
-                buf[:, :, c] = val[:, :, 0]
-            valid = (kv_pos <= ci)[None, :]
-            if window is not None:
-                valid = valid & ((ci - kv_pos) < window)[None, :]
-        else:
-            # (B,) positions: row b writes at ci_b[b] (serving slots whose
-            # lengths diverge).
-            ci_b = torch.as_tensor(cache_index, device=x.device).long()
-            b_idx = torch.arange(B, device=x.device)
-
-            def write(buf, val):
-                buf[b_idx, :, ci_b] = val[:, :, 0]
-            valid = kv_pos[None, :] <= ci_b[:, None]
-            if window is not None:
-                valid &= (ci_b[:, None] - kv_pos[None, :]) < window
-        k_scale = v_scale = None
+        k_scale = v_scale = valid = None
+        if xa is None:
+            valid = _decode_write(cfg, cache, k, v, cache_index, window)
         if cfg.kv_quant:
-            kq, ks = _kv_quantize(k)
-            vq, vs = _kv_quantize(v)
-            write(cache["k"], kq)
-            write(cache["v"], vq)
-            write(cache["k_scale"], ks)
-            write(cache["v_scale"], vs)
             k_scale, v_scale = cache["k_scale"], cache["v_scale"]
-        else:
-            write(cache["k"], k.to(cache["k"].dtype))
-            write(cache["v"], v.to(cache["v"].dtype))
         kk, vv = cache["k"], cache["v"]
         G = H // K
         qg = q.reshape(B, K, G, 1, hd)
@@ -342,7 +365,8 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
             * (1.0 / math.sqrt(hd))      # "/ sqrt(hd)", compiled as XLA does
         if k_scale is not None:
             s = s * k_scale[:, :, None, None, :]
-        s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+        if valid is not None:
+            s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
         pr = torch.softmax(s, dim=-1)
         if v_scale is not None:
             pr = pr * v_scale[:, :, None, None, :]

@@ -1,36 +1,40 @@
 """Model assembly (port of ``repro.models.model``): parameter specs, the
-stacked layer layout, and the serving entry points.
+stacked layer layout, the encoder, and the serving entry points.
 
 The layer stack is organized as repeating *units* (``cfg.block_pattern``):
 every full unit's parameters are stacked along a leading dim
 (``blocks/units/<i>/...``) and any remainder layers sit unrolled under
 ``blocks/rest/<i>/...``, the reference's tree leaf for leaf, so JAX's
 ``init_params`` tree carries across unchanged
-(``repro_torch.convert.params_from_numpy``).  Where the reference runs the
-units under ``lax.scan``, the port runs a Python loop over the stacked dim.
-Caches are stacked the same way and updated in place.
+(``repro_torch.convert.params_from_numpy``).  An encoder-decoder (whisper)
+holds ``encoder/{blocks,ln_f}`` and ``decoder/{blocks,ln_f}`` in their
+place, the decoder's blocks with a cross-attention sub-layer (``lnx``,
+``xattn``).  Where the reference runs the units under ``lax.scan``, the
+port runs a Python loop over the stacked dim.  Caches are stacked the same
+way and updated in place.
 
-Entry points: ``init_params`` (-> ``CausalLM``), ``forward``, ``prefill``,
-``decode_step``, ``cache_specs`` and ``init_cache``.  ``loss_fn`` belongs
-to training (ROADMAP item 16c).  The reference's ``constrain`` sharding
-hints are no-ops on one device and are left out (item 14).  Block kinds
-``attn``, ``local_attn``, ``moe`` and ``rglru`` are ported; ``ssd``,
-encoder-decoder models and ``input_mode="embeddings"`` raise
-``NotImplementedError`` (item 16b).
+Entry points: ``init_params`` (-> ``CausalLM``), ``encode``, ``forward``,
+``prefill``, ``decode_step``, ``cache_specs`` and ``init_cache``.  Every
+block kind of the reference is ported (``attn``, ``local_attn``, ``moe``,
+``ssd``, ``rglru``), the encoder-decoder and ``input_mode="embeddings"``
+too.  ``loss_fn`` belongs to training (ROADMAP item 16c).  The
+reference's ``constrain`` sharding hints are no-ops on one device and are
+left out (item 14).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from . import layers, rglru
+from . import layers, rglru, ssm
 from .config import ModelConfig
-from .layers import COMPUTE_DTYPE, unported
+from .layers import COMPUTE_DTYPE
 from .spec import P, initialize, leaves, stack, tree_map
 
 
@@ -38,53 +42,80 @@ from .spec import P, initialize, leaves, stack, tree_map
 # Block-level dispatch
 # ---------------------------------------------------------------------------
 
-PORTED_KINDS = ("attn", "local_attn", "moe", "rglru")
-
-
-def block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    if kind in ("attn", "local_attn", "moe"):
+def block_specs(cfg: ModelConfig, kind: str,
+                cross: bool = False) -> Dict[str, Any]:
+    if kind in ("attn", "local_attn"):
         d: Dict[str, Any] = {"ln1": layers.norm_specs(cfg),
                              "attn": layers.attention_specs(cfg),
-                             "ln2": layers.norm_specs(cfg)}
-        if kind == "moe":
-            d["moe"] = layers.moe_specs(cfg)
-        else:
-            d["mlp"] = layers.mlp_specs(cfg)
+                             "ln2": layers.norm_specs(cfg),
+                             "mlp": layers.mlp_specs(cfg)}
+        if cross:
+            d["lnx"] = layers.norm_specs(cfg)
+            d["xattn"] = layers.attention_specs(cfg, cross=True)
         return d
+    if kind == "moe":
+        return {"ln1": layers.norm_specs(cfg),
+                "attn": layers.attention_specs(cfg),
+                "ln2": layers.norm_specs(cfg),
+                "moe": layers.moe_specs(cfg)}
+    if kind == "ssd":
+        return {"ln1": layers.norm_specs(cfg), "ssd": ssm.ssd_specs(cfg)}
     if kind == "rglru":
         return {"ln1": layers.norm_specs(cfg),
                 "rglru": rglru.rglru_specs(cfg),
                 "ln2": layers.norm_specs(cfg),
                 "mlp": layers.mlp_specs(cfg)}
-    raise unported(f"block kind {kind!r}")
+    raise ValueError(kind)
 
 
 def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
-                      seq_len: int) -> Dict[str, Any]:
+                      seq_len: int, cross_len: int = 0) -> Dict[str, Any]:
     if kind in ("attn", "local_attn", "moe"):
-        return {"attn": layers.attn_cache_specs(cfg, batch, seq_len)}
+        d = {"attn": layers.attn_cache_specs(cfg, batch, seq_len)}
+        if cross_len:
+            d["xattn"] = layers.attn_cache_specs(cfg, batch, cross_len)
+        return d
+    if kind == "ssd":
+        return {"ssd": ssm.ssd_cache_specs(cfg, batch)}
     if kind == "rglru":
         return {"rglru": rglru.rglru_cache_specs(cfg, batch)}
-    raise unported(f"block kind {kind!r}")
+    raise ValueError(kind)
 
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions, mode: str,
-                cache=None, cache_index=None):
+                cache=None, cache_index=None, xa=None, bidir: bool = False,
+                state_bf16: bool = True):
     """Returns (x after the block, the MoE load-balance loss or None);
-    ``cache`` (if any) is updated in place."""
-    if kind not in PORTED_KINDS:
-        raise unported(f"block kind {kind!r}")
+    ``cache`` (if any) is updated in place.  ``xa``: the encoder output
+    for a cross-attention sub-layer; ``state_bf16``: see
+    ``ssm.ssd_apply``."""
     h = layers.apply_norm(cfg, p["ln1"], x)
+    if kind == "ssd":
+        s, _ = ssm.ssd_apply(cfg, p["ssd"], h, mode=mode,
+                             cache=cache["ssd"] if cache else None,
+                             state_bf16=state_bf16)
+        return x + s, None
     if kind == "rglru":
         r, _ = rglru.rglru_apply(cfg, p["rglru"], h, mode=mode,
                                  cache=cache["rglru"] if cache else None)
         x = x + r
-    else:
+    elif kind in ("attn", "local_attn", "moe"):
         a, _ = layers.attention_apply(
             cfg, p["attn"], h, positions=positions, mode=mode,
             cache=cache["attn"] if cache else None, cache_index=cache_index,
-            local=kind == "local_attn")
+            local=kind == "local_attn", bidir=bidir)
         x = x + a
+        if "xattn" in p:
+            # Cross-attention: full mode computes the encoder's K/V, decode
+            # reads them from the cache (without ``xa``: see layers).
+            h = layers.apply_norm(cfg, p["lnx"], x)
+            a, _ = layers.attention_apply(
+                cfg, p["xattn"], h, positions=positions, mode=mode,
+                cache=cache["xattn"] if cache else None,
+                cache_index=cache_index, xa=xa)
+            x = x + a
+    else:
+        raise ValueError(kind)
     h = layers.apply_norm(cfg, p["ln2"], x)
     if kind == "moe":
         m, aux = layers.moe_apply(cfg, p["moe"], h)
@@ -104,29 +135,36 @@ def _unit_layout(cfg: ModelConfig,
     return n_units, rest
 
 
-def _stack_param_specs(cfg: ModelConfig, n_layers: int) -> Dict[str, Any]:
+def _stack_param_specs(cfg: ModelConfig, n_layers: int,
+                       cross: bool = False) -> Dict[str, Any]:
     n_units, rest = _unit_layout(cfg, n_layers)
     out: Dict[str, Any] = {}
     if n_units:
-        out["units"] = stack(n_units, {str(i): block_specs(cfg, kind)
+        out["units"] = stack(n_units, {str(i): block_specs(cfg, kind, cross)
                                        for i, kind in
                                        enumerate(cfg.block_pattern)})
     if rest:
-        out["rest"] = {str(i): block_specs(cfg, kind)
+        out["rest"] = {str(i): block_specs(cfg, kind, cross)
                        for i, kind in enumerate(rest)}
     return out
 
 
+def _stack_param_specs_enc(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"units": stack(cfg.n_enc_layers,
+                           {"0": block_specs(cfg, "attn")})}
+
+
 def _stack_cache_specs(cfg: ModelConfig, n_layers: int, batch: int,
-                       seq_len: int) -> Dict[str, Any]:
+                       seq_len: int, cross_len: int = 0) -> Dict[str, Any]:
     n_units, rest = _unit_layout(cfg, n_layers)
     out: Dict[str, Any] = {}
     if n_units:
         out["units"] = stack(n_units, {
-            str(i): block_cache_specs(cfg, kind, batch, seq_len)
+            str(i): block_cache_specs(cfg, kind, batch, seq_len, cross_len)
             for i, kind in enumerate(cfg.block_pattern)})
     if rest:
-        out["rest"] = {str(i): block_cache_specs(cfg, kind, batch, seq_len)
+        out["rest"] = {str(i): block_cache_specs(cfg, kind, batch, seq_len,
+                                                 cross_len)
                        for i, kind in enumerate(rest)}
     return out
 
@@ -139,9 +177,12 @@ def _at(tree, u: int):
 
 
 def _apply_stack(cfg: ModelConfig, stack_params, x, *, positions, mode,
-                 caches=None, cache_index=None):
-    """Returns (x, the summed MoE aux loss: a 0-d f32 tensor)."""
-    pattern = cfg.block_pattern
+                 caches=None, cache_index=None, xa=None, bidir: bool = False,
+                 pattern: Optional[Tuple[str, ...]] = None,
+                 state_bf16: bool = True):
+    """Returns (x, the summed MoE aux loss: a 0-d f32 tensor).
+    ``pattern`` (default ``cfg.block_pattern``) names the unit's kinds."""
+    pattern = pattern or cfg.block_pattern
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     layers_run = []
     if "units" in stack_params:
@@ -161,7 +202,8 @@ def _apply_stack(cfg: ModelConfig, stack_params, x, *, positions, mode,
                                                       key=int))]
     for kind, p, cache in layers_run:
         x, aux = block_apply(cfg, kind, p, x, positions=positions, mode=mode,
-                             cache=cache, cache_index=cache_index)
+                             cache=cache, cache_index=cache_index, xa=xa,
+                             bidir=bidir, state_bf16=state_bf16)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -171,25 +213,20 @@ def _apply_stack(cfg: ModelConfig, stack_params, x, *, positions, mode,
 # Whole-model specs and parameters
 # ---------------------------------------------------------------------------
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the port cannot build."""
-    if cfg.is_encdec:
-        raise unported(f"{cfg.name}: the encoder-decoder model")
-    if cfg.input_mode != "tokens":
-        raise unported(f"{cfg.name}: input_mode={cfg.input_mode!r}")
-    for kind in cfg.layer_pattern:
-        if kind not in PORTED_KINDS:
-            raise unported(f"{cfg.name}: block kind {kind!r}")
-
-
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    check_ported(cfg)
     d, V = cfg.d_model, cfg.padded_vocab
-    out: Dict[str, Any] = {
-        "embed": P((V, d), ("vocab", "embed"), "embed"),
-        "blocks": _stack_param_specs(cfg, cfg.n_layers),
-        "ln_f": layers.norm_specs(cfg),
-    }
+    # The token embedding always exists (a stub-frontend arch still decodes
+    # text tokens; its prefill may take precomputed embeddings instead).
+    out: Dict[str, Any] = {"embed": P((V, d), ("vocab", "embed"), "embed")}
+    if cfg.is_encdec:
+        out["encoder"] = {"blocks": _stack_param_specs_enc(cfg),
+                          "ln_f": layers.norm_specs(cfg)}
+        out["decoder"] = {"blocks": _stack_param_specs(cfg, cfg.n_layers,
+                                                       cross=True),
+                          "ln_f": layers.norm_specs(cfg)}
+    else:
+        out["blocks"] = _stack_param_specs(cfg, cfg.n_layers)
+        out["ln_f"] = layers.norm_specs(cfg)
     if not cfg.tie_embeddings:
         out["unembed"] = P((d, V), ("embed", "vocab"))
     if cfg.param_dtype == "bf16":
@@ -207,14 +244,13 @@ def _to_param_tree(tree) -> nn.ParameterDict:
 
 
 class CausalLM(nn.Module):
-    """A decoder-only LM: ``cfg`` plus the reference's parameter tree held
-    as nested ``ParameterDict``s (``params["blocks"]["units"]["0"]
-    ["attn"]["wq"]``, stacked unit dim first).  Serving only: parameters
-    take no gradient."""
+    """An LM (a decoder, or whisper's encoder-decoder): ``cfg`` plus the
+    reference's parameter tree held as nested ``ParameterDict``s
+    (``params["blocks"]["units"]["0"]["attn"]["wq"]``, stacked unit dim
+    first).  Serving only: parameters take no gradient."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.params = _to_param_tree(tree)
 
@@ -227,11 +263,15 @@ class CausalLM(nn.Module):
         return forward(self.cfg, self, batch, mode=mode, caches=caches,
                        cache_index=cache_index)
 
+    def encode(self, frames):
+        return encode(self.cfg, self, frames)
+
     def prefill(self, batch, caches):
         return prefill(self.cfg, self, batch, caches)
 
-    def decode_step(self, caches, tokens, cache_index):
-        return decode_step(self.cfg, self, caches, tokens, cache_index)
+    def decode_step(self, caches, tokens, cache_index, enc_out=None):
+        return decode_step(self.cfg, self, caches, tokens, cache_index,
+                           enc_out)
 
     def init_cache(self, batch: int, seq_len: int):
         return init_cache(self.cfg, batch, seq_len, device=self.device)
@@ -265,6 +305,23 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def _sinusoid(seq: int, d: int) -> np.ndarray:
+    """The encoder's positions: computed in float64 numpy and cast to f32,
+    as the reference computes them."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    return np.concatenate([np.sin(ang), np.cos(ang)], -1).astype(np.float32)
+
+
+def _sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embedding at positions (B, S) -> (B, S, d), in f32."""
+    i = torch.arange(d // 2, dtype=torch.float32,
+                     device=positions.device)[None, None, :]
+    ang = positions[..., None].float() / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
 def _positions(cache_index, B: int, S: int, device) -> torch.Tensor:
     steps = torch.arange(S, device=device)
     if cache_index is None:
@@ -276,31 +333,62 @@ def _positions(cache_index, B: int, S: int, device) -> torch.Tensor:
     return cache_index[:, None] + steps[None, :]
 
 
-def _attn_cache_len(caches) -> Optional[int]:
-    """Positions an attention cache holds, read off its first ``k`` leaf;
-    None without caches or without an attention layer (a recurrent
-    layer's cache has no positions)."""
+def _written_positions(caches, cross: bool) -> Optional[int]:
+    """Positions of the attention caches a decode call writes, the least
+    of them: every self-attention cache (``.../attn/k``), and the cross
+    caches (``.../xattn/k``) when ``cross`` (a call without an encoder
+    output writes them too).  None without caches or without an
+    attention layer (a recurrent layer's cache has no positions)."""
     if caches is None:
         return None
-    return next((t.shape[-2] for path, t in leaves(caches)
-                 if path.endswith("/k")), None)
+    ends = ("/attn/k", "/xattn/k") if cross else ("/attn/k",)
+    return min((t.shape[-2] for path, t in leaves(caches)
+                if path.endswith(ends)), default=None)
+
+
+@torch.no_grad()
+def encode(cfg: ModelConfig, params: Params, frames) -> torch.Tensor:
+    """Whisper-style encoder over precomputed (stub) frame embeddings
+    (B, n_frames, d): sinusoidal positions, then bidirectional attention
+    blocks; (B, n_frames, d) bf16."""
+    p = _tree(params)
+    dev = p["embed"].device
+    x = torch.as_tensor(frames, device=dev).to(COMPUTE_DTYPE)
+    B, S = x.shape[0], x.shape[1]
+    pos = torch.from_numpy(_sinusoid(S, cfg.d_model)).to(dev)
+    x = x + pos.to(COMPUTE_DTYPE)[None]
+    x, _ = _apply_stack(cfg, p["encoder"]["blocks"], x,
+                        positions=_positions(None, B, S, dev), mode="full",
+                        bidir=True, pattern=("attn",))
+    return layers.apply_norm(cfg, p["encoder"]["ln_f"], x)
 
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             mode: str = "full", caches=None, cache_index=None):
-    """Returns (logits f32 (B, S, V), caches, aux).  ``caches`` is the
-    tree passed in, updated in place (None without one); ``aux`` is the
-    MoE load-balance loss summed over the layers, a 0-d f32 tensor (0
-    without MoE blocks)."""
+    """Returns (logits f32 (B, S, V), caches, aux).  ``batch`` holds
+    ``tokens``, or ``embeds`` (B, S, d) for an ``input_mode="embeddings"``
+    model; an encoder-decoder also takes ``frames`` (encoded here) or
+    ``enc_out`` (``encode``'s output).  ``caches`` is the tree passed in,
+    updated in place (None without one); ``aux`` is the MoE load-balance
+    loss summed over the layers, a 0-d f32 tensor (0 without MoE
+    blocks)."""
     p = _tree(params)
     embed = p["embed"]
     dev = embed.device
-    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-    B, S = tokens.shape
-    x = embed[tokens].to(COMPUTE_DTYPE)
+    xa = None
+    if cfg.is_encdec:
+        xa = (encode(cfg, params, batch["frames"]) if "frames" in batch
+              else batch.get("enc_out"))
+    if cfg.input_mode == "embeddings" and "embeds" in batch:
+        x = torch.as_tensor(batch["embeds"], device=dev).to(COMPUTE_DTYPE)
+        B, S = x.shape[0], x.shape[1]
+    else:
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        B, S = tokens.shape
+        x = embed[tokens].to(COMPUTE_DTYPE)
     if cache_index is not None and layers.scalar_index(cache_index) is None:
-        s_max = _attn_cache_len(caches)
+        s_max = _written_positions(caches, cross=xa is None)
         if s_max is not None and not isinstance(cache_index, torch.Tensor):
             # Host positions are checked before upload: the reference
             # drops a write past the cache, the port refuses it.
@@ -310,9 +398,19 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
                                  f"outside the cache's {s_max} positions")
         cache_index = torch.as_tensor(cache_index, device=dev).long()
     positions = _positions(cache_index, B, S, dev)
-    x, aux = _apply_stack(cfg, p["blocks"], x, positions=positions,
-                          mode=mode, caches=caches, cache_index=cache_index)
-    x = layers.apply_norm(cfg, p["ln_f"], x)
+    if cfg.is_encdec and cfg.rope_theta <= 0:
+        x = x + _sinusoid_at(positions, cfg.d_model).to(COMPUTE_DTYPE)
+    stack_p = p["decoder"] if cfg.is_encdec else p
+    flag = caches.get(ssm.STATE_BF16) if caches is not None else None
+    x, aux = _apply_stack(cfg, stack_p["blocks"], x, positions=positions,
+                          mode=mode, caches=caches, cache_index=cache_index,
+                          xa=xa, state_bf16=True if flag is None
+                          else bool(flag))
+    if flag is not None:
+        # A decode leaves the reference's SSD state f32, a full-mode call
+        # bf16.
+        flag.fill_(mode != "decode")
+    x = layers.apply_norm(cfg, stack_p["ln_f"], x)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, embed.to(x.dtype))
     else:
@@ -325,16 +423,21 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
-    check_ported(cfg)
-    return _stack_cache_specs(cfg, cfg.n_layers, batch, seq_len)
+    cross_len = cfg.n_audio_frames if cfg.is_encdec else 0
+    return _stack_cache_specs(cfg, cfg.n_layers, batch, seq_len, cross_len)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
-    """Zeroed cache tree on ``device`` (``None``: the card)."""
+    """Zeroed cache tree on ``device`` (``None``: the card).  A model with
+    SSD layers also gets the host flag ``ssm.STATE_BF16``, True: a fresh
+    state is bf16 in the reference."""
     dev = resolve_device(device)
     # Zeros draw nothing from the generator.
-    return initialize(cache_specs(cfg, batch, seq_len), None, dev)
+    tree = initialize(cache_specs(cfg, batch, seq_len), None, dev)
+    if "ssd" in cfg.layer_pattern:
+        tree[ssm.STATE_BF16] = torch.tensor(True)
+    return tree
 
 
 def prefill(cfg: ModelConfig, params: Params, batch, caches):
@@ -346,14 +449,18 @@ def prefill(cfg: ModelConfig, params: Params, batch, caches):
 
 
 def decode_step(cfg: ModelConfig, params: Params, caches, tokens,
-                cache_index):
+                cache_index, enc_out=None):
     """One decode step: tokens (B, 1) -> (logits (B, V), caches).
 
     ``cache_index`` is a scalar (all rows at the same position) or a (B,)
     vector of per-row positions; each row's KV is written at its own
-    position either way.
+    position either way.  ``enc_out``: an encoder-decoder's encoder
+    output (without it, the cross-attention layers run the reference's
+    self-attention branch over their own caches).
     """
-    logits, caches, _ = forward(cfg, params, {"tokens": tokens},
-                                mode="decode", caches=caches,
-                                cache_index=cache_index)
+    batch = {"tokens": tokens}
+    if cfg.is_encdec:
+        batch["enc_out"] = enc_out
+    logits, caches, _ = forward(cfg, params, batch, mode="decode",
+                                caches=caches, cache_index=cache_index)
     return logits[:, -1], caches

@@ -32,7 +32,7 @@ import torch
 from .config import ModelConfig
 from .layers import COMPUTE_DTYPE, _gelu_tanh
 from .spec import P
-from .ssm import _causal_conv
+from .ssm import _causal_conv, _softplus
 
 
 def rglru_specs(cfg: ModelConfig) -> Dict[str, P]:
@@ -68,11 +68,6 @@ def _gate_matmul(cfg: ModelConfig, x: torch.Tensor,
         out = torch.einsum("bsnk,nkj->bsnj", xb, w.to(x.dtype))
         return out.reshape(B, S, r)
     return x @ w.to(x.dtype)
-
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.softplus is logaddexp(x, 0).
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -72,6 +72,42 @@ def test_slice_modules_import_with_jax_blocked(module):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-tiny",
+                                  "pixtral-12b"])
+def test_lm_families_run_with_jax_blocked(arch):
+    """The SSD, encoder-decoder and embeddings-input paths (``encode``, a
+    prefill with the encoder output or embeddings, a decode step) run in
+    a process where ``jax`` cannot be imported."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import model\n"
+        f"cfg = get_config({arch!r}, smoke=True)\n"
+        "lm = model.init_params(cfg, 0, device='cpu')\n"
+        "batch = {'tokens': np.zeros((1, 16), np.int32)}\n"
+        "enc = None\n"
+        "if cfg.is_encdec:\n"
+        "    enc = lm.encode(np.zeros((1, cfg.n_audio_frames, cfg.d_model),"
+        " np.float32))\n"
+        "    batch['enc_out'] = enc\n"
+        "if cfg.input_mode == 'embeddings':\n"
+        "    batch = {'embeds': np.zeros((1, 16, cfg.d_model), np.float32)}\n"
+        "caches = lm.init_cache(1, 32)\n"
+        "lm.prefill(batch, caches)\n"
+        "logits, _ = lm.decode_step(caches, np.zeros((1, 1), np.int32), 16,"
+        " enc_out=enc)\n"
+        "assert logits.shape == (1, cfg.vocab)\n"
+        "bad = [m for m in sys.modules if m == 'repro' or\n"
+        "       m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):

@@ -7,11 +7,13 @@ process with its Pallas kernels in interpret mode.  The reference prints
 its counters and returns nothing, so its report lines are parsed; the
 port's returned ``ServiceStats.snapshot()`` must hold the same counters,
 and its report lines must carry the same numbers (exact: all counters are
-integers).  ``--workload lm`` with an arch the port has not brought up
-is refused; its parity is in ``tests/test_torch_lm_serving.py``.
+integers).  ``--workload lm`` runs every arch; the SSD, encoder-decoder
+and embeddings-input archs are held here to the reference launcher's
+counts, the others in ``tests/test_torch_lm_{serving,moe,hybrid}.py``.
 """
 
 import re
+from types import SimpleNamespace
 
 import pytest
 
@@ -82,14 +84,77 @@ def test_stream_workload_matches_jax(capsys, argv):
     assert snap["n_bank_launches"] == snap["n_ticks"] == 8
 
 
-def test_lm_workload_is_refused(capsys):
-    """The lm workload runs (``tests/test_torch_lm_serving.py`` holds it to
-    the reference); an arch of a block family the port has not brought up
-    is refused, naming the ROADMAP item."""
-    with pytest.raises(SystemExit):
-        tserve.main(["--workload", "lm", "--arch", "mamba2-130m",
-                     "--device", "cpu"])
-    assert "item 16b" in capsys.readouterr().err
+@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-tiny",
+                                  "pixtral-12b"])
+def test_lm_workload_matches_jax(capsys, monkeypatch, arch):
+    """``--workload lm`` for the SSD, encoder-decoder (tokens only, as the
+    reference launcher serves it) and embeddings-input archs: the seeded
+    launcher runs (no arch is refused), and on the reference's
+    PRNGKey(0) weights it prints the reference launcher's counts, its
+    streams equal under the margin rule of
+    ``tests/test_torch_lm_serving.py`` (mamba2's margin is read off the
+    reference engine's own logits: its engine steps every slot's state,
+    so a forward over the context is another function)."""
+    import sys
+
+    import jax
+    import numpy as np
+    from test_torch_lm_model import to_np
+    from test_torch_lm_serving import same_stream
+    from test_torch_lm_ssm import recorded_engine, same_under_margin
+
+    from repro.configs import get_config
+    from repro.models import model
+    from repro.serving import engine
+    from repro_torch import convert
+    from repro_torch.configs import get_config as tget
+
+    got = tserve.main(["--workload", "lm", "--arch", arch, "--device", "cpu",
+                       "--requests", "2", "--max-new", "6"])
+    assert got["n_tokens"] == 12
+    assert "served 2 requests, 12 tokens" in capsys.readouterr().out
+
+    streams = []
+
+    class Recording(engine.Engine):
+        def run(self, requests, max_steps=10_000):
+            super().run(requests, max_steps)
+            streams.extend(list(r.out) for r in requests)
+
+    monkeypatch.setattr(jserve, "Engine", Recording)
+    monkeypatch.setattr(sys, "argv", ["serve", "--workload", "lm",
+                                      "--arch", arch])
+    assert jserve.main() is None
+    ref_out = capsys.readouterr().out
+    cfg = get_config(arch, smoke=True)
+    params = model.init_params(cfg, jax.random.PRNGKey(0))
+    lm = convert.params_from_numpy(tget(arch, smoke=True), to_np(params),
+                                   device="cpu")
+    args = tserve.build_parser().parse_args(["--workload", "lm", "--arch",
+                                             arch, "--device", "cpu"])
+    got = tserve.run_lm(args, params=lm)
+    port_out = capsys.readouterr().out
+    served = r"served (\d+) requests, (\d+) tokens"
+    assert re.search(served, port_out).groups() == re.search(
+        served, ref_out).groups()
+    assert (got["n_requests"], got["n_tokens"]) == (6, 96)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 8, dtype=np.int32)
+               for _ in range(6)]
+    if cfg.family == "ssm":
+        _, _, top2 = recorded_engine(engine.Engine, engine.Request, cfg,
+                                     params, prompts, 16, 4, max_seq=64)
+        equal = [same_under_margin(w, g, steps.__getitem__, "launcher")
+                 for w, g, steps in zip(streams, got["streams"], top2)]
+    else:
+        ref = SimpleNamespace(jnp=jax.numpy, model=model, cfg=cfg,
+                              params=params)
+        equal = [same_stream(ref, p, w, g, "launcher")
+                 for p, w, g in zip(prompts, streams, got["streams"])]
+    if all(equal):
+        acc = r"acceptance: (\d+/\d+)"
+        assert re.search(acc, port_out).groups() == re.search(
+            acc, ref_out).groups()
 
 
 def test_failed_queries_fail_the_run(monkeypatch):
