@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's match and LM serving paths on one NVIDIA card and
-check them.
+"""Drive the PyTorch port's match, LM serving and LM training paths on one
+NVIDIA card and check them.
 
 Run from the root of a checkout, on a machine with a CUDA device, the
 CUDA toolkit and PyTorch built for CUDA:
@@ -155,7 +155,33 @@ printing its wall time beside the card's name and power limit:
    attends its own cache); (p) a prefill of seeded embeddings plus token
    decode against the forward over the joined embeddings, the token
    path as (l2)'s.
-11. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
+11. LM training through the port's entry points (no kernel of its own:
+   the reference's LM and optimizer are plain ``jnp``), seeded, each
+   config's memory freed before the next: (t1) llama3.2-1b at full width
+   and depth (f32, 1,235,814,400 params) through
+   ``repro_torch.launch.train``'s ``main`` at its defaults
+   (``SyntheticLM``, batch 8 x seq 128, lr 3e-4, warmup 20) for 16 steps:
+   every loss finite, the first within 15% of ln(vocab), the mean of the
+   last 4 below the first 4's; ms a step (median after 2 warm-up steps),
+   tokens/s and the step's bound (6 N T at the bf16 peak plus AdamW's 32
+   B a parameter over HBM), then one more step of the same config timed
+   in parts (``adamw.update``'s share) and one profiled (device-busy
+   share, kernels), and the peak memory; (t2) olmoe-1b-7b at 2 layers,
+   recurrentgemma-9b's training deployment at one unit of 3 layers
+   (block-diagonal gates), mamba2-130m's (``ssd_bf16_intra``) at full
+   depth on two chunks, whisper-tiny at full depth with 1,500 seeded
+   frames and pixtral-12b at 2 layers on seeded embeddings with
+   microbatch 4, 3 steps each at full width: every loss and gradient
+   norm finite, ms a step and peak memory; (t3) one ``train_step`` a
+   family (dense, MoE, hybrid, SSM, encoder-decoder, embeddings) at full
+   width, 1-2 layers, batch 2 x seq 64, on the card and on the CPU from
+   the same weights: the loss within 1e-3 relative, every gradient leaf
+   and updated parameter within 3e-2 relative L2, the worst printed;
+   (t4) llama3.2-1b at full width and 2 layers, 8 steps checkpointed
+   every 4, then a restart from step 4: the resumed losses within 1e-3
+   relative of the uninterrupted run's (whether bit-equal printed), the
+   last save's snapshot ms, write s and bytes; the directory removed.
+12. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
    (``match_swar``'s launches count phase 10's), the script's wall time,
    the card's name and power limit, and ``{"ok": true, "device":
    {...}}`` as the last line.
@@ -305,6 +331,25 @@ LM_CPU_REQUESTS, LM_CPU_PROMPT, LM_CPU_NEW, LM_CPU_SLOTS = 3, (2, 4), 3, 2
 LM_SSD_ARCH, LM_ENCDEC_ARCH, LM_EMBEDS_ARCH = ("mamba2-130m",
                                                "whisper-tiny", "pixtral-12b")
 LM_SSD_LONG = 2048
+# LM training (phase 11): (t1) llama3.2-1b at full width and depth through
+# the train launcher's ``main`` at its defaults (``SyntheticLM``, batch 8 x
+# seq 128, lr 3e-4, warmup 20) for TRAIN_STEPS steps, ms a step the median
+# after TRAIN_WARM; (t2) the other families at full width, TRAIN_T2_STEPS
+# steps of batch TRAIN_B2 x seq TRAIN_S2 (mamba2: two chunks); (t3) one
+# train step a family on the card and on the CPU, batch TRAIN_B3 x seq
+# TRAIN_S3, the loss within TRAIN_LOSS_RTOL relative and every gradient
+# leaf and updated parameter within TRAIN_LEAF_RTOL relative L2 (a leaf
+# that starts at 0: under TRAIN_FLIP_SHARE of its entries stepped the
+# other way); (t4)
+# llama at TRAIN_T4_LAYERS layers, TRAIN_T4_STEPS steps checkpointed every
+# TRAIN_T4_EVERY, resumed from that step.  A step's bound charges AdamW
+# TRAIN_OPT_BYTES a parameter: f32 p, g, m and v read, p, m and v written,
+# and the gradient's own write.
+TRAIN_STEPS, TRAIN_WARM, TRAIN_T2_STEPS = 16, 2, 3
+TRAIN_B2, TRAIN_S2, TRAIN_B3, TRAIN_S3 = 4, 128, 2, 64
+TRAIN_T4_LAYERS, TRAIN_T4_STEPS, TRAIN_T4_EVERY = 2, 8, 4
+TRAIN_LOSS_RTOL, TRAIN_LEAF_RTOL, TRAIN_FLIP_SHARE = 1e-3, 3e-2, 1e-2
+TRAIN_OPT_BYTES = 32
 
 
 def check(cond: bool, what: str) -> None:
@@ -2116,8 +2161,14 @@ def lm_propose_held(spec, suffix, k: int):
 
 def lm_step_profile(lm, caches, toks, pos, sync, dec_kw):
     """One decode step (``dec_kw``: ``decode_step``'s keywords) under
-    ``torch.profiler``: wall ms, device-busy ms and the five kernels with
-    the most device time."""
+    ``torch.profiler``, as ``profile_call`` reads it."""
+    return profile_call(lambda: lm.decode_step(caches, toks, pos, **dec_kw),
+                        sync)
+
+
+def profile_call(run, sync):
+    """One call of ``run`` under ``torch.profiler``: wall ms, device-busy
+    ms, the kernels launched and the five with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2125,7 +2176,7 @@ def lm_step_profile(lm, caches, toks, pos, sync, dec_kw):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        lm.decode_step(caches, toks, pos, **dec_kw)
+        run()
         sync()
         wall = (time.perf_counter() - t) * 1e3
     by_kernel = {}
@@ -2138,6 +2189,427 @@ def lm_step_profile(lm, caches, toks, pos, sync, dec_kw):
     busy = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:5]
     return wall, busy, sum(n for _, n in by_kernel.values()), top
+
+
+def train_configs(smoke: bool):
+    """Phase 11's configs: (t1)'s arch; (t2)'s (label, config, batch,
+    seq) at full width; (t3)'s (label, config) families at 1-2 layers.
+    ``smoke``: the same cuts of the smoke configs (a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+
+    def cut(arch, optimized=False, **kw):
+        cfg = get_config(arch, smoke=smoke, optimized=optimized)
+        if "n_layers" in kw:
+            kw["n_layers"] = min(kw["n_layers"], cfg.n_layers)
+        return dataclasses.replace(cfg, **kw)
+    ssd = cut(LM_SSD_ARCH, optimized=True)
+    t2 = [("olmoe", cut(LM_MOE_ARCH, n_layers=2), TRAIN_B2, TRAIN_S2),
+          ("rgemma", cut(LM_HYBRID_ARCH, optimized=True, n_layers=3),
+           TRAIN_B2, TRAIN_S2),
+          ("mamba2", ssd, TRAIN_B2, 2 * ssd.ssm_chunk),
+          ("whisper", cut(LM_ENCDEC_ARCH), TRAIN_B2, TRAIN_S2),
+          ("pixtral", cut(LM_EMBEDS_ARCH, n_layers=2), TRAIN_B2, TRAIN_S2)]
+    t3 = [("dense", cut(LM_ARCH, n_layers=1)),
+          ("moe", cut(LM_MOE_ARCH, n_layers=1)),
+          ("hybrid", cut(LM_HYBRID_ARCH, optimized=True, n_layers=2)),
+          ("ssm", cut(LM_SSD_ARCH, optimized=True, n_layers=2)),
+          ("encdec", cut(LM_ENCDEC_ARCH, n_layers=1, n_enc_layers=1)),
+          ("embeds", cut(LM_EMBEDS_ARCH, n_layers=1, microbatch=2))]
+    return t2, t3
+
+
+def train_batch(cfg, B: int, S: int, step: int, device):
+    """A seeded batch on ``device``: ``SyntheticLM``'s tokens and labels;
+    whisper's frames and pixtral's embeddings (seeded stand-ins for the
+    stub frontends, bf16 as ``forward`` casts them) beside them."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    b = SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                    seed=SEED).batch_at(step)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+    gen = torch.Generator(device=device).manual_seed(SEED + step)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(B, cfg.n_audio_frames, cfg.d_model,
+                                      generator=gen, device=device
+                                      ).bfloat16()
+    if cfg.input_mode == "embeddings":
+        batch["embeds"] = (torch.randn(B, S, cfg.d_model, generator=gen,
+                                       device=device)
+                           / cfg.d_model ** 0.5).bfloat16()
+        del batch["tokens"]
+    return batch
+
+
+def train_step_bound_ms(n_params: int, tokens: int) -> float:
+    """The least time of a train step on the card: 6 N T FLOPs at the
+    bf16 peak plus AdamW's TRAIN_OPT_BYTES a parameter over HBM."""
+    from repro_torch.core.tech import H100
+    return 1e3 * (6 * n_params * tokens / H100.peak_bf16_flops
+                  + TRAIN_OPT_BYTES * n_params / H100.hbm_bw)
+
+
+def train_free(cuda: bool) -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def train_phase(*, device="cuda", sync, smoke=False, profile=True):
+    """Phase 11: LM training through the port's entry points, (t1)-(t4);
+    returns what it measured.  ``smoke`` cuts every config to its smoke
+    variant and ``profile`` turns the profiled step on, so that the phase
+    rehearses on the CPU."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    t2, t3 = train_configs(smoke)
+    info = {"t1": train_t1(device=device, sync=sync, smoke=smoke,
+                           profile=profile)}
+    train_free(cuda)
+    info["t2"] = {}
+    for label, cfg, B, S in t2:
+        info["t2"][label] = train_t2(label, cfg, B, S, device=device,
+                                     sync=sync)
+        train_free(cuda)
+    info["t3"] = {}
+    for label, cfg in t3:
+        info["t3"][label] = train_t3(label, cfg, device=device)
+        train_free(cuda)
+    info["t4"] = train_t4(device=device, smoke=smoke)
+    train_free(cuda)
+    return info
+
+
+def train_t1(*, device, sync, smoke, profile):
+    """(t1) llama3.2-1b at full width and depth through the train
+    launcher's ``main`` at its defaults, then one profiled step of the
+    same config: its device-busy share and kernels, and the optimizer's
+    share of an unprofiled step (CUDA events around ``adamw.update``)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as lmm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rsteps
+    cuda = torch.device(device).type == "cuda"
+    cfg = get_config(LM_ARCH, smoke=smoke)
+    if cuda:
+        # Earlier phases' buffers stay allocated: peaks are read above
+        # what is allocated here.
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    res = launch_train.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+                             "--device", str(device)]
+                            + (["--smoke"] if smoke else []))
+    out = {"config": cfg.name, "steps": len(res.losses),
+           "losses": res.losses, "wall_s": time.perf_counter() - t,
+           "remat": cfg.remat}
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    B, S = 8, 128                     # the launcher's defaults
+    n = cfg.n_params()
+    steady = res.step_times[TRAIN_WARM:]
+    out.update(n_params=n, tokens=B * S,
+               step_ms=1e3 * float(np.median(steady)),
+               step_ms_runs=[1e3 * x for x in res.step_times],
+               bound_ms=train_step_bound_ms(n, B * S))
+    out["tokens_s"] = B * S / (out["step_ms"] / 1e3)
+    losses = res.losses
+    check(all(math.isfinite(x) for x in losses), "(t1) every loss finite")
+    first = abs(losses[0] - math.log(cfg.vocab)) / math.log(cfg.vocab)
+    out["first_vs_ln_vocab"] = first
+    check(first < 0.15, f"(t1) first loss {losses[0]:.4f} within 15% of "
+          f"ln(vocab) {math.log(cfg.vocab):.4f}")
+    check(np.mean(losses[-4:]) < np.mean(losses[:4]),
+          "(t1) the mean of the last 4 losses below the first 4's")
+
+    # One step of the same config, timed in parts and profiled.
+    lm = lmm.init_params(cfg, SEED, device, trainable=True)
+    state = adamw.init(lm)
+    step = rsteps.make_train_step(cfg, adamw.OptConfig(
+        peak_lr=3e-4, warmup_steps=20, decay_steps=100))
+    batch = train_batch(cfg, B, S, 0, device)
+    for _ in range(TRAIN_WARM):
+        step(lm, state, batch)
+    update, opt_ms = adamw.update, []
+
+    def timed_update(*args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        r = update(*args, **kw)
+        sync()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+    adamw.update = timed_update
+    try:
+        walls = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            step(lm, state, batch)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        adamw.update = update
+    out["timed_step_ms"] = float(np.median(walls))
+    out["optimizer_ms"] = float(np.median(opt_ms))
+    out["optimizer_share"] = out["optimizer_ms"] / out["timed_step_ms"]
+    if profile:
+        wall, busy, kernels, top = profile_call(
+            lambda: step(lm, state, batch), sync)
+        out.update(profiled_step_ms=wall, device_busy_ms=busy,
+                   device_busy_share=busy / wall, kernels_per_step=kernels,
+                   top_kernels=[(k, ms, c) for k, (ms, c) in top])
+    del lm, state
+    print(f"  (t1) {cfg.name}: {n:,} params f32, batch {B} x seq {S}, "
+          f"remat {cfg.remat}; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {len(losses)} steps (first within "
+          f"{100 * first:.1f}% of ln(vocab)); ms a step "
+          f"{out['step_ms']:.2f} (median after {TRAIN_WARM} warm-up "
+          f"steps), {out['tokens_s']:.0f} tokens/s, bound "
+          f"{out['bound_ms']:.2f} ms (6 N T at "
+          f"{989:.0f} TFLOP/s + {TRAIN_OPT_BYTES} B a param at 3.35 TB/s)")
+    print(f"  (t1) timed step {out['timed_step_ms']:.2f} ms, adamw.update "
+          f"{out['optimizer_ms']:.2f} ms ({100 * out['optimizer_share']:.1f}"
+          f"% of the step)"
+          + (f"; device busy {100 * out['device_busy_share']:.1f}% of a "
+             f"profiled step of {out['profiled_step_ms']:.2f} ms "
+             f"({out['kernels_per_step']} kernels; top "
+             + ", ".join(f"{k[:40]} {ms:.2f} ms x{c}"
+                         for k, ms, c in out["top_kernels"]) + ")"
+             if profile else "")
+          + (f"; peak {out['peak_bytes'] / 2**30:.2f} GiB above the start"
+             if cuda else "")
+          + f"; {out['wall_s']:.1f} s; card: {Phase.card}")
+    return out
+
+
+def train_t2(label, cfg, B, S, *, device, sync):
+    """(t2) one family at full width, TRAIN_T2_STEPS steps of
+    ``make_train_step``: every loss and gradient norm finite (the norm
+    sums every leaf's squares, so a NaN or inf anywhere shows in it)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as lmm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rsteps
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    lm = lmm.init_params(cfg, SEED, device, trainable=True)
+    state = adamw.init(lm)
+    step = rsteps.make_train_step(cfg, adamw.OptConfig(
+        peak_lr=3e-4, warmup_steps=20, decay_steps=100))
+    out = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "n_params": sum(p.numel() for p in lm.parameters()),
+           "batch": B, "seq": S, "microbatch": cfg.microbatch,
+           "losses": [], "grad_norms": [], "step_ms_runs": []}
+    for i in range(TRAIN_T2_STEPS):
+        batch = train_batch(cfg, B, S, i, device)
+        sync()
+        t0 = time.perf_counter()
+        _, _, m = step(lm, state, batch)
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        out["step_ms_runs"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(loss)
+        out["grad_norms"].append(norm)
+        check(math.isfinite(loss) and math.isfinite(norm),
+              f"(t2) {label} step {i}: loss {loss} and gradient norm "
+              f"{norm} finite")
+    out["step_ms"] = float(np.median(out["step_ms_runs"][1:]))
+    del lm, state
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["wall_s"] = time.perf_counter() - t
+    print(f"  (t2) {label} {cfg.name}: {cfg.n_layers} layers, "
+          f"{out['n_params']:,} params {cfg.param_dtype}, batch {B} x "
+          f"seq {S}, microbatch {cfg.microbatch}; losses "
+          + ", ".join(f"{x:.4f}" for x in out["losses"])
+          + f"; gradient norms "
+          + ", ".join(f"{x:.3f}" for x in out["grad_norms"])
+          + f"; {out['step_ms']:.1f} ms a step (median after the first)"
+          + (f"; peak {out['peak_bytes'] / 2**30:.2f} GiB above the start"
+             if cuda else "")
+          + f"; {out['wall_s']:.1f} s; card: {Phase.card}")
+    return out
+
+
+def train_t3(label, cfg, *, device):
+    """(t3) one ``train_step`` of the same port code on ``device`` and on
+    the CPU from the same weights and batch: the loss within
+    TRAIN_LOSS_RTOL relative, every gradient leaf (captured at
+    ``adamw.update``) and every updated parameter within TRAIN_LEAF_RTOL
+    relative L2."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.models import model as lmm
+    from repro_torch.models.spec import leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rsteps
+    t = time.perf_counter()
+    card = lmm.init_params(cfg, SEED, device, trainable=True)
+    host = convert.to_numpy(card)
+    cpu = convert.params_from_numpy(cfg, host, device="cpu")
+    cpu.requires_grad_(True)
+    runs = {}
+    update = adamw.update
+    for name, lm, dev in (("card", card, device), ("cpu", cpu, "cpu")):
+        seen = []
+
+        def capture(opt, grads, state, params):
+            seen.append({p: g.detach().float().cpu()
+                         for p, g in leaves(grads)})
+            return update(opt, grads, state, params)
+        adamw.update = capture
+        try:
+            step = rsteps.make_train_step(cfg, adamw.OptConfig())
+            # The card's batch, copied: both runs see the same inputs.
+            batch = train_batch(cfg, TRAIN_B3, TRAIN_S3, 0, device)
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            _, _, m = step(lm, adamw.init(lm), batch)
+        finally:
+            adamw.update = update
+        runs[name] = (m["loss"].item(), seen[0],
+                      {p: v.detach().float().cpu()
+                       for p, v in leaves(lm.params)})
+        del lm
+    del card, cpu
+    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = runs["card"], runs["cpu"]
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b)
+                     / torch.clamp_min(torch.linalg.norm(b), 1e-30))
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    check(loss_err < TRAIN_LOSS_RTOL, f"(t3) {label} loss card {l_card} vs "
+          f"CPU {l_cpu}")
+    # Without RoPE a key bias's exact gradient is 0 (a softmax ignores a
+    # constant added to every score of a query): both devices' are
+    # rounding noise, held under 1e-3 of the gradient's global norm, and
+    # AdamW's first step moves each of its entries by +-lr, whatever the
+    # noise's sign, so its parameters are held within 2 lr.
+    noise = {p for p in g_cpu if cfg.rope_theta <= 0 and p.endswith("/bk")}
+    norm = float(sum(torch.sum(g.double() ** 2) for g in g_cpu.values())
+                 ** 0.5)
+    lr = float(adamw.schedule(adamw.OptConfig(), torch.tensor(1.0)))
+    for p in noise:
+        check(max(float(torch.linalg.norm(g_card[p])),
+                  float(torch.linalg.norm(g_cpu[p]))) < 1e-3 * norm
+              and float((p_card[p] - p_cpu[p]).abs().max()) <= 2.02 * lr,
+              f"(t3) {label} {p}: a gradient of rounding noise only")
+    # A leaf that starts at 0 (a bias, ``A_log``) is, after AdamW's first
+    # step, -lr times the sign of its gradient in each entry (m / sqrt(v)
+    # is +-1 then): its relative L2 counts the entries whose gradient is
+    # so small that the devices' rounding flips its sign.  Those leaves
+    # are held by the share of flipped entries, under TRAIN_FLIP_SHARE.
+    zero = {p for p, h in leaves(host) if not h.any()} - noise
+    flips = {p: float((torch.sign(p_card[p]) != torch.sign(p_cpu[p]))
+                      .float().mean()) for p in zero}
+    g_err = {p: rel(g_card[p], g) for p, g in g_cpu.items()
+             if p not in noise}
+    p_err = {p: rel(p_card[p], w) for p, w in p_cpu.items()
+             if p not in noise | zero}
+    worst_f = max(flips.items(), key=lambda kv: kv[1], default=("", 0.0))
+    check(worst_f[1] < TRAIN_FLIP_SHARE, f"(t3) {label} first-step signs "
+          f"{worst_f}")
+    d_err = {p: rel(p_card[p] - torch.from_numpy(host_leaf),
+                    p_cpu[p] - torch.from_numpy(host_leaf))
+             for p, host_leaf in leaves(host) if p not in noise}
+    worst_g = max(g_err.items(), key=lambda kv: kv[1])
+    worst_p = max(p_err.items(), key=lambda kv: kv[1])
+    worst_d = max(d_err.items(), key=lambda kv: kv[1])
+    check(worst_g[1] < TRAIN_LEAF_RTOL, f"(t3) {label} gradient {worst_g}")
+    check(worst_p[1] < TRAIN_LEAF_RTOL, f"(t3) {label} params {worst_p}")
+    out = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "noise_leaves": sorted(noise),
+           "loss_rel_err": loss_err, "worst_grad": worst_g,
+           "worst_param": worst_p, "worst_update_not_held": worst_d,
+           "worst_zero_init_flips": worst_f,
+           "wall_s": time.perf_counter() - t}
+    print(f"  (t3) {label} {cfg.name} at {cfg.n_layers} layers, batch "
+          f"{TRAIN_B3} x seq {TRAIN_S3}: loss card {l_card:.6f} vs CPU "
+          f"{l_cpu:.6f} (relative {loss_err:.2e}); worst gradient leaf "
+          f"{worst_g[0]} {worst_g[1]:.5f}, worst parameter {worst_p[0]} "
+          f"{worst_p[1]:.2e} (relative L2); zero-initialised leaves' "
+          f"first-step signs flipped at most in {worst_f[0]} "
+          f"{100 * worst_f[1]:.3f}%; the update itself (not held) "
+          f"{worst_d[0]} {worst_d[1]:.4f}; {out['wall_s']:.1f} s; card: "
+          f"{Phase.card}")
+    return out
+
+
+def train_t4(*, device, smoke):
+    """(t4) llama3.2-1b at full width and TRAIN_T4_LAYERS layers: an
+    uninterrupted run of TRAIN_T4_STEPS steps checkpointing every
+    TRAIN_T4_EVERY, then a restart from step TRAIN_T4_EVERY (the later
+    checkpoints removed): the resumed steps' losses equal the
+    uninterrupted run's within TRAIN_LOSS_RTOL relative.  The directory
+    is under ``build/`` and removed afterwards."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import loop
+    cfg = dataclasses.replace(get_config(LM_ARCH, smoke=smoke),
+                              n_layers=TRAIN_T4_LAYERS)
+    opt = adamw.OptConfig(peak_lr=3e-4, warmup_steps=20, decay_steps=100)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=128, global_batch=8,
+                       seed=SEED)
+    d = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    t = time.perf_counter()
+    try:
+        mgr = CheckpointManager(d)
+        kw = dict(log_every=0, log=lambda *_: None, device=device)
+        whole = loop.train(cfg, opt, data, TRAIN_T4_STEPS, ckpt=mgr,
+                           ckpt_every=TRAIN_T4_EVERY, **kw)
+        saved = dict(mgr.last_save)
+        steps_saved = mgr.all_steps()
+        for s in steps_saved:
+            if s > TRAIN_T4_EVERY:
+                shutil.rmtree(d / f"step_{s:09d}")
+        check(mgr.latest_step() == TRAIN_T4_EVERY,
+              f"(t4) checkpoint at step {TRAIN_T4_EVERY} kept")
+        resumed = loop.train(cfg, opt, data, TRAIN_T4_STEPS,
+                             ckpt=CheckpointManager(d), **kw)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    want = whole.losses[TRAIN_T4_EVERY:]
+    check(len(resumed.losses) == len(want), "(t4) resumed steps")
+    errs = [abs(a - b) / abs(b) for a, b in zip(resumed.losses, want)]
+    check(max(errs) < TRAIN_LOSS_RTOL, f"(t4) resumed losses "
+          f"{resumed.losses} vs {want}")
+    out = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "losses_whole": whole.losses, "losses_resumed": resumed.losses,
+           "max_rel_err": max(errs),
+           "bit_equal": resumed.losses == want,
+           "checkpoints": steps_saved, "save": saved,
+           "wall_s": time.perf_counter() - t}
+    print(f"  (t4) {cfg.name} at {cfg.n_layers} layers: checkpoints at "
+          f"{steps_saved}; resumed from step {TRAIN_T4_EVERY}: losses "
+          + ", ".join(f"{x:.6f}" for x in resumed.losses) + " vs "
+          + ", ".join(f"{x:.6f}" for x in want)
+          + f" (max relative {max(errs):.2e}, bit-equal "
+          f"{out['bit_equal']}); last save: snapshot "
+          f"{1e3 * saved['snapshot_s']:.1f} ms, write "
+          f"{saved['write_s']:.2f} s, {saved['bytes'] / 1e9:.3f} GB; "
+          f"{out['wall_s']:.1f} s; card: {Phase.card}")
+    return out
 
 
 def main() -> int:
@@ -3066,7 +3538,14 @@ def main() -> int:
             sync=torch.cuda.synchronize)
         print("lm " + json.dumps(lm_info))
 
-    # -- 11. summary ---------------------------------------------------------
+    # -- 11. LM training ------------------------------------------------------
+    with Phase("phase 11: LM training at full width: llama3.2-1b through "
+               "the train launcher, the other families, card against CPU, "
+               "checkpoint and resume"):
+        train_info = train_phase(sync=torch.cuda.synchronize)
+        print("train " + json.dumps(train_info))
+
+    # -- 12. summary ---------------------------------------------------------
     # Each kernel's launches come from its own path's run; match_swar's
     # path is (e)-(f)'s verify and phase 10's speculators.
     path_launches = dict(launches)

@@ -24,6 +24,13 @@ the reference holds, and these functions build the port's equivalent on
   way; an SSD state comes in bf16 or f32 (the reference's dtype changes
   with the call that last wrote it) and is widened to the port's f32
   leaf exactly, its dtype kept in the tree's ``STATE_BF16`` flag.
+* ``opt_state_from_numpy`` -- the reference's AdamW state (``{"m", "v",
+  "step"}``, numpy leaves) as the port's: ``m`` and ``v`` f32, checked
+  against the parameters' paths and shapes, ``step`` a 0-d int32 tensor.
+* ``to_numpy`` -- the other way: a port tree (a ``CausalLM``, a tree of
+  tensors such as gradients or the AdamW state) as nested dicts of numpy
+  arrays (copies), bf16 leaves widened to f32 (exact), so a test holds them
+  against the reference's ``jax.tree.map(np.asarray, ...)``.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from repro_torch.match.corpus import PackedCorpus
 from repro_torch.models import model as _model
 from repro_torch.models import ssm as _ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.spec import leaves
+from repro_torch.models.spec import P, leaves, map_tree, tree_map
 
 
 def corpus_from_numpy(fragments: np.ndarray, *,
@@ -156,3 +163,28 @@ def cache_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
             raise ValueError(f"SSD states of several dtypes: {states}")
         out[_ssm.STATE_BF16] = torch.tensor(states == {"bfloat16"})
     return out
+
+
+def opt_state_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
+                         device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's ``adamw.init``/``update`` state (numpy leaves) as
+    the port's."""
+    dev = resolve_device(device)
+    specs = tree_map(lambda s: P(s.shape, s.axes, s.init, torch.float32),
+                     _model.param_specs(cfg))
+    step = np.asarray(tree["step"])
+    if step.dtype != np.int32 or step.shape != ():
+        raise ValueError(f"step: {step.dtype} {step.shape}, the port's "
+                         f"state holds a 0-d int32")
+    return {"m": _tree_from_numpy(specs, tree["m"], dev),
+            "v": _tree_from_numpy(specs, tree["v"], dev),
+            "step": torch.from_numpy(np.array(step)).to(dev)}
+
+
+def to_numpy(tree) -> Any:
+    """A port tree as nested dicts of numpy arrays (bf16 widened to
+    f32)."""
+    def leaf(t):
+        t = t.detach().to("cpu", copy=True)      # apart from the tensor
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return map_tree(leaf, _model.param_tree(tree))

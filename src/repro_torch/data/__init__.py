@@ -1,3 +1,3 @@
 """Data plane of the port: near-duplicate filtering on the match engine
-(``dedup``).  The LM data pipeline of ``repro.data.pipeline`` arrives
-with the LM substrate."""
+(``dedup``) and the LM data pipeline (``pipeline``: ``SyntheticLM``,
+``TextLM``, ``host_shard``)."""

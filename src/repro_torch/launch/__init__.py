@@ -1,1 +1,2 @@
-"""Launchers of the port: ``serve`` (the match and stream workloads)."""
+"""Launchers of the port: ``serve`` (the match, stream and lm workloads)
+and ``train`` (the LM training loop)."""

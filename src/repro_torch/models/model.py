@@ -14,12 +14,18 @@ port runs a Python loop over the stacked dim.  Caches are stacked the same
 way and updated in place.
 
 Entry points: ``init_params`` (-> ``CausalLM``), ``encode``, ``forward``,
-``prefill``, ``decode_step``, ``cache_specs`` and ``init_cache``.  Every
-block kind of the reference is ported (``attn``, ``local_attn``, ``moe``,
-``ssd``, ``rglru``), the encoder-decoder and ``input_mode="embeddings"``
-too.  ``loss_fn`` belongs to training (ROADMAP item 16c).  The
-reference's ``constrain`` sharding hints are no-ops on one device and are
-left out (item 14).
+``loss_fn``, ``prefill``, ``decode_step``, ``cache_specs`` and
+``init_cache``.  Every block kind of the reference is ported (``attn``,
+``local_attn``, ``moe``, ``ssd``, ``rglru``), the encoder-decoder and
+``input_mode="embeddings"`` too.  ``forward``, ``encode`` and ``loss_fn``
+build an autograd graph when the parameters take gradients
+(``init_params(..., trainable=True)``); the serving entry points
+(``prefill``, ``decode_step`` and ``CausalLM``'s methods) run under
+``torch.no_grad()``.  Where the reference wraps its scanned units in
+``jax.checkpoint`` (``cfg.remat``, a cacheless full-mode call), the port
+wraps each unit in ``torch.utils.checkpoint`` when it records a graph:
+memory, not values.  The reference's ``constrain`` sharding hints are
+no-ops on one device and are left out (item 14).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -169,11 +176,25 @@ def _stack_cache_specs(cfg: ModelConfig, n_layers: int, batch: int,
     return out
 
 
-def _at(tree, u: int):
-    """Unit ``u`` of a stacked tree: a view of every leaf."""
+def _unstack(tree, n: int):
+    """The ``n`` units of a stacked tree, each a tree of views.  One
+    ``unbind`` a leaf: its backward stacks the units' gradients in one
+    write, where indexing each unit would add a full-size zero tensor a
+    unit."""
     if isinstance(tree, torch.Tensor):
-        return tree[u]
-    return {k: _at(v, u) for k, v in tree.items()}
+        return torch.unbind(tree, 0)
+    per_key = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: v[u] for k, v in per_key.items()} for u in range(n)]
+
+
+def _apply_layers(cfg: ModelConfig, run, x, **kw):
+    """``run``'s (kind, params, cache) layers in turn: (x, aux or None)."""
+    aux_total = None
+    for kind, p, cache in run:
+        x, aux = block_apply(cfg, kind, p, x, cache=cache, **kw)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total
 
 
 def _apply_stack(cfg: ModelConfig, stack_params, x, *, positions, mode,
@@ -183,27 +204,36 @@ def _apply_stack(cfg: ModelConfig, stack_params, x, *, positions, mode,
     """Returns (x, the summed MoE aux loss: a 0-d f32 tensor).
     ``pattern`` (default ``cfg.block_pattern``) names the unit's kinds."""
     pattern = pattern or cfg.block_pattern
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers_run = []
+    kw = dict(positions=positions, mode=mode, cache_index=cache_index,
+              xa=xa, bidir=bidir, state_bf16=state_bf16)
+    groups = []         # (layers, remat): a unit each, then the rest
     if "units" in stack_params:
         units = stack_params["units"]
         n_units = next(leaves(units))[1].shape[0]
-        for u in range(n_units):
-            u_params = _at(units, u)
-            u_cache = _at(caches["units"], u) if caches else None
-            layers_run += [(kind, u_params[str(i)],
-                            u_cache[str(i)] if u_cache else None)
-                           for i, kind in enumerate(pattern)]
+        u_caches = (_unstack(caches["units"], n_units) if caches
+                    else [None] * n_units)
+        # Only a graph that records the units' parameters has memory to
+        # save.
+        remat = (cfg.remat and mode == "full" and caches is None
+                 and torch.is_grad_enabled()
+                 and next(leaves(units))[1].requires_grad)
+        for u_params, u_cache in zip(_unstack(units, n_units), u_caches):
+            groups.append(([(kind, u_params[str(i)],
+                             u_cache[str(i)] if u_cache else None)
+                            for i, kind in enumerate(pattern)], remat))
     if "rest" in stack_params:
         # Remainder layers continue the pattern from a unit boundary.
-        layers_run += [(pattern[i % len(pattern)], stack_params["rest"][key],
-                        caches["rest"][key] if caches else None)
-                       for i, key in enumerate(sorted(stack_params["rest"],
-                                                      key=int))]
-    for kind, p, cache in layers_run:
-        x, aux = block_apply(cfg, kind, p, x, positions=positions, mode=mode,
-                             cache=cache, cache_index=cache_index, xa=xa,
-                             bidir=bidir, state_bf16=state_bf16)
+        groups.append(([(pattern[i % len(pattern)], stack_params["rest"][key],
+                         caches["rest"][key] if caches else None)
+                        for i, key in enumerate(sorted(stack_params["rest"],
+                                                       key=int))], False))
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for run, remat in groups:
+        if remat:
+            x, aux = checkpoint(_apply_layers, cfg, run, x,
+                                use_reentrant=False, **kw)
+        else:
+            x, aux = _apply_layers(cfg, run, x, **kw)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -236,10 +266,10 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
-def _to_param_tree(tree) -> nn.ParameterDict:
+def _to_param_tree(tree, trainable: bool) -> nn.ParameterDict:
     return nn.ParameterDict({
-        k: (nn.Parameter(v, requires_grad=False)
-            if isinstance(v, torch.Tensor) else _to_param_tree(v))
+        k: (nn.Parameter(v, requires_grad=trainable)
+            if isinstance(v, torch.Tensor) else _to_param_tree(v, trainable))
         for k, v in tree.items()})
 
 
@@ -247,12 +277,14 @@ class CausalLM(nn.Module):
     """An LM (a decoder, or whisper's encoder-decoder): ``cfg`` plus the
     reference's parameter tree held as nested ``ParameterDict``s
     (``params["blocks"]["units"]["0"]["attn"]["wq"]``, stacked unit dim
-    first).  Serving only: parameters take no gradient."""
+    first).  ``trainable``: the parameters take gradients (training);
+    serving keeps them without (``requires_grad_`` switches later)."""
 
-    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any],
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.params = _to_param_tree(tree)
+        self.params = _to_param_tree(tree, trainable)
 
     @property
     def device(self) -> torch.device:
@@ -263,12 +295,15 @@ class CausalLM(nn.Module):
         return forward(self.cfg, self, batch, mode=mode, caches=caches,
                        cache_index=cache_index)
 
+    @torch.no_grad()
     def encode(self, frames):
         return encode(self.cfg, self, frames)
 
+    @torch.no_grad()
     def prefill(self, batch, caches):
         return prefill(self.cfg, self, batch, caches)
 
+    @torch.no_grad()
     def decode_step(self, caches, tokens, cache_index, enc_out=None):
         return decode_step(self.cfg, self, caches, tokens, cache_index,
                            enc_out)
@@ -280,7 +315,8 @@ class CausalLM(nn.Module):
 Params = Union[CausalLM, Dict[str, Any]]
 
 
-def _tree(params: Params):
+def param_tree(params: Params):
+    """The nested parameter tree (a ``CausalLM``'s ``params``)."""
     return params.params if isinstance(params, CausalLM) else params
 
 
@@ -292,13 +328,15 @@ def _generator(generator: Union[int, torch.Generator],
 
 
 def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
-                device: DeviceLike = None) -> CausalLM:
+                device: DeviceLike = None,
+                trainable: bool = False) -> CausalLM:
     """Seeded random parameters on ``device`` (``None``: the card).
-    ``generator`` is a seed or a ``torch.Generator`` on that device."""
+    ``generator`` is a seed or a ``torch.Generator`` on that device;
+    ``trainable``: the parameters take gradients."""
     dev = resolve_device(device)
     with torch.no_grad():
         tree = initialize(param_specs(cfg), _generator(generator, dev), dev)
-    return CausalLM(cfg, tree)
+    return CausalLM(cfg, tree, trainable=trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -346,12 +384,11 @@ def _written_positions(caches, cross: bool) -> Optional[int]:
                 if path.endswith(ends)), default=None)
 
 
-@torch.no_grad()
 def encode(cfg: ModelConfig, params: Params, frames) -> torch.Tensor:
     """Whisper-style encoder over precomputed (stub) frame embeddings
     (B, n_frames, d): sinusoidal positions, then bidirectional attention
     blocks; (B, n_frames, d) bf16."""
-    p = _tree(params)
+    p = param_tree(params)
     dev = p["embed"].device
     x = torch.as_tensor(frames, device=dev).to(COMPUTE_DTYPE)
     B, S = x.shape[0], x.shape[1]
@@ -363,7 +400,6 @@ def encode(cfg: ModelConfig, params: Params, frames) -> torch.Tensor:
     return layers.apply_norm(cfg, p["encoder"]["ln_f"], x)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             mode: str = "full", caches=None, cache_index=None):
     """Returns (logits f32 (B, S, V), caches, aux).  ``batch`` holds
@@ -373,7 +409,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     updated in place (None without one); ``aux`` is the MoE load-balance
     loss summed over the layers, a 0-d f32 tensor (0 without MoE
     blocks)."""
-    p = _tree(params)
+    p = param_tree(params)
     embed = p["embed"]
     dev = embed.device
     xa = None
@@ -418,6 +454,19 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     return logits.float(), caches, aux
 
 
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Next-token cross entropy over the positions whose ``labels`` are
+    >= 0, plus 0.01 x the MoE load-balance loss: a 0-d f32 tensor.
+    ``batch`` is ``forward``'s plus ``labels`` (B, S)."""
+    logits, _, aux = forward(cfg, params, batch, mode="full")
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = ((logz - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return ce + 0.01 * aux
+
+
 # ---------------------------------------------------------------------------
 # Caches / serving entry points
 # ---------------------------------------------------------------------------
@@ -440,6 +489,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return tree
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: Params, batch, caches):
     """Full-sequence forward that fills the decode cache; returns
     (last_logits (B, V), caches)."""
@@ -448,6 +498,7 @@ def prefill(cfg: ModelConfig, params: Params, batch, caches):
     return logits[:, -1], caches
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Params, caches, tokens,
                 cache_index, enc_out=None):
     """One decode step: tokens (B, 1) -> (logits (B, V), caches).

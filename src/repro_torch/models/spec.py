@@ -10,6 +10,10 @@ logical ``axes`` are kept for the sharding work of ROADMAP item 14
   with ``repro_torch.convert.params_from_numpy``);
 * ``count_params(specs)``.
 
+``leaves`` and ``map_tree`` walk any nested-dict tree (of specs,
+tensors or arrays): gradients and optimizer moments mirror the
+parameters path for path.
+
 Spec trees are nested dicts; leaves are visited in sorted-key order, as
 JAX flattens dicts.
 """
@@ -55,6 +59,17 @@ def leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         return
     for k in sorted(tree.keys()):
         yield from leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+
+
+def map_tree(fn: Callable[..., Any], tree, *rest) -> Any:
+    """``fn`` over the leaves of nested-dict trees of one structure (a
+    ``ParameterDict`` counts as a dict; anything without ``keys`` is a
+    leaf), leaf by leaf across ``tree`` and ``rest`` in ``leaves``'
+    order; plain dicts out."""
+    if not hasattr(tree, "keys"):
+        return fn(tree, *rest)
+    return {k: map_tree(fn, tree[k], *(r[k] for r in rest))
+            for k in sorted(tree.keys())}
 
 
 def _init_leaf(s: P, gen: torch.Generator, device) -> torch.Tensor:

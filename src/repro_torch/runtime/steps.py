@@ -1,0 +1,108 @@
+"""Step functions (port of ``repro.runtime.steps``): the train step with
+microbatch gradient accumulation, the prefill step and the decode step.
+
+Where the reference runs its microbatches under a ``lax.scan`` that sums
+f32 gradients, the port loops: each microbatch's loss is differentiated
+with ``torch.autograd.grad`` (never summed into ``.grad``, which for a
+bf16 parameter would round at every microbatch), added into explicit f32
+buffers, and divided by the count at the end.  Gradients then pass the
+compression hook and AdamW updates the parameters and state in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from repro_torch.models import model
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.spec import leaves, map_tree
+from repro_torch.optim import adamw
+
+
+def _split_microbatches(batch: Dict[str, Any], n: int) -> Dict[str, Any]:
+    """Every array with a batch dim reshaped to (n, B // n, ...)."""
+    def sp(x):
+        if getattr(x, "ndim", 0) == 0:
+            return x
+        return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+    return {k: sp(v) for k, v in batch.items()}
+
+
+def _grads_of(cfg: ModelConfig, params, ps: List[torch.Tensor], batch
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """(loss, its gradient for each of ``ps``; zeros for a parameter the
+    batch does not reach, as ``jax.grad`` gives)."""
+    loss = model.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, ps, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), grads
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig
+                    ) -> Callable[[Any, dict, Dict[str, Any]],
+                                  Tuple[Any, dict, dict]]:
+    """Returns train_step(params, opt_state, batch) -> (params, opt,
+    metrics): the objects passed in, updated in place; metrics ``loss``,
+    ``grad_norm`` and ``lr`` (0-d tensors).  ``params`` is a trainable
+    ``CausalLM`` (or its tree); the batch's arrays go to its device."""
+
+    def train_step(params, opt_state, batch):
+        tree = model.param_tree(params)
+        ps = [p for _, p in leaves(tree)]
+        dev = ps[0].device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        n_mb = max(cfg.microbatch, 1)
+        if n_mb > 1:
+            mbs = _split_microbatches(batch, n_mb)
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for p in ps]
+            for i in range(n_mb):
+                mb = {k: v[i] if v.ndim else v for k, v in mbs.items()}
+                mb_loss, mb_grads = _grads_of(cfg, params, ps, mb)
+                loss = loss + mb_loss
+                with torch.no_grad():
+                    for acc, g in zip(grads, mb_grads):
+                        acc += g.float()
+            loss = loss / n_mb
+            with torch.no_grad():
+                for acc in grads:
+                    acc /= n_mb
+        else:
+            loss, grads = _grads_of(cfg, params, ps, batch)
+        it = iter(grads)
+        grads = map_tree(lambda _: next(it), tree)
+        grads = adamw.decompress(opt_cfg, adamw.compress(opt_cfg, grads))
+        params, opt_state, metrics = adamw.update(opt_cfg, grads, opt_state,
+                                                  params)
+        return params, opt_state, dict(metrics, loss=loss)
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, batch):
+        caches = batch["caches"]
+        inputs = {k: v for k, v in batch.items() if k != "caches"}
+        return model.prefill(cfg, params, inputs, caches)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    def decode_step(params, batch):
+        return model.decode_step(
+            cfg, params, batch["caches"], batch["tokens"],
+            batch["cache_index"], enc_out=batch.get("enc_out"))
+    return decode_step
+
+
+def make_step(cfg: ModelConfig, kind: str, opt_cfg=None):
+    if kind == "train":
+        return make_train_step(cfg, opt_cfg or adamw.OptConfig())
+    if kind == "prefill":
+        return make_prefill_step(cfg)
+    if kind == "decode":
+        return make_decode_step(cfg)
+    raise ValueError(kind)

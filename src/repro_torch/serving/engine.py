@@ -116,6 +116,7 @@ class Engine:
                 # previous occupant's stale KV rows until overwritten.
                 self.slot_pos[i] = 0
 
+    @torch.no_grad()
     def run(self, requests: List[Request], max_steps: int = 10_000) -> None:
         queue = list(requests)
         steps = 0
@@ -126,6 +127,7 @@ class Engine:
             steps += 1
 
 
+@torch.no_grad()
 def generate_greedy(cfg: ModelConfig, params: model.CausalLM,
                     prompts: np.ndarray, max_new: int,
                     max_seq: int) -> np.ndarray:

@@ -64,6 +64,7 @@ class SpeculativeDecoder:
             caches=caches, cache_index=start)
         return torch.argmax(logits, -1).cpu().numpy(), caches
 
+    @torch.no_grad()
     def generate(self, prompt: np.ndarray, max_new: int
                  ) -> Tuple[np.ndarray, SpecStats]:
         stats = SpecStats()

@@ -57,7 +57,10 @@ def test_imports_with_jax_blocked():
     "repro_torch.models.layers", "repro_torch.models.model",
     "repro_torch.models.rglru", "repro_torch.models.ssm",
     "repro_torch.configs", "repro_torch.serving.ngram_cache",
-    "repro_torch.serving.engine", "repro_torch.serving.speculative"])
+    "repro_torch.serving.engine", "repro_torch.serving.speculative",
+    "repro_torch.optim.adamw", "repro_torch.runtime.steps",
+    "repro_torch.runtime.loop", "repro_torch.checkpoint.manager",
+    "repro_torch.data.pipeline", "repro_torch.launch.train"])
 def test_slice_modules_import_with_jax_blocked(module):
     code = (
         "import sys, importlib\n"
@@ -142,6 +145,10 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
     from repro_torch.configs import get_config
     from repro_torch.models import model
     from repro_torch.serving.ngram_cache import NgramSpeculator
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import loop
     frags = np.zeros((8, 16), np.uint8)
     lm_cfg = get_config("llama3.2-1b", smoke=True)
     lm_tree = {k.removeprefix("params."): v.numpy() for k, v in
@@ -173,7 +180,10 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
              lambda: model.init_cache(lm_cfg, 1, 8),
              lambda: NgramSpeculator(),
              lambda: convert.params_from_numpy(lm_cfg, _nest(lm_tree)),
-             lambda: serve.main(["--workload", "lm"])]
+             lambda: serve.main(["--workload", "lm"]),
+             lambda: train.main(["--smoke", "--steps", "1"]),
+             lambda: loop.train(lm_cfg, adamw.OptConfig(),
+                                SyntheticLM(lm_cfg.vocab, 8, 2), 1)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
