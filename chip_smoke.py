@@ -181,8 +181,22 @@ printing its wall time beside the card's name and power limit:
    every 4, then a restart from step 4: the resumed losses within 1e-3
    relative of the uninterrupted run's (whether bit-equal printed), the
    last save's snapshot ms, write s and bytes; the directory removed.
-12. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
-   (``match_swar``'s launches count phase 10's), the script's wall time,
+12. Row shards on one card: a ``MatchEngine`` on
+   ``make_row_mesh(4, devices=["cuda:0"] * 4)`` (q-gram index attached)
+   over phase 4's rows (its host copy) runs (a)-(f) and (c'), each result
+   bit for bit phase 4's one-shard result (for (f), whose filter-or-scan
+   verdict the per-shard prices may move, the hits at least); a 2-shard
+   engine runs (a) and (c) the same.  A one-shard twin over the same rows
+   times each query beside the 4-shard engine (host clock, the least of 3
+   after a warm-up).  Resident chunks launch their kernel once a shard;
+   launches, pulls and collective bytes a run, the plan's reason.  Then
+   both engines take 1,024 seeded rows, tombstones on every 100th row
+   and a compaction, with (a), (c) and (e) equal after the tombstones and
+   after the compaction, the shards balanced to a row and the pack
+   counters flat; peak memory above the phase's start.
+13. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
+   (``match_swar``'s launches count phase 10's; each row also carries
+   phase 12's launches, ``launches_sharded``), the script's wall time,
    the card's name and power limit, and ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -350,6 +364,12 @@ TRAIN_B2, TRAIN_S2, TRAIN_B3, TRAIN_S3 = 4, 128, 2, 64
 TRAIN_T4_LAYERS, TRAIN_T4_STEPS, TRAIN_T4_EVERY = 2, 8, 4
 TRAIN_LOSS_RTOL, TRAIN_LEAF_RTOL, TRAIN_FLIP_SHARE = 1e-3, 3e-2, 1e-2
 TRAIN_OPT_BYTES = 32
+# Row shards (phase 12): the sharded engine's shard count on one card, the
+# second count held for (a) and (c), the seeded rows appended before the
+# tombstones (1 in TOMBSTONE_EVERY live rows) and the compaction.
+SHARDS, SHARDS_2 = 4, 2
+SHARD_APPEND = 1024
+TOMBSTONE_EVERY = 100
 
 
 def check(cond: bool, what: str) -> None:
@@ -2611,6 +2631,197 @@ def train_t4(*, device, smoke):
           f"{out['wall_s']:.1f} s; card: {Phase.card}")
     return out
 
+SHARD_FIELDS = ("scores", "best_locs", "best_scores", "topk_rows",
+                "topk_scores", "hits", "survivor_rows")
+
+
+def same_result(a, b) -> bool:
+    """Bit for bit: every result array of two runs of one query."""
+    import numpy as np
+    for f in SHARD_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (
+                x is not None and not np.array_equal(x, y)):
+            return False
+    return True
+
+
+def timed_runs(engine, q, sync):
+    """A warm-up run, then ``TIMED_RUNS`` timed runs (host clock, each
+    ending in ``sync()``): the last result and the run times in seconds."""
+    cm = engine.compile(q)
+    cm.run()
+    times = []
+    for _ in range(TIMED_RUNS):
+        t = time.perf_counter()
+        res = cm.run()
+        sync()
+        times.append(time.perf_counter() - t)
+    return res, times
+
+
+def shard_phase(frags, queries, want, *, zero_counts, read_counts, sync,
+                device="cuda:0", shards=SHARDS, shards_2=SHARDS_2,
+                n_append=SHARD_APPEND):
+    """Phase 12: the row-sharded main path on one card.
+
+    ``frags`` are phase 4's rows (its host copy), ``queries`` phase 4's
+    (a)-(f) and (c') by key and ``want`` phase 4's one-shard results of
+    them.  An engine on ``make_row_mesh(shards, devices=[device] *
+    shards)`` (q-gram index attached) runs every query, each result bit
+    for bit ``want``'s; one on ``shards_2`` shards runs (a) and (c).  A
+    one-shard twin over the same rows times each query beside it.  Then
+    both take ``n_append`` seeded rows, tombstones on 1 in
+    ``TOMBSTONE_EVERY`` rows and a compaction, with (a), (c) and (e) held
+    equal after the tombstones and after the compaction, the shards
+    balanced and the pack counters flat.  Returns what the phase prints.
+    ``device="cpu"`` rehearses it at a small size.
+    """
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_row_mesh
+    from repro_torch.match import MatchEngine
+
+    cuda = device != "cpu"
+    t_phase = time.perf_counter()
+    if cuda:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    out = {"shards": shards, "card": Phase.card, "queries": {}}
+    es = MatchEngine(frags, mesh=make_row_mesh(shards,
+                                               devices=[device] * shards))
+    e1 = MatchEngine(frags, device=device)
+    check(es.n_shards == shards and es.merger.merge_path == "device",
+          f"{shards}-shard engine")
+    check(e1.n_shards == 1, "one-shard twin")
+    for key, q in queries.items():
+        zero_counts()
+        pulls0, coll0 = es.merger.n_pulls, es.merger.collective_bytes
+        res, ts = timed_runs(es, q, sync)
+        counts = {n: c for n, c in read_counts().items() if c}
+        runs = TIMED_RUNS + 1
+        pulls = (es.merger.n_pulls - pulls0) / runs
+        coll = (es.merger.collective_bytes - coll0) / runs
+        res1, ts1 = timed_runs(e1, q, sync)
+        ref = want[key]
+        if res.plan.strategy == ref.plan.strategy:
+            check(same_result(ref, res),
+                  f"({key}) {shards} shards equal one shard")
+        else:
+            # The planner's filter-or-scan verdict moved with per-shard
+            # pricing: the hits are the deliverable both must equal.
+            check(np.array_equal(ref.hits, res.hits),
+                  f"({key}) {shards} shards' hits equal one shard's")
+        check(same_result(res1, ref), f"({key}) one-shard twin")
+        check(res.n_shards == shards and res.merge_path == "device",
+              f"({key}) result reports {shards} shards")
+        launches = sum(counts.values()) / runs
+        info = {
+            "backend": res.plan.backend, "strategy": res.plan.strategy,
+            "strategy_1": res1.plan.strategy,
+            "n_chunks": res.n_chunks, "chunk_rows": res.plan.chunk_rows,
+            "n_chunks_1": res1.n_chunks,
+            "chunk_rows_1": res1.plan.chunk_rows,
+            "ms": [t * 1e3 for t in ts], "ms_1": [t * 1e3 for t in ts1],
+            "best_ms": min(ts) * 1e3, "best_ms_1": min(ts1) * 1e3,
+            "launches": counts, "launches_per_run": launches,
+            "launches_per_shard_chunk": launches / shards / res.n_chunks,
+            "pulls": pulls, "collective_bytes": coll,
+            "est_collective_bytes": res.plan.est_collective_bytes,
+            "reason": res.plan.reason}
+        out["queries"][key] = info
+        print(f"  ({key}) S={shards} {res.plan.backend}/"
+              f"{res.plan.strategy}: {info['best_ms']:.3f} ms (runs "
+              f"{[round(t, 3) for t in info['ms']]}), S=1 "
+              f"{info['best_ms_1']:.3f} ms (runs "
+              f"{[round(t, 3) for t in info['ms_1']]}); {res.n_chunks} "
+              f"chunks of {res.plan.chunk_rows} (S=1: {res1.n_chunks}); "
+              f"{launches:g} launches a run ({info['launches_per_shard_chunk']:.3g}"
+              f" a shard a chunk) {counts}; {pulls:g} pulls a run; "
+              f"{coll:.0f} collective bytes a run; card: {Phase.card}")
+        print(f"      reason: {res.plan.reason}")
+    runs = TIMED_RUNS + 1
+    for key, kern in (("a", "match_swar_best"), ("c", "match_mxu_best"),
+                      ("d", "match_swar_best"), ("c2", "match_mxu")):
+        n = out["queries"][key]["launches"].get(kern, 0)
+        chunks = out["queries"][key]["n_chunks"]
+        # Resident chunks launch once a shard; a row subset's chunk once a
+        # shard that holds some of its rows.
+        check(n == runs * shards * chunks if key != "c2"
+              else runs * chunks <= n <= runs * shards * chunks,
+              f"({key}) launches {kern} once a shard a chunk ({n})")
+    check(out["queries"]["b"]["launches"].get("match_swar_masks", 0) > 0,
+          "(b) launches match_swar_masks")
+    e_info = out["queries"]["e"]["launches"]
+    check(e_info.get("filter_qgram", 0) > 0 and e_info.get("match_swar", 0)
+          > 0, "(e) launches filter_qgram and the verify's match_swar")
+
+    # Two shards: (a) and (c).
+    e2 = MatchEngine(frags, mesh=make_row_mesh(shards_2,
+                                               devices=[device] * shards_2))
+    for key in ("a", "c"):
+        res = e2.compile(queries[key]).run()
+        check(same_result(want[key], res) and res.n_shards == shards_2,
+              f"({key}) {shards_2} shards equal one shard")
+    del e2
+    print(f"  ({shards_2} shards) (a), (c) equal one shard")
+
+    # Growth, tombstones, compaction on the sharded engine and its twin.
+    rng = np.random.default_rng(SEED + 12)
+    more = rng.integers(0, 4, (n_append, frags.shape[1]), np.uint8)
+    packs = [(e.corpus.host_pack_count, e.index.sig_pack_count)
+             for e in (es, e1)]
+    t = time.perf_counter()
+    for e in (es, e1):
+        e.corpus.append_rows(more)
+    sync()
+    append_s = time.perf_counter() - t
+    n_now = es.corpus.n_rows
+    dead = np.arange(0, n_now, TOMBSTONE_EVERY)
+    for e in (es, e1):
+        check(e.corpus.tombstone(dead) == dead.size, "tombstones")
+    stages = {}
+    for stage in ("tombstoned", "compacted"):
+        if stage == "compacted":
+            t = time.perf_counter()
+            check(es.corpus.compact() == dead.size, "compaction")
+            sync()
+            stages["compact_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            e1.corpus.compact()
+            sync()
+            stages["compact_s_1"] = time.perf_counter() - t
+        for key in ("a", "c", "e"):
+            r4 = es.compile(queries[key]).run()
+            r1 = e1.compile(queries[key]).run()
+            check(same_result(r1, r4),
+                  f"({key}) {stage}: {shards} shards equal one shard")
+    live = es.shard_live_rows()
+    check(int(live.sum()) == es.corpus.n_rows == n_now - dead.size
+          and int(live.max() - live.min()) <= 1,
+          f"shards balanced after compaction ({live.tolist()})")
+    check([(e.corpus.host_pack_count, e.index.sig_pack_count)
+           for e in (es, e1)] == packs, "pack counters flat")
+    out.update(append_rows=n_append, append_s=append_s,
+               tombstoned=int(dead.size), shard_live_rows=live.tolist(),
+               packs=packs[0], **stages)
+    if cuda:
+        sync()
+        out["peak_bytes_above_start"] = (torch.cuda.max_memory_allocated()
+                                         - mem0)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  grown by {n_append} rows ({append_s:.3f} s), "
+          f"{dead.size} tombstoned, compacted ({stages['compact_s']:.3f} s;"
+          f" S=1 {stages['compact_s_1']:.3f} s): (a), (c), (e) equal one "
+          f"shard after each; shards {live.tolist()}; packs flat {packs[0]}"
+          + (f"; peak {out['peak_bytes_above_start'] / 2**30:.3f} GiB above "
+             "the phase's start" if cuda else "")
+          + f"; {out['wall_s']:.1f} s; card: {Phase.card}")
+    del es, e1
+    train_free(cuda)
+    return out
+
 
 def main() -> int:
     t_script = time.perf_counter()
@@ -3545,9 +3756,24 @@ def main() -> int:
         train_info = train_phase(sync=torch.cuda.synchronize)
         print("train " + json.dumps(train_info))
 
-    # -- 12. summary ---------------------------------------------------------
+    # -- 12. row shards -------------------------------------------------------
+    with Phase(f"phase 12: row-sharded main path, {SHARDS} and {SHARDS_2} "
+               "shards on one card"):
+        shard_info = shard_phase(
+            frags_chr1, {"a": qa, "b": qb, "c": qc, "d": qd, "c2": qc2,
+                         "e": qe, "f": qf}, results,
+            zero_counts=zero_counts, read_counts=read_counts,
+            sync=torch.cuda.synchronize)
+        print("shard " + json.dumps(shard_info))
+    shard_launches = {}
+    for info in shard_info["queries"].values():
+        for name, n in info["launches"].items():
+            shard_launches[name] = shard_launches.get(name, 0) + n
+
+    # -- 13. summary ---------------------------------------------------------
     # Each kernel's launches come from its own path's run; match_swar's
-    # path is (e)-(f)'s verify and phase 10's speculators.
+    # path is (e)-(f)'s verify and phase 10's speculators.  Phase 12's
+    # launches of the same kernels on the sharded path stand beside them.
     path_launches = dict(launches)
     path_launches["match_mxu"] = launches_c2["match_mxu"]
     path_launches["match_swar"] = launches_ef["match_swar"] + lm_launches
@@ -3570,6 +3796,7 @@ def main() -> int:
             "event_ms": k["event_ms"], "turns_ms": k.get("turns"),
             "shape_rows": k["rows"], "n_launches": n,
             "matches_plain": k["max_abs_err"] == 0,
+            "launches_sharded": shard_launches.get(k["name"], 0),
             **{x: k[x] for x in EXTRA_MS + ("rows_unpadded",) if x in k}})
     check(len(rows_out) == len(SOURCES), "every kernel measured")
     print("kernels " + json.dumps([

@@ -9,8 +9,10 @@ kernel of the ported path is a hand-written CUDA C++ kernel for Hopper
 (``kernels/csrc``), built with ``nvcc`` at first use and bound with
 ``ctypes`` (``kernels/_build.py``).
 
-Ported so far, on one device: the match engine with its q-gram filter
-index (``MatchEngine``, ``CorpusIndex``), the standing-query
+Ported so far: the match engine with its q-gram filter index
+(``MatchEngine``, ``CorpusIndex``), on one device or row-sharded over a
+row mesh of devices in one process (``launch.mesh.make_row_mesh``,
+``distributed.sharding``), the standing-query
 ``PatternBank``, the multi-tenant ``MatchService``, calibration, ``obs``,
 and all seven kernels of the JAX package -- ``match_swar``,
 ``match_swar_masks``, ``match_mxu``, ``filter_qgram``, ``bank_prefilter``,

@@ -152,18 +152,27 @@ class GPURoofline:
     peak_bf16_flops: float        # dense tensor-core bf16, FLOP/s
     peak_int32_ops: float         # CUDA-core INT32 rate, op/s
     hbm_bw: float                 # device memory bytes/s
+    nvlink_bw: float              # card-to-card bytes/s, one direction
+
+    def merge_bw(self, one_card: bool) -> float:
+        """Bytes/s a cross-shard merge crosses: device memory when every
+        row shard sits on one card (the join is a copy within it), the
+        card-to-card link when they sit on several."""
+        return self.hbm_bw if one_card else self.nvlink_bw
 
 
 # NVIDIA H100 SXM5 data sheet and Hopper architecture white paper (dense
 # rates, no sparsity, at the full 700 W power limit): 989 TFLOP/s bf16,
 # 3.35 TB/s HBM3, 132 SMs at a 1.98 GHz boost clock, each issuing 64
-# INT32 ops per clock -> 132 * 64 * 1.98e9 ~ 16.7e12 int ops/s.
+# INT32 ops per clock -> 132 * 64 * 1.98e9 ~ 16.7e12 int ops/s; NVLink 4
+# at 900 GB/s both directions together, so 450 GB/s each way.
 # Data-sheet figures, not measurements.
 H100 = GPURoofline(
     name="H100-SXM",
     peak_bf16_flops=989e12,
     peak_int32_ops=132 * 64 * 1.98e9,
     hbm_bw=3.35e12,
+    nvlink_bw=450e9,
 )
 
 # Per-kernel-dispatch overhead the *static* cost source charges: the

@@ -34,3 +34,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise ValueError(f"unsupported device {dev}: repro_torch runs on "
                          "'cuda' (kernels) or 'cpu' (plain versions)")
     return dev
+
+
+def canonical_device(device: torch.device) -> torch.device:
+    """``cuda`` with no index -> the current card's ``cuda:i`` (so two
+    names of one card compare equal); any other device as it is."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

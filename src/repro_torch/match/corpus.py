@@ -27,14 +27,22 @@ Derived forms (the q-gram ``CorpusIndex``) attach as observers
 (``attach_index``) and ride the same mutation events: row splices,
 capacity growth and ``invalidate``.
 
-Single device: the mesh layout (``shard_rows``, ``shard_stride``) and
-per-host packing of the JAX corpus arrive with the multi-GPU slice;
-``shard_live_rows`` reports the one shard.
+Row shards (``shard_rows``, set by an engine built on a row mesh): each
+form is a list of per-shard tensors, shard ``s``'s on its own device.
+Logical row ``r`` lives on shard ``r % S`` at slot ``r // S`` (the cyclic
+layout of ``repro_torch.distributed.sharding``), each shard holds
+``shard_stride`` slots, and row padding rises to ``ROW_TILE * S``.  Appends
+round-robin over the shards, growth zero-extends each shard in place (a
+row never changes shard or slot), and a splice writes each touched row
+at its shard and slot; packing stays one event a form, not one a shard.
+With one shard the list holds the one form of the whole corpus.  The
+per-host builders of the JAX corpus (one process a card) are not ported
+yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -105,9 +113,14 @@ class PackedCorpus:
             buf[:self._n_rows] = fragments
             fragments = buf
         self._frags = fragments               # (capacity, F) host buffer
-        # Cached device forms (lazy), sized to the padded capacity.
-        self._swar: Optional[torch.Tensor] = None      # (C_pad, W) int32
-        self._onehot: Optional[torch.Tensor] = None    # (C_pad, F4) bf16
+        # Row-shard layout, set by an engine on a row mesh (shard_rows).
+        self.n_shards = 1
+        self._mesh = None
+        self._devices = (self.device,)
+        # Cached device forms (lazy), one tensor a shard, each sized to
+        # the shard's padded slots: (J, W) int32 words, (J, F4) bf16.
+        self._swar: Optional[List[torch.Tensor]] = None
+        self._onehot: Optional[List[torch.Tensor]] = None
         self.obs = NULL_OBS
         # Full-corpus packing events, per form.
         self.swar_pack_count = 0
@@ -177,11 +190,60 @@ class PackedCorpus:
         """Ascending logical ids of non-tombstoned rows."""
         return np.flatnonzero(~self._dead[:self._n_rows])
 
+    # -- row sharding ----------------------------------------------------------
+    @property
+    def shard_stride(self) -> int:
+        """Slots a shard holds, J: logical row r sits at slot r // S of
+        shard r % S (physical index (r % S) * J + r // S)."""
+        return self.capacity_padded // self.n_shards
+
+    @property
+    def devices(self) -> tuple:
+        """One device a shard (the corpus's own device when unsharded)."""
+        return self._devices
+
+    def _shard_live(self, s: int) -> int:
+        S, n = self.n_shards, self._n_rows
+        return max(0, (n - s + S - 1) // S)
+
     @property
     def shard_live_rows(self) -> np.ndarray:
-        """(S,) logical rows per row shard; one shard on one device, so
-        ``[n_rows]`` (the JAX corpus's cyclic layout with S = 1)."""
-        return np.array([self._n_rows], np.int64)
+        """(S,) logical rows per shard under the cyclic layout.
+
+        Shard ``s`` holds rows ``{r < n_rows : r % S == s}``; contiguous
+        appends round-robin, so counts differ by at most one row.
+        """
+        return np.array([self._shard_live(s) for s in range(self.n_shards)],
+                        np.int64)
+
+    def shard_rows(self, mesh, row_axes, n_shards: int) -> None:
+        """Configure the cyclic row layout over ``mesh.devices``.
+
+        Called by the engine after resolving the mesh row axes
+        (``row_axes``, the reference's argument: one process places a
+        shard a device of ``mesh.devices``).  Raises ``row_pad`` to a
+        multiple of ``ROW_TILE * n_shards`` and drops the cached forms
+        when the layout changes (forms built for another shard count are
+        laid out differently).  Reconfiguring to the same layout is a
+        no-op: no repack, no generation bump.
+        """
+        n_shards = max(1, int(n_shards))
+        need_pad = ROW_TILE * n_shards
+        relayout = (n_shards != self.n_shards
+                    or self.row_pad % need_pad != 0
+                    or (n_shards > 1 and self._mesh is not None
+                        and mesh != self._mesh))
+        self._mesh = mesh
+        self.n_shards = n_shards
+        self._devices = (tuple(mesh.devices) if n_shards > 1
+                         else (self.device,))
+        if not relayout:
+            return
+        if self.row_pad % need_pad:
+            self.row_pad = need_pad
+        if (self._swar is not None or self._onehot is not None
+                or self._indexes):
+            self.invalidate()
 
     def attach_index(self, index) -> None:
         """Register a derived-form observer (see ``match.index``).
@@ -209,25 +271,54 @@ class PackedCorpus:
         return cls(frags, row_pad=row_pad, device=device)
 
     # -- packing -------------------------------------------------------------
-    def _codes(self, r0: int, r1: int) -> torch.Tensor:
-        return torch.from_numpy(self._frags[r0:r1]).to(self.device)
+    def _shard_codes(self, s: int, j0: int, j1: int) -> torch.Tensor:
+        """uint8 codes of shard ``s``'s slots [j0, j1) on its device (the
+        logical rows s + j*S)."""
+        S = self.n_shards
+        rows = self._frags[s + j0 * S:s + j1 * S:S]
+        return torch.from_numpy(np.ascontiguousarray(rows)).to(
+            self._devices[s])
 
-    def _pack_form(self, width: int, dtype: torch.dtype, pack) -> torch.Tensor:
-        """Full-capacity form: live rows packed on the device, the rest 0."""
-        form = torch.zeros((self.capacity_padded, width), dtype=dtype,
-                           device=self.device)
-        for r0 in range(0, self._n_rows, PACK_ROW_BLOCK):
-            r1 = min(r0 + PACK_ROW_BLOCK, self._n_rows)
-            form[r0:r1] = pack(self._codes(r0, r1), width)
-        return form
+    def _pack_form(self, width: int, dtype: torch.dtype, pack
+                   ) -> List[torch.Tensor]:
+        """Full-capacity form, a tensor a shard: live rows packed on the
+        shard's device, the rest 0."""
+        forms = []
+        for s in range(self.n_shards):
+            form = torch.zeros((self.shard_stride, width), dtype=dtype,
+                               device=self._devices[s])
+            live = self._shard_live(s)
+            for j0 in range(0, live, PACK_ROW_BLOCK):
+                j1 = min(j0 + PACK_ROW_BLOCK, live)
+                form[j0:j1] = pack(self._shard_codes(s, j0, j1), width)
+            forms.append(form)
+        return forms
+
+    def _one_form(self, forms: List[torch.Tensor], name: str
+                  ) -> torch.Tensor:
+        if self.n_shards > 1:
+            raise ValueError(
+                f"a {self.n_shards}-shard corpus holds its {name} form a "
+                f"tensor a shard: read {name}_shards()")
+        return forms[0]
 
     def swar_words(self, need_words: int) -> torch.Tensor:
-        """(C_pad, W >= need_words) int32 SWAR words, device-resident.
+        """(C_pad, W >= need_words) int32 SWAR words of an unsharded
+        corpus (``swar_shards`` for a sharded one)."""
+        return self._one_form(self.swar_shards(need_words), "swar")
 
-        The first call packs (one event); later calls reuse the cached
-        form, zero-extending its word axis on the device when a query
-        needs deeper reads.  Reserved rows are zero words (code 0 packs
-        to 0), so appends are pure row writes.
+    def onehot_flat(self, f_chars: int) -> torch.Tensor:
+        """(C_pad, F4 >= f_chars*4) bf16 one-hot of an unsharded corpus
+        (``onehot_shards`` for a sharded one)."""
+        return self._one_form(self.onehot_shards(f_chars), "onehot")
+
+    def swar_shards(self, need_words: int) -> List[torch.Tensor]:
+        """A (J, W >= need_words) int32 SWAR form a shard, device-resident.
+
+        The first call packs (one event, however many shards); later
+        calls reuse the cached forms, zero-extending their word axis on
+        the device when a query needs deeper reads.  Reserved rows are
+        zero words (code 0 packs to 0), so appends are pure row writes.
         """
         if self._swar is None:
             tr = self.obs.tracer
@@ -238,12 +329,12 @@ class PackedCorpus:
                 self._swar = self._pack_form(width, torch.int32, pack_words)
             self.swar_pack_count += 1
             self.obs.metrics.counter("corpus.packs").inc()
-        elif self._swar.shape[1] < need_words:
-            self._swar = self._grow_cols(self._swar, need_words)
+        elif self._swar[0].shape[1] < need_words:
+            self._swar = [self._grow_cols(f, need_words) for f in self._swar]
         return self._swar
 
-    def onehot_flat(self, f_chars: int) -> torch.Tensor:
-        """(C_pad, F4 >= f_chars*4) bf16 one-hot, device-resident.
+    def onehot_shards(self, f_chars: int) -> List[torch.Tensor]:
+        """A (J, F4 >= f_chars*4) bf16 one-hot form a shard.
 
         Padding chars and reserved rows are all-zero one-hot (contribute 0
         to every score), so growing either way is a zero-extension on the
@@ -259,8 +350,9 @@ class PackedCorpus:
                                                one_hot_flat)
             self.onehot_pack_count += 1
             self.obs.metrics.counter("corpus.packs").inc()
-        elif self._onehot.shape[1] < f_chars * 4:
-            self._onehot = self._grow_cols(self._onehot, f_chars * 4)
+        elif self._onehot[0].shape[1] < f_chars * 4:
+            self._onehot = [self._grow_cols(f, f_chars * 4)
+                            for f in self._onehot]
         return self._onehot
 
     @staticmethod
@@ -279,9 +371,10 @@ class PackedCorpus:
     def reserve(self, capacity: int) -> None:
         """Grow reserved row slots to at least ``capacity``, in place.
 
-        The host buffer extends with zero rows and the cached device forms
-        zero-extend on the device -- resident rows are never re-read or
-        repacked, the pack counters and ``generation`` do not move.
+        The host buffer extends with zero rows and each shard's cached
+        forms zero-extend on its device -- a row keeps its shard and slot,
+        resident rows are never re-read or repacked, the pack counters
+        and ``generation`` do not move.
         """
         capacity = int(capacity)
         if capacity < self._n_rows:
@@ -297,11 +390,11 @@ class PackedCorpus:
         self._dead = np.concatenate(
             [self._dead, np.zeros(capacity - self.capacity, bool)])
         self._frags = np.concatenate([self._frags, grow], 0)
-        c_pad = self.capacity_padded
-        if self._swar is not None and self._swar.shape[0] < c_pad:
-            self._swar = self._grow_rows(self._swar, c_pad)
-        if self._onehot is not None and self._onehot.shape[0] < c_pad:
-            self._onehot = self._grow_rows(self._onehot, c_pad)
+        j = self.shard_stride
+        if self._swar is not None and self._swar[0].shape[0] < j:
+            self._swar = [self._grow_rows(f, j) for f in self._swar]
+        if self._onehot is not None and self._onehot[0].shape[0] < j:
+            self._onehot = [self._grow_rows(f, j) for f in self._onehot]
         for ix in self._indexes:
             ix._on_capacity()
 
@@ -332,29 +425,43 @@ class PackedCorpus:
         return start
 
     # -- incremental updates ---------------------------------------------------
+    def shard_slices(self, start: int, n: int):
+        """Logical rows [start, start+n) by shard: ``(s, i0, j0, m)`` for
+        each shard holding some, where ``rows[i0::S]`` (m rows) are shard
+        ``s``'s slots [j0, j0+m)."""
+        S = self.n_shards
+        out = []
+        for s in range(S):
+            i0 = (s - start) % S
+            if i0 < n:
+                out.append((s, i0, (start + i0) // S, -(-(n - i0) // S)))
+        return out
+
     def _splice_device(self, start: int, rows: np.ndarray) -> None:
         """Pack ``rows`` (touched rows only) into the cached forms, in place.
 
-        The resident forms are updated in place (torch tensors are
-        mutable, unlike the JAX arrays the reference rebuilds with
-        ``.at[].set``); work queued earlier on the stream has already read
-        them, so no in-flight query sees a half-written form.
+        Each row lands at its shard and slot.  The resident forms are
+        updated in place (torch tensors are mutable, unlike the JAX arrays
+        the reference rebuilds with ``.at[].set``); work queued earlier on
+        the stream has already read them, so no in-flight query sees a
+        half-written form.
         """
         tr = self.obs.tracer
         with tr.span("pack",
                      {"form": "splice", "rows": rows.shape[0]}
                      if tr.enabled else None):
             n = rows.shape[0]
-            codes = None
             if self._swar is not None or self._onehot is not None:
-                codes = torch.from_numpy(np.ascontiguousarray(rows)).to(
-                    self.device)
-            if self._swar is not None:
-                self._swar[start:start + n] = pack_words(
-                    codes, self._swar.shape[1])
-            if self._onehot is not None:
-                self._onehot[start:start + n] = one_hot_flat(
-                    codes, self._onehot.shape[1])
+                S = self.n_shards
+                for s, i0, j0, m in self.shard_slices(start, n):
+                    codes = torch.from_numpy(np.ascontiguousarray(
+                        rows[i0::S])).to(self._devices[s])
+                    if self._swar is not None:
+                        f = self._swar[s]
+                        f[j0:j0 + m] = pack_words(codes, f.shape[1])
+                    if self._onehot is not None:
+                        f = self._onehot[s]
+                        f[j0:j0 + m] = one_hot_flat(codes, f.shape[1])
             for ix in self._indexes:
                 ix._on_rows_written(start, rows)
             self.row_update_count += n

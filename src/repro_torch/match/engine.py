@@ -1,6 +1,6 @@
 """Streaming match executor + query compiler (port of ``repro.match.engine``).
 
-Single entry point for string matching on one device: owns a
+Single entry point for string matching: owns a
 ``PackedCorpus`` (device-resident, packed once), lowers declarative
 ``MatchQuery`` objects through the ``Planner`` into ``CompiledMatch``
 programs (kernel choice + geometry + packed pattern operands, computed
@@ -28,9 +28,19 @@ on the device, one pull), and only the surviving rows verify through the
 row-gather path that serves ``rows=`` subsets -- ``hits`` are
 bit-identical to a full scan because the filter is conservative.
 
+Row shards: an engine built on a row mesh
+(``repro_torch.launch.mesh.make_row_mesh``) splits the corpus rows over
+the mesh's devices in the cyclic layout (logical row ``r`` on shard
+``r % S``, slot ``r // S``).  A chunk of logical rows ``[c0, c1)`` is slots
+``[c0/S, c1/S)`` of every shard, one contiguous slice each, so it runs one
+kernel launch a shard; the ``ShardMerger`` reduces each shard's output
+where it lies and joins the reduced state on the mesh's first device
+before its one pull.  Row subsets and filter survivors run on the shard
+that holds each row and come back in query order.  Results are bit for
+bit the one-shard engine's.
+
 Results keep the JAX package's layout: ``MatchResult`` fields are numpy
 arrays of the same dtypes, so the two packages compare like with like.
-Single device.
 """
 
 from __future__ import annotations
@@ -38,14 +48,15 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import OrderedDict
-from typing import List, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import encoding
 from repro_torch.core.tech import CostSource
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, canonical_device, resolve_device
+from repro_torch.distributed import sharding as _sharding
 from repro_torch.kernels import filter_qgram as _fq
 from repro_torch.kernels import match_mxu as _mxu
 from repro_torch.kernels import match_swar as _swar
@@ -133,6 +144,18 @@ def _words(a: np.ndarray, device: torch.device) -> torch.Tensor:
         np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
 
 
+class _Launch(NamedTuple):
+    """One kernel launch of a chunk: shard ``shard``'s form rows ``rows``
+    (a slice of slots, or a device tensor of slots or row ids) for the
+    chunk positions ``pos`` (host, chunk-relative; ``None``: the chunk's
+    rows in order, or a resident shard's slots, positions
+    ``slot * S + shard``)."""
+
+    shard: int
+    rows: Union[slice, torch.Tensor]
+    pos: Optional[np.ndarray] = None
+
+
 class CompiledMatch:
     """One ``MatchQuery`` lowered against one engine: reusable, growth-safe.
 
@@ -146,7 +169,8 @@ class CompiledMatch:
     A pinned ``per_row`` query refuses to run after growth.
     """
 
-    __slots__ = ("engine", "query", "plan", "_packed", "_pats2d", "_sel",
+    __slots__ = ("engine", "query", "plan", "_packed", "_packed_sh",
+                 "_pats2d", "_sel",
                  "_idx", "_pad_idx", "_k_eff", "_k_vec", "_thr_vec",
                  "_empty", "_mode", "_lowered", "_filter_ops",
                  "_filter_dev", "_fb_version", "_sel_max")
@@ -160,6 +184,7 @@ class CompiledMatch:
         self._sel = None if sel is None else np.asarray(sel, np.int64)
         self._empty = self._sel is not None and self._sel.size == 0
         self._packed = self._pats2d = self._idx = self._pad_idx = None
+        self._packed_sh: list = []
         self._sel_max = -1
         self._k_eff, self._k_vec, self._thr_vec = 0, None, None
         self._filter_ops: Optional[FilterOperands] = None
@@ -248,6 +273,7 @@ class CompiledMatch:
             self._packed = torch.from_numpy(mat).to(dev, torch.bfloat16)
         else:
             self._packed = None
+        self._packed_sh = engine._per_shard(self._packed)
         self._lowered = True
 
     def _revalidate(self, n_rows: int) -> None:
@@ -359,7 +385,8 @@ class CompiledMatch:
                 # Plan-vs-actual: one record per executed filter stage,
                 # the same key and floats as the feedback observation.
                 p0 = self.plan
-                f_key = kernel_key("filter", p0.n_rows, p0.filter_words,
+                r_sh = -(-p0.n_rows // p0.n_shards)
+                f_key = kernel_key("filter", r_sh, p0.filter_words,
                                    ops.qsig_words.shape[0])
                 engine.obs.record_plan_actual(
                     f_key, p0.est_filter_base_seconds, t_fil)
@@ -380,7 +407,17 @@ class CompiledMatch:
                 idx = torch.from_numpy(pad_idx).to(engine.device)
         plan = self.plan
         step = plan.chunk_rows
+        S = engine.n_shards
         merger = engine.merger
+        coll0 = merger.collective_bytes
+        if S > 1:
+            tile = _swar.ROW_TILE * S
+            step = max(tile, (step // tile) * tile)
+        # Resident sharded chunks come back a tensor a shard, in the
+        # cyclic layout; the merger un-permutes as it joins them.  Gather
+        # paths (row subsets, filter survivors) come back in query order,
+        # and the ref backend reads the logical host buffer.
+        shard_phys = S > 1 and idx is None and plan.backend != "ref"
 
         best_l: List[np.ndarray] = []
         best_s: List[np.ndarray] = []
@@ -415,10 +452,12 @@ class CompiledMatch:
             with tr.span("launch",
                          {"c0": c0, "rows": valid} if tr.enabled else None):
                 if fused_best:
-                    best = engine._chunk_best(plan, c0, c1, self._packed, idx)
+                    best = engine._chunk_best(plan, c0, c1, self._packed_sh,
+                                              idx, idx_log)
                 else:
                     scores = engine._chunk_scores(plan, self._pats2d, c0, c1,
-                                                  self._packed, idx, idx_log)
+                                                  self._packed_sh, idx,
+                                                  idx_log)
             n_chunks += 1
             alive = None
             if dead_full is not None:
@@ -429,7 +468,8 @@ class CompiledMatch:
                 if alive.all():
                     alive = None
             if reduction == "full":
-                sc = merger.pull(scores, kind="block")[:valid]
+                sc = merger.pull(scores, unpermute=shard_phys,
+                                 kind="block")[:valid]
                 if alive is not None:
                     # Dead rows report the -1 sentinel.
                     sc = sc.copy()
@@ -441,8 +481,8 @@ class CompiledMatch:
                                            batched=plan.mode == "batched")
             else:
                 bl, bs = merger.chunk_best(scores)
-            bl_np = merger.pull(bl)[:valid]
-            bs_np = merger.pull(bs)[:valid]
+            bl_np = merger.pull(bl, unpermute=shard_phys)[:valid]
+            bs_np = merger.pull(bs, unpermute=shard_phys)[:valid]
             if alive is not None:
                 bl_np, bs_np = bl_np.copy(), bs_np.copy()
                 bl_np[~alive] = 0
@@ -453,18 +493,25 @@ class CompiledMatch:
                 # Two-phase sparse pull: a per-row any-hit bitmap, then a
                 # device gather of only the hot rows' score vectors.
                 hot = merger.hot_mask(scores, thr_int)
-                hot_np = merger.pull(hot)[:valid]
+                hot_np = merger.pull(hot, unpermute=shard_phys)[:valid]
                 if alive is not None:
                     hot_np = hot_np & alive
                 hot_rows = np.flatnonzero(hot_np)
                 if hot_rows.size == 0:
                     continue
+                if shard_phys:
+                    # The hot logical rows' places in the chunk's
+                    # shard-major order.
+                    jc = int(scores[0].shape[0])
+                    pos = (hot_rows % S) * jc + hot_rows // S
+                else:
+                    pos = hot_rows
                 # Pad the gather to a power of two (the JAX engine does
                 # so to avoid recompiles; kept for identical transfers).
-                n_hot = hot_rows.size
+                n_hot = pos.size
                 pad_n = max(8, 1 << (int(n_hot) - 1).bit_length())
                 pos_pad = np.zeros(pad_n, np.int64)
-                pos_pad[:n_hot] = hot_rows
+                pos_pad[:n_hot] = pos
                 sc = merger.pull(merger.gather_rows(scores, pos_pad),
                                  kind="block")[:n_hot]
                 if plan.mode == "batched":
@@ -484,26 +531,37 @@ class CompiledMatch:
                         self._k_eff,
                         plan.n_patterns if plan.mode == "batched" else 0,
                         engine.device)
-                n_bs = int(bs.shape[0])
+                n_bs = (S * int(bs[0].shape[0]) if shard_phys
+                        else int(bs.shape[0]))
                 alive_chunk = np.zeros(n_bs, bool)
                 alive_chunk[:valid] = True if alive is None else alive
                 n_topk_alive += valid if alive is None else int(alive.sum())
-                rows_full = np.zeros(n_bs, np.int64)
-                rows_full[:valid] = (np.arange(c0, c0 + valid)
-                                     if sel is None else sel[c0:c0 + valid])
-                topk_state = merger.topk_update(
-                    topk_state, bs, alive_chunk=alive_chunk,
-                    rows_np=rows_full)
+                if shard_phys:
+                    # Shard-local top-k over logical ids c0 + slot*S + s,
+                    # then the candidates merge on the join device.
+                    topk_state = merger.topk_update(
+                        topk_state, bs, alive_chunk=alive_chunk, c0=c0,
+                        phys=True)
+                else:
+                    rows_full = np.zeros(n_bs, np.int64)
+                    rows_full[:valid] = (np.arange(c0, c0 + valid)
+                                         if sel is None
+                                         else sel[c0:c0 + valid])
+                    topk_state = merger.topk_update(
+                        topk_state, bs, alive_chunk=alive_chunk,
+                        rows_np=rows_full)
 
         if n_chunks:
             # Observed scan wall time vs. the feedback-free estimate: the
             # plan-vs-actual registry always records, the feedback store
-            # (which mutates future plans) only when enabled.
+            # (which mutates future plans) only when enabled.  The ref
+            # backend is priced at total rows, kernels per shard.
+            r_price = R if plan.backend == "ref" else -(-R // plan.n_shards)
             base = engine.planner.backend_seconds(
-                plan.backend, R, plan.n_locs, plan.pattern_chars,
+                plan.backend, r_price, plan.n_locs, plan.pattern_chars,
                 plan.n_patterns, plan.predicate, base=True)
             s_key = kernel_key(kernel_name(plan.backend, plan.predicate),
-                               R, plan.pattern_chars, plan.n_patterns)
+                               r_price, plan.pattern_chars, plan.n_patterns)
             t_scan = time.perf_counter() - t_scan0
             engine.obs.record_plan_actual(s_key, base, t_scan)
             if engine.record_runtimes:
@@ -514,10 +572,13 @@ class CompiledMatch:
             return MatchResult(plan=plan, best_locs=all_scores.argmax(1),
                                best_scores=all_scores.max(1),
                                scores=all_scores, n_chunks=n_chunks,
-                               merge_path=merger.merge_path)
+                               n_shards=S, merge_path=merger.merge_path,
+                               collective_bytes=merger.collective_bytes
+                               - coll0)
         res = MatchResult(plan=plan, best_locs=np.concatenate(best_l, 0),
                           best_scores=np.concatenate(best_s, 0),
-                          n_chunks=n_chunks, merge_path=merger.merge_path)
+                          n_chunks=n_chunks, n_shards=S,
+                          merge_path=merger.merge_path)
         if survivor_frac is not None:
             res.survivor_rows = sel
             res.survivor_frac = survivor_frac
@@ -536,6 +597,7 @@ class CompiledMatch:
             else:
                 res.topk_rows, res.topk_scores = merger.topk_finalize(
                     topk_state, n_topk_alive, self._k_eff)
+        res.collective_bytes = merger.collective_bytes - coll0
         return res
 
     __call__ = run
@@ -546,7 +608,11 @@ class MatchEngine:
 
     ``corpus`` may be a PackedCorpus or a raw (R, F) uint8 fragment
     matrix.  ``device=None`` means the CUDA device (or, for a
-    PackedCorpus, the device it was built on).  ``index`` attaches the
+    PackedCorpus, the device it was built on; with a mesh, the mesh's
+    first device).  ``mesh`` (a ``RowMesh``) shards corpus rows over the
+    mesh axes the ``rows`` logical rule maps to; ``rules`` replaces the
+    default rule table.  A row count the mesh does not divide falls back
+    to one shard with a ``UserWarning``.  ``index`` attaches the
     q-gram filter index: ``True`` (the default) shares the corpus's
     existing ``CorpusIndex`` or creates one, a ``CorpusIndex`` instance
     overrides its (q, n_bits), ``False`` disables the two-stage strategy.
@@ -561,8 +627,10 @@ class MatchEngine:
                  compile_cache_size: int = 128,
                  index: Union[bool, CorpusIndex] = True,
                  obs: Optional[Observability] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None, rules=None):
         self.obs = obs if obs is not None else Observability()
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         if isinstance(corpus, PackedCorpus):
             if device is not None and resolve_device(device) != corpus.device:
                 raise ValueError(f"corpus lives on {corpus.device}, engine "
@@ -575,14 +643,45 @@ class MatchEngine:
                              "fragment rows and no reserved capacity "
                              "(PackedCorpus(..., capacity=N) to start "
                              "empty)")
+        self.mesh = mesh
+        self.rules = rules
+        self._row_shards = 1
+        self._row_axes: Optional[Tuple[str, ...]] = None
+        row_pad = _swar.ROW_TILE
+        if mesh is not None:
+            # warn=True: an indivisible row count replicating silently is
+            # an invisible perf cliff -- the caller asked for a mesh and
+            # gets one shard; say so.
+            r = _sharding.resolve_axis(
+                "rows", -(-n_row_slots // _swar.ROW_TILE) * _swar.ROW_TILE,
+                mesh, rules, warn=True)
+            if r is not None:
+                self._row_axes = r if isinstance(r, tuple) else (r,)
+                self._row_shards = int(
+                    np.prod([mesh.shape[a] for a in self._row_axes]))
+                row_pad = _swar.ROW_TILE * self._row_shards
         if isinstance(corpus, PackedCorpus):
             self.corpus = corpus
         else:
             self.corpus = PackedCorpus(np.asarray(corpus, np.uint8),
-                                       device=device)
+                                       row_pad=row_pad, device=device)
         self.device = self.corpus.device
+        S = self._row_shards
+        if S > 1 and (canonical_device(self.device)
+                      != canonical_device(mesh.devices[0])):
+            raise ValueError(f"corpus lives on {self.device}, the mesh's "
+                             f"first device is {mesh.devices[0]}")
         self.corpus.obs = self.obs
-        self.merger = ShardMerger(obs=self.obs)
+        # The cyclic row layout over the mesh's devices (a no-op when the
+        # corpus already has this layout).
+        self.corpus.shard_rows(
+            mesh if S > 1 else None,
+            self._row_axes if self._row_axes is None
+            or len(self._row_axes) > 1 else self._row_axes[0], S)
+        # Every reduction, cross-shard join and host pull routes through
+        # the merger.
+        self.merger = ShardMerger(mesh if S > 1 else None, self._row_axes,
+                                  S, obs=self.obs)
         if planner is None:
             planner = Planner(cost_source=cost_source)
         elif cost_source is not None:
@@ -614,18 +713,33 @@ class MatchEngine:
 
     def __repr__(self) -> str:
         c = self.corpus
+        axes = (None if self._row_axes is None else
+                ",".join(self._row_axes))
         return (f"MatchEngine(rows={c.n_rows}, capacity={c.capacity}, "
-                f"device={self.device}, "
+                f"shards={self._row_shards}"
+                + (f" over {axes}" if axes else "")
+                + f", device={self.device}, "
                 f"cost={self.planner.cost_source.tag})")
 
     @property
     def n_shards(self) -> int:
-        """Row shards the corpus is split over: one on one device."""
-        return 1
+        """Resolved mesh row shards (1 when unsharded or replicated)."""
+        return self._row_shards
 
     def shard_live_rows(self) -> np.ndarray:
-        """(S,) rows per shard (``PackedCorpus.shard_live_rows``)."""
+        """(S,) live rows per shard (cyclic layout: balanced to +-1 row)."""
         return self.corpus.shard_live_rows
+
+    def _per_shard(self, x) -> list:
+        """A tensor (or tuple of tensors, or None) on each shard's device:
+        one entry a shard, the same object where devices repeat."""
+        copies: dict = {}
+        for d in self.corpus.devices:
+            if d not in copies:
+                copies[d] = (None if x is None else
+                             tuple(t.to(d) for t in x)
+                             if isinstance(x, tuple) else x.to(d))
+        return [copies[d] for d in self.corpus.devices]
 
     # -- compilation ----------------------------------------------------------
     def compile(self, query: MatchQuery, *,
@@ -678,6 +792,10 @@ class MatchEngine:
                 f"cannot run against {n_rows} live rows; per_row queries "
                 "are geometry-bound to their compile-time corpus -- "
                 "recompile with one pattern per current corpus row")
+        topk_k = 0
+        if query.reduction == "topk":
+            kv = np.asarray(query.k if query.k else (10,), np.int64)
+            topk_k = int(kv.max()) if kv.size else 10
         return self.planner.plan(
             n_rows=n_rows,
             fragment_chars=self.corpus.fragment_chars,
@@ -685,7 +803,15 @@ class MatchEngine:
             n_patterns=query.n_patterns if mode == "batched" else None,
             per_row=mode == "per_row", backend=query.backend,
             chunk_rows=query.chunk_rows, predicate=query.predicate,
-            filter_ctx=filter_ctx)
+            filter_ctx=filter_ctx, n_shards=self._row_shards,
+            reduction=query.reduction, topk_k=topk_k,
+            one_card=self.one_card)
+
+    @property
+    def one_card(self) -> bool:
+        """Every row shard on one card: a cross-shard join is a copy
+        within device memory, not over a link."""
+        return len(set(self.corpus.devices)) == 1
 
     # -- q-gram filter stage ----------------------------------------------------
     def _filter_context(self, query: MatchQuery, mode: Optional[str],
@@ -702,7 +828,26 @@ class MatchEngine:
         filter is an optimization, never a semantic change.  ``ops``
         short-circuits the operand build (they derive from the query
         content and the index parameters only).
+
+        A sharded engine never drops ``filter=True`` to a full scan
+        silently: when the forced strategy is impossible it raises.
         """
+        if query.filter is True and self._row_shards > 1:
+            why = None
+            if self.index is None:
+                why = "no CorpusIndex is attached (index=False)"
+            elif query.rows_b is not None:
+                why = "row-subset queries keep their own gather path"
+            elif mode == "per_row":
+                why = "per-row patterns have no shared signature"
+            elif query.pattern_chars < self.index.q:
+                why = (f"pattern ({query.pattern_chars} chars) is shorter "
+                       f"than the index q-gram (q={self.index.q})")
+            if why is not None:
+                raise ValueError(
+                    f"sharded engine cannot honor filter=True: {why}; "
+                    "pass filter=None to let the planner decide or "
+                    "filter=False to scan")
         if (self.index is None or query.filter is False
                 or query.reduction != "threshold"
                 or query.rows_b is not None or mode == "per_row"
@@ -735,23 +880,30 @@ class MatchEngine:
     def _run_filter(self, cm: CompiledMatch, n_rows: int) -> np.ndarray:
         """Filter stage: (n_rows,) bool candidate flags for one query.
 
-        One ``filter_qgram`` launch per pattern over the resident
-        signatures; a row survives if any pattern admits it (the batched
-        union, OR-ed on the device); one pull of the final bitmap.  The
-        exact scan's data is never touched for pruned rows.
+        One ``filter_qgram`` launch per pattern per shard over the
+        resident signatures; a row survives if any pattern admits it (the
+        batched union, OR-ed on each shard's device); the shards join
+        back in logical row order and the final bitmap crosses in one
+        pull.  The exact scan's data is never touched for pruned rows.
+        Each shard scans its live extent, ``ceil(n_rows / S)`` slots
+        padded to the filter tile (the q-gram lemma is a per-row
+        property, so it holds shard by shard).
         """
         ops = cm._filter_ops
         if cm._filter_dev is None:
             cm._filter_dev = torch.from_numpy(
                 np.ascontiguousarray(ops.qsig_words).view(np.int32)).to(
                     self.device)
-        sigs = self.index.signatures()
+        qsigs = self._per_shard(cm._filter_dev)
+        sigs = self.index.signature_shards()
         tile = _fq.FILTER_ROW_TILE
-        rows = sigs[:-(-n_rows // tile) * tile]
+        jn = min(sigs[0].shape[0],
+                 -(-(-(-n_rows // self._row_shards)) // tile) * tile)
         flags = None
         for qi in range(ops.qsig_words.shape[0]):
-            f = _fq.filter_qgram(rows, cm._filter_dev[qi:qi + 1],
-                                 slack=ops.slacks[qi])
+            f = [_fq.filter_qgram(sg[:jn], qs[qi:qi + 1],
+                                  slack=ops.slacks[qi])
+                 for sg, qs in zip(sigs, qsigs)]
             flags = f if flags is None else self.merger.or_(flags, f)
         return self.merger.survivor_union(flags, n_rows)
 
@@ -765,16 +917,62 @@ class MatchEngine:
         return self._plan_query(query, n_rows)
 
     # -- kernel dispatch (one chunk, pure device) -----------------------------
+    def _launches(self, c0: int, c1: int, idx: Optional[torch.Tensor],
+                  idx_log: Optional[np.ndarray]) -> List[_Launch]:
+        """The kernel launches of query rows [c0, c1).
+
+        Resident rows: one launch of slots [c0/S, c1/S) a shard (the whole
+        chunk with one shard).  Gathered rows (``idx``: padded row ids on
+        the device, ``idx_log`` the same on the host): one launch on the
+        one shard, or, with shards, one a shard that holds some of the
+        chunk's rows, its slots padded to the SWAR row tile.
+        """
+        S = self._row_shards
+        if idx is None:
+            if S == 1:
+                return [_Launch(0, slice(c0, c1))]
+            return [_Launch(s, slice(c0 // S, c1 // S)) for s in range(S)]
+        if S == 1:
+            return [_Launch(0, idx[c0:c1])]
+        ids = idx_log[c0:c1]
+        owner = ids % S
+        parts = [(s, np.flatnonzero(owner == s)) for s in range(S)]
+        parts = [(s, pos) for s, pos in parts if pos.size]
+        # Every launch's slots in one upload, each padded to the row tile.
+        tile = _swar.ROW_TILE
+        ends = np.cumsum([-(-pos.size // tile) * tile for _, pos in parts])
+        slots = np.zeros(int(ends[-1]), np.int64)
+        starts = np.concatenate([[0], ends[:-1]])
+        for (s, pos), a in zip(parts, starts):
+            slots[a:a + pos.size] = ids[pos] // S
+        dev = torch.from_numpy(slots).to(self.device)
+        return [_Launch(s, dev[a:b].to(self.corpus.devices[s]), pos)
+                for (s, pos), a, b in zip(parts, starts, ends)]
+
+    def _chunk_out(self, launches: List[_Launch], outs: list):
+        """Per-launch outputs -> the chunk's: the one tensor (one shard),
+        a tensor a shard (resident rows, cyclic layout), or one tensor in
+        query order on the join device (gathered rows)."""
+        if self._row_shards == 1:
+            return outs[0]
+        if launches[0].pos is None:
+            return outs
+        return self.merger.join_rows(
+            [o[:ln.pos.size] for ln, o in zip(launches, outs)],
+            [ln.pos for ln in launches])
+
     def _chunk_scores(self, plan: Plan, pats2d: np.ndarray, c0: int,
-                      c1: int, packed, idx: Optional[torch.Tensor],
-                      idx_log: Optional[np.ndarray] = None) -> torch.Tensor:
-        """Scores for query rows [c0, c1): (rows, L) or (rows, L, Q) int32.
+                      c1: int, packed: list, idx: Optional[torch.Tensor],
+                      idx_log: Optional[np.ndarray] = None):
+        """Scores for query rows [c0, c1): (rows, L) or (rows, L, Q) int32,
+        or, for a sharded resident chunk, a list of a shard's each.
 
         ``pats2d`` is the 2-D pattern operand for the ref backend -- codes
-        for exact plans, accept masks for accept plans.  ``idx`` (padded
-        row ids on the device) is set for row-subset queries: the chunk
-        is gathered from the resident forms instead of sliced;
-        ``idx_log`` carries the same ids on the host for the ref backend.
+        for exact plans, accept masks for accept plans.  ``packed`` holds
+        the pattern operands on each shard's device.  ``idx`` (padded row
+        ids on the device) is set for row-subset queries: the chunk is
+        gathered from the resident forms instead of sliced; ``idx_log``
+        carries the same ids on the host.
         """
         dev = self.device
         if plan.backend == "ref":
@@ -791,10 +989,18 @@ class MatchEngine:
                                     for q in range(plan.n_patterns)], -1)
             return fn(frags, pats[c0:c1] if plan.mode == "per_row" else pats)
 
+        launches = self._launches(c0, c1, idx, idx_log)
+        return self._chunk_out(launches, [
+            self._launch_scores(plan, c0, c1, ln, packed[ln.shard])
+            for ln in launches])
+
+    def _launch_scores(self, plan: Plan, c0: int, c1: int, ln: _Launch,
+                       packed) -> torch.Tensor:
+        """One launch's (rows, L[, Q]) int32 scores."""
         if plan.backend == "swar":
             kern = (_swar.match_swar_masks if plan.predicate == "accept"
                     else _swar.match_swar)
-            out = kern(*self._swar_operands(plan, c0, c1, packed, idx),
+            out = kern(*self._swar_operands(plan, c0, c1, ln, packed),
                        n_locs=plan.n_locs, pattern_chars=plan.pattern_chars)
             if plan.mode == "batched":
                 return out.reshape(plan.n_patterns, -1, plan.n_locs
@@ -802,26 +1008,31 @@ class MatchEngine:
             return out
 
         # mxu
-        base = self.corpus.onehot_flat(plan.f_chars)
-        ref_flat = base[idx[c0:c1]] if idx is not None else base[c0:c1]
+        ref_flat = self.corpus.onehot_shards(plan.f_chars)[ln.shard][ln.rows]
         out = _mxu.match_mxu(ref_flat, packed, l_pad=plan.l_pad)
         scores = torch.round(out[:, :plan.n_locs, :plan.n_patterns]
                              ).to(torch.int32)
         return scores[:, :, 0] if plan.mode != "batched" else scores
 
-    def _swar_operands(self, plan: Plan, c0: int, c1: int, packed,
-                       idx: Optional[torch.Tensor]):
-        """(words, pattern rows, valid mask) of the one SWAR launch for
-        query rows [c0, c1): a batched plan tiles the chunk Q times and
-        rides each pattern as a per-row pattern (one launch for all Q
-        queries, rows ordered pattern-major); a shared pattern is a row
-        stride-0 view; per-row patterns are zero-padded to the chunk."""
-        base = self.corpus.swar_words(plan.need_words)
-        words = base[idx[c0:c1]] if idx is not None else base[c0:c1]
+    def _swar_operands(self, plan: Plan, c0: int, c1: int, ln: _Launch,
+                       packed):
+        """(words, pattern rows, valid mask) of one SWAR launch: a batched
+        plan tiles the launch's rows Q times and rides each pattern as a
+        per-row pattern (one launch for all Q queries, rows ordered
+        pattern-major); a shared pattern is a row stride-0 view; per-row
+        patterns follow the launch's query positions, zero past them."""
+        words = self.corpus.swar_shards(plan.need_words)[ln.shard][ln.rows]
         pat_rows, mask = packed   # (Q, Wp) words or (Q, 4*Wp) planes
         if plan.mode == "per_row":
             r_pad = words.shape[0]
-            rows = pat_rows[c0:min(c1, pat_rows.shape[0])]
+            if self._row_shards == 1:
+                rows = pat_rows[c0:min(c1, pat_rows.shape[0])]
+            else:
+                S = self._row_shards
+                pos = (np.arange(r_pad) * S + ln.shard if ln.pos is None
+                       else ln.pos)
+                q = c0 + pos[c0 + pos < pat_rows.shape[0]]
+                rows = pat_rows[torch.from_numpy(q).to(pat_rows.device)]
             if rows.shape[0] < r_pad:
                 rows = torch.cat([rows, rows.new_zeros(
                     (r_pad - rows.shape[0], rows.shape[1]))], 0)
@@ -832,20 +1043,30 @@ class MatchEngine:
                     pat_rows.repeat_interleave(Rc, 0), mask)
         return words, pat_rows[0][None, :].expand(words.shape[0], -1), mask
 
-    def _chunk_best(self, plan: Plan, c0: int, c1: int, packed,
-                    idx: Optional[torch.Tensor]
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _chunk_best(self, plan: Plan, c0: int, c1: int, packed: list,
+                    idx: Optional[torch.Tensor],
+                    idx_log: Optional[np.ndarray] = None):
         """(best_loc, best_score) for query rows [c0, c1), each (rows, q)
-        int32, from one launch of a kernel that reduces in its epilogue:
-        ``match_mxu_best`` (q = q_pad) or, for exact SWAR,
-        ``match_swar_best`` (q = Q batched, else 1)."""
+        int32 (a list of a shard's each for a sharded resident chunk),
+        from kernels that reduce in their epilogue: ``match_mxu_best``
+        (q = q_pad) or, for exact SWAR, ``match_swar_best`` (q = Q
+        batched, else 1)."""
+        launches = self._launches(c0, c1, idx, idx_log)
+        outs = [self._launch_best(plan, c0, c1, ln, packed[ln.shard])
+                for ln in launches]
+        return (self._chunk_out(launches, [o[0] for o in outs]),
+                self._chunk_out(launches, [o[1] for o in outs]))
+
+    def _launch_best(self, plan: Plan, c0: int, c1: int, ln: _Launch,
+                     packed) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One fused launch's (rows, q) best locations and scores."""
         if plan.backend == "mxu":
-            base = self.corpus.onehot_flat(plan.f_chars)
-            ref_flat = base[idx[c0:c1]] if idx is not None else base[c0:c1]
+            ref_flat = self.corpus.onehot_shards(
+                plan.f_chars)[ln.shard][ln.rows]
             return _mxu.match_mxu_best(ref_flat, packed, n_locs=plan.n_locs,
                                        n_k=4 * plan.pattern_chars)
         bl, bs = _swar.match_swar_best(
-            *self._swar_operands(plan, c0, c1, packed, idx),
+            *self._swar_operands(plan, c0, c1, ln, packed),
             n_locs=plan.n_locs, pattern_chars=plan.pattern_chars)
         q = plan.n_patterns if plan.mode == "batched" else 1
         return bl.reshape(q, -1).t(), bs.reshape(q, -1).t()
@@ -880,6 +1101,7 @@ class MatchEngine:
         res = MatchResult(plan=plan,
                           best_locs=np.zeros(shape0, np.int32),
                           best_scores=np.zeros(shape0, np.int32),
+                          n_shards=self._row_shards,
                           merge_path=self.merger.merge_path)
         if query.reduction == "full":
             res.scores = np.zeros((0, plan.n_locs, Q) if batched

@@ -25,15 +25,23 @@ codes (``signature_words``), block by block: at a human chromosome the
 host path of the JAX package (an (n, B) occupancy matrix per 64K rows)
 would take seconds.  The words are identical to ``row_signatures``,
 the numpy copy of the JAX function kept here for query-side operands.
-Single device: the JAX index's per-host build, device-side density and
-cyclic shard layout belong to the multi-GPU slice.
+
+On a sharded corpus the signature form mirrors the corpus's cyclic row
+layout: a tensor a shard on the shard's device, shard ``s`` holding the
+logical rows ``s::S``, each shard's slot count padded to
+``FILTER_ROW_TILE`` on its own (``shard_stride``).  Per-row bit counts
+then stay on the shards' devices too, and ``density`` is a cross-shard
+sum over the live slots, joined on the first device and cached per
+corpus generation (the host mean of one shard, bit for bit).  The JAX
+index's per-host build belongs to one process a card and is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -257,8 +265,13 @@ class CorpusIndex:
         self.q = q
         self.n_bits = n_bits
         self.sig_words = n_bits // 32
-        self._sigs: Optional[torch.Tensor] = None    # (S_pad, Wb) int32
+        # A (Jf, Wb) int32 signature form a shard (lazy).
+        self._sigs: Optional[List[torch.Tensor]] = None
+        # Per-row bit counts: on the host for one shard, a (Jf,) int32
+        # tensor a shard on its device for several (``_bits_dev``).
         self._row_bits = np.zeros(corpus.capacity, np.int32)
+        self._bits_dev: Optional[List[torch.Tensor]] = None
+        self._dcache: Optional[tuple] = None
         self.sig_pack_count = 0
         self.row_update_count = 0
         # Selectivity feedback: EWMA of measured/predicted survivor
@@ -272,48 +285,78 @@ class CorpusIndex:
     # -- geometry --------------------------------------------------------------
     @property
     def _rows_padded(self) -> int:
-        """Device-form row count: capacity padded to the filter row tile."""
+        """Device-form row count: each shard's slots padded to the filter
+        row tile (its stride ``Jf`` may exceed the corpus forms' ``J``)."""
+        return self.corpus.n_shards * self.shard_stride
+
+    @property
+    def shard_stride(self) -> int:
+        """Slots of a shard's signature form, Jf."""
         tile = _fq.FILTER_ROW_TILE
-        return -(-self.corpus.capacity_padded // tile) * tile
+        return -(-self.corpus.shard_stride // tile) * tile
 
     # -- residency -------------------------------------------------------------
     def signatures(self) -> torch.Tensor:
-        """(S_pad, Wb) int32 device-resident row signatures.
+        """(R_pad, Wb) int32 row signatures of an unsharded corpus
+        (``signature_shards`` for a sharded one)."""
+        return self.corpus._one_form(self.signature_shards(), "signature")
 
-        The first call hashes the live rows on the device (one event;
-        reserved and padding rows are all-zero); later calls reuse the
-        cached form, which row splices keep up to date.
+    def signature_shards(self) -> List[torch.Tensor]:
+        """A (Jf, Wb) int32 signature form a shard, device-resident.
+
+        The first call hashes the live rows on each shard's device (one
+        event; reserved and padding rows are all-zero); later calls reuse
+        the cached forms, which row splices keep up to date.
         """
         if self._sigs is None:
             tr = self.corpus.obs.tracer
             with tr.span("pack",
                          {"form": "qgram_sigs", "rows": self._rows_padded}
                          if tr.enabled else None):
-                n = self.corpus.n_rows
-                dev = self.corpus.device
-                sigs = torch.zeros((self._rows_padded, self.sig_words),
-                                   dtype=torch.int32, device=dev)
-                counts = torch.zeros(n, dtype=torch.int32, device=dev)
-                for b0 in range(0, n, _BUILD_CHUNK_ROWS):
-                    b1 = min(b0 + _BUILD_CHUNK_ROWS, n)
-                    sigs[b0:b1], counts[b0:b1] = signature_words(
-                        self.corpus._codes(b0, b1), self.q, self.n_bits)
-                self._row_bits[:n] = counts.cpu().numpy()
+                c = self.corpus
+                S, n = c.n_shards, c.n_rows
+                sigs, bits = [], []
+                for s in range(S):
+                    live = c._shard_live(s)
+                    form = torch.zeros((self.shard_stride, self.sig_words),
+                                       dtype=torch.int32,
+                                       device=c.devices[s])
+                    counts = torch.zeros(self.shard_stride,
+                                         dtype=torch.int32,
+                                         device=c.devices[s])
+                    for j0 in range(0, live, _BUILD_CHUNK_ROWS):
+                        j1 = min(j0 + _BUILD_CHUNK_ROWS, live)
+                        form[j0:j1], counts[j0:j1] = signature_words(
+                            c._shard_codes(s, j0, j1), self.q, self.n_bits)
+                    if S == 1:
+                        self._row_bits[:n] = counts[:n].cpu().numpy()
+                    sigs.append(form)
+                    bits.append(counts)
                 self._sigs = sigs
+                self._bits_dev = bits if S > 1 else None
+                self._dcache = None
             self.sig_pack_count += 1
             self.corpus.obs.metrics.counter("corpus.packs").inc()
         return self._sigs
 
     # -- corpus observer hooks -------------------------------------------------
     def _on_rows_written(self, start: int, rows: np.ndarray) -> None:
-        """Touched-rows-only splice, mirroring ``PackedCorpus._splice_device``."""
+        """Touched-rows-only splice, mirroring ``PackedCorpus._splice_device``:
+        each row's signature lands at its shard and slot."""
         n = rows.shape[0]
         if self._sigs is not None:
-            codes = torch.from_numpy(np.ascontiguousarray(rows, np.uint8)).to(
-                self.corpus.device)
-            words, counts = signature_words(codes, self.q, self.n_bits)
-            self._sigs[start:start + n] = words
-            self._row_bits[start:start + n] = counts.cpu().numpy()
+            c = self.corpus
+            S = c.n_shards
+            for s, i0, j0, m in c.shard_slices(start, n):
+                codes = torch.from_numpy(np.ascontiguousarray(
+                    rows[i0::S], np.uint8)).to(c.devices[s])
+                words, counts = signature_words(codes, self.q, self.n_bits)
+                self._sigs[s][j0:j0 + m] = words
+                if self._bits_dev is not None:
+                    self._bits_dev[s][j0:j0 + m] = counts
+                else:
+                    self._row_bits[start:start + n] = counts.cpu().numpy()
+            self._dcache = None
             self.row_update_count += n
 
     def _on_capacity(self) -> None:
@@ -323,13 +366,19 @@ class CorpusIndex:
             self._row_bits = np.concatenate(
                 [self._row_bits,
                  np.zeros(cap - self._row_bits.shape[0], np.int32)])
-        if self._sigs is not None and self._sigs.shape[0] < self._rows_padded:
-            pad = self._sigs.new_zeros(
-                (self._rows_padded - self._sigs.shape[0], self.sig_words))
-            self._sigs = torch.cat([self._sigs, pad], 0)
+        jf = self.shard_stride
+        if self._sigs is not None and self._sigs[0].shape[0] < jf:
+            # Per-shard zero-extension: rows keep their shard and slot.
+            self._sigs = [torch.cat([f, f.new_zeros(
+                (jf - f.shape[0], self.sig_words))], 0) for f in self._sigs]
+            if self._bits_dev is not None:
+                self._bits_dev = [torch.cat([b, b.new_zeros(
+                    jf - b.shape[0])]) for b in self._bits_dev]
 
     def _on_invalidate(self) -> None:
         self._sigs = None
+        self._bits_dev = None
+        self._dcache = None
 
     # -- selectivity model -----------------------------------------------------
     def density(self) -> float:
@@ -341,9 +390,32 @@ class CorpusIndex:
         """
         n = self.corpus.n_rows
         if self._sigs is not None and n:
+            if self._bits_dev is not None:
+                return self._density_device(n)
             return float(self._row_bits[:n].mean()) / self.n_bits
         return expected_density(self.corpus.fragment_chars, self.q,
                                 self.n_bits)
+
+    def _density_device(self, n: int) -> float:
+        """Live-row mean bit count from the shards' device counts.
+
+        Each shard sums its live slots on its device; the sums join on
+        the first device and one scalar crosses to the host.
+        ``float(total) / n`` reproduces the host ``np.mean`` (an exact
+        integer sum, one float64 divide) bit for bit.  Cached per
+        (generation, n): density is read on every plan, the corpus
+        mutates far less often.
+        """
+        key = (self.corpus.generation, n)
+        if self._dcache is not None and self._dcache[0] == key:
+            return self._dcache[1]
+        dev0 = self.corpus.devices[0]
+        total = int(torch.stack([
+            b[:self.corpus._shard_live(s)].sum(dtype=torch.int64).to(dev0)
+            for s, b in enumerate(self._bits_dev)]).sum())
+        val = float(total) / n / self.n_bits
+        self._dcache = (key, val)
+        return val
 
     def estimate_survivor_frac(self, n_query_bits: Sequence[int],
                                slacks: Sequence[int], *,

@@ -1,12 +1,23 @@
-"""Per-chunk reductions and host pulls (port of ``repro.match.merge``).
+"""Per-chunk reductions, cross-shard merges and host pulls (port of
+``repro.match.merge``).
 
-``ShardMerger`` is the one place chunk results are reduced and cross to
-the host.  On one device there is nothing to merge across shards: every
-reduction is a few torch ops on the chunk's device scores, and only the
-reduced state is pulled.  The transfer counters (``reduced_pull_bytes``,
-``block_pull_bytes``, ``n_pulls``) keep the JAX package's meaning; the
-collective counters arrive with the multi-GPU slice.
+``ShardMerger`` is the one place chunk results are reduced, combine
+across row shards and cross to the host.  A *sharded value* is a list of
+per-shard tensors, shard ``s``'s on its own device, in the corpus's
+cyclic layout (shard ``s``'s slot ``j`` of a chunk starting at logical row
+``c0`` is row ``c0 + j*S + s``).  Reductions run shard by shard where the
+shard's rows are; the reduced state then joins on the mesh's first
+device (``.to(dev0, non_blocking=True)`` and ``torch.cat`` or a merge; on
+one card the ``.to`` is a no-op) and crosses to the host in one pull.
+That join is this single process's counterpart of the JAX package's
+``all_gather`` under ``shard_map``; ``n_collectives`` and
+``collective_bytes`` count it as the reference counts its collectives
+(a ring's ``(S-1)/S`` of the joined payload).  One process a card, with
+``torch.distributed`` collectives, is not ported yet.
 
+* ``pull`` -- a tensor or a sharded value -> host ndarray; a sharded one
+  is joined first and, with ``unpermute=True``, put back in logical row
+  order on the device.
 * ``chunk_best``  -- per-row argmax / max over alignments.  Both
   ``torch.argmax`` and ``jnp.argmax`` return the first maximal index; the
   locations are cast to int32, ``jnp.argmax``'s type with x64 off.
@@ -14,22 +25,27 @@ collective counters arrive with the multi-GPU slice.
   epilogue (``match_mxu_best``, ``match_swar_best``) and only trims the
   padded columns.
 * ``hot_mask`` / ``gather_rows`` -- the threshold reduction's sparse
-  two-phase pull (integer-exact ``s >= ceil(t)``).
+  two-phase pull (integer-exact ``s >= ceil(t)``); a sharded gather takes
+  each row from its shard and returns them in the order asked.
 * ``or_`` / ``survivor_union`` -- the filter stage's union across
-  patterns (on the device) and its one pull of the final bitmap.
+  patterns (on each shard's device) and its one pull of the final
+  bitmap, in logical row order.
 * ``topk_*`` -- running global top-k under the total order (score desc,
   row asc); dead and padding entries carry the (-1, INT32_MAX) sentinel
   pair and sort last.  torch has no ``lexsort``: one int64 key
-  ``(-score) << 32 | row`` sorts the same way.
+  ``(-score) << 32 | row`` sorts the same way.  On a sharded chunk each
+  shard first keeps its own top-k over the logical ids
+  ``c0 + slot*S + s``; only those candidates join the running state.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as _sharding
 from repro_torch.obs import NULL_OBS, Observability
 
 # Sentinel pair for dead / padding top-k entries: any real row scores
@@ -38,25 +54,74 @@ from repro_torch.obs import NULL_OBS, Observability
 ROW_SENTINEL = np.int32(np.iinfo(np.int32).max)
 SCORE_SENTINEL = np.int32(-1)
 
+Value = Union[torch.Tensor, List[torch.Tensor]]
+
+
+def _map(fn, x: Value) -> Value:
+    """``fn`` on a tensor, or on each shard of a sharded value."""
+    return [fn(t) for t in x] if isinstance(x, list) else fn(x)
+
 
 class ShardMerger:
-    """Chunk reductions + host pulls for one single-device engine."""
+    """Chunk reductions, cross-shard merges and host pulls for one engine.
 
-    def __init__(self, obs: Optional[Observability] = None):
+    ``n_shards == 1`` is the one-device engine (``merge_path == "host"``);
+    with shards, every cross-shard combine joins on ``mesh.devices[0]``
+    (``merge_path == "device"``).  ``row_axes`` (the mesh axes the rows
+    shard over) is the reference's argument; one process joins over the
+    mesh's device list and does not read it.
+    """
+
+    def __init__(self, mesh=None, row_axes=None, n_shards: int = 1,
+                 obs: Optional[Observability] = None):
         self.obs = obs if obs is not None else NULL_OBS
+        self.n_shards = int(n_shards)
+        self.mesh = mesh if self.n_shards > 1 else None
+        # The join device: where cross-shard results meet before a pull.
+        self.device = None if self.mesh is None else self.mesh.devices[0]
+        self.collective_bytes = 0
         self.reduced_pull_bytes = 0
         self.block_pull_bytes = 0
+        self.n_collectives = 0
         self.n_pulls = 0
 
     @property
     def merge_path(self) -> str:
-        """"host": one shard, nothing combines across devices."""
-        return "host"
+        """"device" when shards combine on the join device, else "host"."""
+        return "device" if self.n_shards > 1 else "host"
 
-    def pull(self, x: torch.Tensor, *, kind: str = "reduced") -> np.ndarray:
-        """Device tensor -> host ndarray (blocks on the device)."""
+    def _count_collective(self, nbytes: int) -> None:
+        self.n_collectives += 1
+        self.collective_bytes += (int(nbytes) * (self.n_shards - 1)
+                                  ) // self.n_shards
+
+    def join(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Per-shard blocks -> one tensor on the join device (physical,
+        shard-major order)."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device, non_blocking=True)
+                          for p in parts], 0)
+
+    def pull(self, x: Value, *, unpermute: bool = False,
+             kind: str = "reduced") -> np.ndarray:
+        """Device value -> host ndarray (blocks on the device).
+
+        A sharded value joins on the join device first (one collective)
+        and, with ``unpermute``, returns to logical row order there.
+        ``kind`` buckets the transfer accounting ("reduced" state vs.
+        score "block").
+        """
         tr = self.obs.tracer
         with tr.span("pull", {"kind": kind} if tr.enabled else None) as sp:
+            if isinstance(x, list):
+                g = self.join(x)
+                if len(x) > 1:
+                    if unpermute:
+                        g = _sharding.cyclic_unpermute(
+                            g, len(x)).contiguous()
+                    self._count_collective(g.numel() * g.element_size())
+                x = g
             out = x.cpu().numpy()
             self.n_pulls += 1
             if kind == "block":
@@ -67,51 +132,91 @@ class ShardMerger:
                 sp.set("bytes", int(out.nbytes))
         return out
 
-    def chunk_best(self, scores: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(rows, L[, Q]) -> ((rows[, Q]) int32 argmax, (rows[, Q]) max)."""
+    def chunk_best(self, scores: Value) -> Tuple[Value, Value]:
+        """(rows, L[, Q]) -> ((rows[, Q]) int32 argmax, (rows[, Q]) max),
+        shard by shard for a sharded value."""
         tr = self.obs.tracer
         with tr.span("merge", {"op": "best"} if tr.enabled else None):
+            if isinstance(scores, list):
+                pairs = [(s.argmax(dim=1).to(torch.int32), s.amax(dim=1))
+                         for s in scores]
+                return [p[0] for p in pairs], [p[1] for p in pairs]
             return (scores.argmax(dim=1).to(torch.int32),
                     scores.amax(dim=1))
 
-    def slice_best(self, best_loc: torch.Tensor, best_score: torch.Tensor,
+    def slice_best(self, best_loc: Value, best_score: Value,
                    n_patterns: int, *, batched: bool
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   ) -> Tuple[Value, Value]:
         """A fused kernel's (rows, q >= n_patterns) best pair -> the
         ``chunk_best`` shapes: (rows, n_patterns) batched, else column 0
         as (rows,)."""
         tr = self.obs.tracer
         with tr.span("merge", {"op": "best"} if tr.enabled else None):
             if batched:
-                return best_loc[:, :n_patterns], best_score[:, :n_patterns]
-            return best_loc[:, 0], best_score[:, 0]
+                return (_map(lambda t: t[:, :n_patterns], best_loc),
+                        _map(lambda t: t[:, :n_patterns], best_score))
+            return (_map(lambda t: t[:, 0], best_loc),
+                    _map(lambda t: t[:, 0], best_score))
 
-    def hot_mask(self, scores: torch.Tensor,
-                 thr_int: np.ndarray) -> torch.Tensor:
+    def hot_mask(self, scores: Value, thr_int: np.ndarray) -> Value:
         """(rows,) bool: any alignment (any query) reaches the threshold.
 
         ``thr_int`` is ``ceil(threshold)`` as int32 ((1,) or (Q,)): scores
         are integers, so the integer compare is exact.
         """
+        thr = np.asarray(thr_int, np.int32)
+
+        def hot(s):
+            t = torch.from_numpy(thr).to(s.device)
+            m = s >= (t.view(1, 1, -1) if s.ndim == 3 else t)
+            return m.flatten(1).any(dim=1)
         tr = self.obs.tracer
         with tr.span("merge", {"op": "hot_mask"} if tr.enabled else None):
-            t = torch.from_numpy(np.asarray(thr_int, np.int32)).to(
-                scores.device)
-            m = scores >= (t.view(1, 1, -1) if scores.ndim == 3 else t)
-            return m.flatten(1).any(dim=1)
+            return _map(hot, scores)
 
-    def or_(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Elementwise OR (the filter stage's union across patterns)."""
+    def or_(self, a: Value, b: Value) -> Value:
+        """Elementwise OR (the filter stage's union across patterns), on
+        each shard's device."""
+        if isinstance(a, list):
+            return [x | y for x, y in zip(a, b)]
         return a | b
 
-    def gather_rows(self, arr: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-        """Rows ``idx`` (host int array) of a device tensor."""
+    def gather_rows(self, arr: Value, idx: np.ndarray) -> torch.Tensor:
+        """Rows ``idx`` (host int array) of a device tensor, or physical
+        rows ``idx`` of a sharded value (position p is shard p // J, slot
+        p % J), on the join device in the order of ``idx``."""
+        idx = np.asarray(idx, np.int64)
         tr = self.obs.tracer
         with tr.span("merge",
                      {"op": "gather_rows"} if tr.enabled else None):
-            i = torch.from_numpy(np.asarray(idx, np.int64)).to(arr.device)
-            return arr.index_select(0, i)
+            if not isinstance(arr, list):
+                i = torch.from_numpy(idx).to(arr.device)
+                return arr.index_select(0, i)
+            J = arr[0].shape[0]
+            parts, positions = [], []
+            for s, a in enumerate(arr):
+                pos = np.flatnonzero(idx // J == s)
+                if pos.size:
+                    slots = torch.from_numpy(idx[pos] % J).to(a.device)
+                    parts.append(a.index_select(0, slots))
+                    positions.append(pos)
+            return self.join_rows(parts, positions)
+
+    def join_rows(self, parts: Sequence[torch.Tensor],
+                  positions: Sequence[np.ndarray]) -> torch.Tensor:
+        """Row blocks from several shards -> one tensor on the join
+        device, row ``positions[i][r]`` holding ``parts[i][r]``
+        (``positions`` together a permutation of ``range(n)``)."""
+        if len(parts) == 1 and self.n_shards == 1:
+            return parts[0]
+        g = torch.cat([p.to(self.device, non_blocking=True)
+                       for p in parts], 0)
+        order = np.concatenate(positions)
+        inv = np.empty_like(order)
+        inv[order] = np.arange(order.size)
+        out = g.index_select(0, torch.from_numpy(inv).to(g.device))
+        self._count_collective(out.numel() * out.element_size())
+        return out
 
     # -- top-k -------------------------------------------------------------------
     def topk_init(self, k: int, n_cols: int, device: torch.device
@@ -123,39 +228,72 @@ class ShardMerger:
                 torch.full(shape, int(ROW_SENTINEL), dtype=torch.int32,
                            device=device))
 
-    def topk_update(self, state, bs: torch.Tensor, *,
-                    alive_chunk: np.ndarray, rows_np: np.ndarray):
+    def topk_update(self, state, bs: Value, *, alive_chunk: np.ndarray,
+                    rows_np: Optional[np.ndarray] = None, c0: int = 0,
+                    phys: bool = False):
         """Fold one chunk's best scores into the running top-k state.
 
-        ``bs`` follows logical candidate order, ``rows_np`` carries the
-        corpus ids and ``alive_chunk`` the in-chunk validity/tombstone
-        mask.
+        ``phys=False``: ``bs`` follows logical candidate order,
+        ``rows_np`` carries the corpus ids.  ``phys=True``: ``bs`` is a
+        sharded chunk starting at logical row ``c0``; each shard keeps its
+        top-k over its logical ids ``c0 + slot*S + s`` and only those
+        candidates join the state on the join device.  ``alive_chunk`` is
+        the in-chunk validity/tombstone mask over logical positions.
         """
         st_s, st_r = state
+        alive_chunk = np.asarray(alive_chunk, bool)
         tr = self.obs.tracer
         with tr.span("merge", {"op": "topk"} if tr.enabled else None):
-            dev = bs.device
-            alive = torch.from_numpy(np.asarray(alive_chunk, bool)).to(dev)
-            rows = torch.from_numpy(np.asarray(rows_np, np.int64)).to(dev)
-            bs2 = bs if bs.ndim == 2 else bs[:, None]
             st_s2 = st_s if st_s.ndim == 2 else st_s[:, None]
             st_r2 = st_r if st_r.ndim == 2 else st_r[:, None]
             k = st_s2.shape[0]
-            sc = torch.where(alive[:, None], bs2.to(torch.int64),
-                             int(SCORE_SENTINEL))
-            rw = torch.where(alive[:, None], rows[:, None].expand_as(bs2),
-                             int(ROW_SENTINEL))
-            cs = torch.cat([st_s2.to(torch.int64), sc], 0)
-            cr = torch.cat([st_r2.to(torch.int64), rw], 0)
-            # Scores are >= -1 and rows < 2**31, so the key orders
-            # (score desc, row asc) exactly; equal keys are identical
-            # sentinel pairs, whose order does not matter.
-            key = torch.sort((-cs << 32) | cr, dim=0).values[:k]
+            if phys:
+                S = len(bs)
+                jc = bs[0].shape[0]
+                # Logical position slot*S + s: shard s's mask is column s.
+                alive_all = torch.from_numpy(alive_chunk).to(
+                    bs[0].device).view(jc, S)
+                cands = []
+                for s, b in enumerate(bs):
+                    dev = b.device
+                    alive = alive_all[:, s].to(dev)
+                    rows = torch.arange(jc, device=dev) * S + (c0 + s)
+                    keys = self._candidate_keys(b, rows, alive)
+                    cands.append(torch.sort(keys, dim=0).values[:k])
+                if S > 1:
+                    self.n_collectives += 1
+                    self.collective_bytes += ((S - 1) * min(k, jc)
+                                              * cands[0].shape[1] * 12)
+                cand = self.join(cands)
+                ndim = bs[0].ndim
+            else:
+                dev = bs.device
+                alive = torch.from_numpy(alive_chunk).to(dev)
+                rows = torch.from_numpy(np.asarray(rows_np, np.int64)).to(dev)
+                cand = self._candidate_keys(bs, rows, alive)
+                ndim = bs.ndim
+            st_key = (-st_s2.to(torch.int64) << 32) | st_r2.to(torch.int64)
+            key = torch.sort(torch.cat([st_key, cand.to(st_key.device)], 0),
+                             dim=0).values[:k]
             out_s = (-(key >> 32)).to(torch.int32)
             out_r = (key & 0xFFFFFFFF).to(torch.int32)
-            if bs.ndim == 1:
+            if ndim == 1:
                 return out_s[:, 0], out_r[:, 0]
             return out_s, out_r
+
+    @staticmethod
+    def _candidate_keys(bs: torch.Tensor, rows: torch.Tensor,
+                        alive: torch.Tensor) -> torch.Tensor:
+        """(n[, Q]) best scores -> (n, Q) int64 keys ``(-score) << 32 |
+        row``, dead rows as the sentinel pair.  Scores are >= -1 and rows
+        < 2**31, so the keys order (score desc, row asc) exactly; equal
+        keys are identical sentinel pairs, whose order does not matter."""
+        bs2 = bs if bs.ndim == 2 else bs[:, None]
+        sc = torch.where(alive[:, None], bs2.to(torch.int64),
+                         int(SCORE_SENTINEL))
+        rw = torch.where(alive[:, None], rows[:, None].expand_as(bs2),
+                         int(ROW_SENTINEL))
+        return (-sc << 32) | rw
 
     def topk_finalize(self, state, n_alive: int, k: int):
         """Pull the state, trim sentinels: ((kk[, Q]) rows, scores) with
@@ -167,11 +305,13 @@ class ShardMerger:
         return rows[:kk], scores[:kk]
 
     # -- filter survivor union -------------------------------------------------
-    def survivor_union(self, flags: torch.Tensor, n_rows: int) -> np.ndarray:
-        """(R_pad, 1) candidate flags -> (n_rows,) bool, in one pull.
+    def survivor_union(self, flags: Value, n_rows: int) -> np.ndarray:
+        """(R_pad, 1) candidate flags, or a shard's (jn, 1) each ->
+        (n_rows,) logical bool, in one pull.
 
-        On one device the union across patterns already happened on the
-        device (``or_``); only the final bitmap crosses to the host.
+        The union across patterns already happened on each shard's
+        device (``or_``); the shards join and return to logical row order
+        on the join device, and only the final bitmap crosses to the host.
         """
-        out = self.pull(flags, kind="reduced")
+        out = self.pull(flags, unpermute=True, kind="reduced")
         return out[:n_rows, 0].astype(bool)

@@ -34,7 +34,12 @@ Batch pricing: ``plan_batch`` weighs Q compatible shared-mode queries
 fused into one ``mode="batched"`` launch against Q single launches (the
 ``MatchService`` coalescing verdict).
 
-Not in this slice: shard-aware pricing (multi-GPU slice).
+Shard-aware pricing: with ``n_shards`` row shards the kernels run a
+launch a shard on ``ceil(R / S)`` rows, so their terms use the per-shard
+row count, chunks hold ``row_tile * S`` multiples, and the cross-shard
+merge of the reduced state is added after the backend choice, at
+``GPURoofline.merge_bw`` (device memory when the shards share one card,
+NVLink when they do not).
 """
 
 from __future__ import annotations
@@ -309,12 +314,18 @@ class Planner:
 
     # -- chunking -------------------------------------------------------------
     def _chunk_rows(self, R_pad: int, plan_bytes_per_row: int,
-                    row_tile: int, override: Optional[int]) -> int:
-        """Rows per streaming chunk (a multiple of the row tile)."""
+                    row_tile: int, override: Optional[int],
+                    n_shards: int = 1) -> int:
+        """Rows per streaming chunk (a multiple of the row tile).
+
+        The memory budget is per device; a sharded chunk spreads its rows
+        over ``n_shards`` shards, so the chunk can be S times larger for
+        the same per-shard footprint.
+        """
         if override is not None:
             chunk = -(-override // row_tile) * row_tile
         else:
-            rows = int(self.memory_budget_bytes
+            rows = int(self.memory_budget_bytes * n_shards
                        // max(plan_bytes_per_row, 1))
             chunk = max(row_tile, (rows // row_tile) * row_tile)
         return min(chunk, R_pad)
@@ -325,7 +336,13 @@ class Planner:
              backend: Optional[str] = None,
              chunk_rows: Optional[int] = None,
              predicate: str = "exact",
-             filter_ctx: Optional[FilterContext] = None) -> Plan:
+             filter_ctx: Optional[FilterContext] = None,
+             n_shards: int = 1, reduction: Optional[str] = None,
+             topk_k: int = 0, one_card: bool = False) -> Plan:
+        """``n_shards`` prices the kernels per shard and adds the merge of
+        ``reduction``'s state across shards (``topk_k`` candidates a
+        shard a chunk for top-k), at device-memory speed when
+        ``one_card`` (every shard on one card), else over NVLink."""
         R, F, P = n_rows, fragment_chars, pattern_chars
         if R < 1:
             raise ValueError("corpus has no rows")
@@ -346,8 +363,13 @@ class Planner:
         if backend == "mxu" and per_row:
             raise ValueError("mxu kernel has no per-row-pattern formulation")
 
-        t_swar = self.swar_seconds(R, L, P, Q, predicate)
-        t_mxu = self.mxu_seconds(R, L, P, Q)
+        # The kernels run a launch a shard on R/S rows; the ref backend
+        # scans the host buffer once and the tiny-workload escape keys on
+        # total ops, so both keep R.
+        S = max(1, int(n_shards))
+        R_shard = -(-R // S)
+        t_swar = self.swar_seconds(R_shard, L, P, Q, predicate)
+        t_mxu = self.mxu_seconds(R_shard, L, P, Q)
 
         if backend is not None:
             chosen, reason = backend, "explicit override"
@@ -377,7 +399,7 @@ class Planner:
 
         wp, need = _swar_geometry(P, L)
         l_pad, p_chars, q_pad, f_chars = _mxu_geometry(P, L, Q)
-        row_pad = _swar.ROW_TILE
+        row_pad = _swar.ROW_TILE * S
         R_pad = -(-R // row_pad) * row_pad
 
         if chosen == "swar":
@@ -388,18 +410,21 @@ class Planner:
             bytes_per_row = (need * 4 + pat_words * 4 + L * 4) * Q
             row_tile = _swar.ROW_TILE
             est = t_swar
-            est_base = self.swar_seconds(R, L, P, Q, predicate, base=True)
+            est_base = self.swar_seconds(R_shard, L, P, Q, predicate,
+                                         base=True)
         elif chosen == "mxu":
             bytes_per_row = f_chars * 4 * 2 + l_pad * q_pad * 4
             row_tile = 1
             est = t_mxu
-            est_base = self.mxu_seconds(R, L, P, Q, base=True)
+            est_base = self.mxu_seconds(R_shard, L, P, Q, base=True)
         else:
             bytes_per_row = F + L * 4 * Q
             row_tile = 1
             est = self.ref_seconds(R, L, P, Q)
             est_base = self.ref_seconds(R, L, P, Q, base=True)
-        chunk = self._chunk_rows(R_pad, bytes_per_row, row_tile, chunk_rows)
+        chunk = self._chunk_rows(R_pad, bytes_per_row,
+                                 row_tile if chosen == "ref" else
+                                 row_tile * S, chunk_rows, n_shards=S)
 
         # Two-stage pricing: for an eligible threshold query, compare
         # filter + estimated-survivor verify against the full scan just
@@ -411,8 +436,10 @@ class Planner:
         est_fil = est_fil_base = 0.0
         if filter_ctx is not None and filter_ctx.prunable:
             frac = filter_ctx.survivor_frac
-            r_surv = max(1, math.ceil(frac * R))
-            t_fil = self.filter_seconds(R, filter_ctx.sig_words,
+            # Per shard: the filter scans R/S signatures a shard, and
+            # survivors spread ~evenly over shards (cyclic placement).
+            r_surv = max(1, math.ceil(frac * R / S))
+            t_fil = self.filter_seconds(R_shard, filter_ctx.sig_words,
                                         filter_ctx.n_queries)
             t_ver = self.backend_seconds(chosen, r_surv, L, P, Q, predicate)
             if filter_ctx.force or t_fil + t_ver < est:
@@ -425,10 +452,34 @@ class Planner:
                 est = t_fil + t_ver
                 est_fil = t_fil
                 est_fil_base = self.filter_seconds(
-                    R, filter_ctx.sig_words, filter_ctx.n_queries, base=True)
+                    R_shard, filter_ctx.sig_words, filter_ctx.n_queries,
+                    base=True)
                 est_base = self.backend_seconds(chosen, r_surv, L, P, Q,
                                                 predicate, base=True)
 
+        # Cross-shard merge: the reduced state joins across shards (a
+        # ring's (S-1)/S of the payload): the per-row best loc + score (8
+        # bytes a row a query) under every scan reduction, plus top-k's
+        # per-chunk candidates ((score, row) pairs from S-1 shards) or
+        # threshold's hot bitmap; "full" joins the whole score block.
+        # Added after the backend choice: every backend merges the same.
+        est_coll = 0.0
+        if S > 1 and reduction is not None:
+            ring = (S - 1) / S
+            if reduction == "full":
+                est_coll = R_pad * L * 4.0 * Q * ring
+            else:
+                est_coll = R_pad * 8.0 * Q * ring
+                if reduction == "topk":
+                    n_ch = max(1, -(-R_pad // max(chunk, 1)))
+                    k_loc = min(max(int(topk_k), 1), max(chunk // S, 1))
+                    est_coll += n_ch * (S - 1) * k_loc * Q * 12.0
+                elif reduction == "threshold":
+                    est_coll += R_pad * 1.0 * ring
+            est += est_coll / self.roofline.merge_bw(one_card)
+
+        if S > 1:
+            reason += f"; priced per shard (S={S})"
         reason += f" [cost={self.cost_source.tag}]"
         return Plan(backend=chosen, mode=mode, n_rows=R, fragment_chars=F,
                     pattern_chars=P, n_patterns=Q, n_locs=L, wp=wp,
@@ -436,7 +487,8 @@ class Planner:
                     q_pad=q_pad, f_chars=f_chars, chunk_rows=chunk,
                     est_seconds=est, reason=reason, predicate=predicate,
                     strategy=strategy, filter_words=filter_words,
-                    est_survivor_frac=surv,
+                    est_survivor_frac=surv, n_shards=S,
+                    est_collective_bytes=est_coll,
                     cost_source=self.cost_source.tag,
                     est_base_seconds=est_base,
                     est_filter_seconds=est_fil,
@@ -506,7 +558,7 @@ class Planner:
                    backend: Optional[str] = None,
                    chunk_rows: Optional[int] = None,
                    predicate: str = "exact",
-                   n_shards: int = 1) -> BatchPlan:
+                   n_shards: int = 1, one_card: bool = False) -> BatchPlan:
         """Price Q compatible shared-mode queries: coalesced vs. sequential.
 
         Sequential is Q independent single-pattern launches (each paying
@@ -514,16 +566,14 @@ class Planner:
         all Q patterns (a single fused launch on every backend).  Ties go
         to coalesced: beyond the kernel cost, one launch amortizes
         planning, host packing and result assembly, which the roofline
-        does not model.  ``n_shards`` must be 1 until the multi-GPU slice.
+        does not model.
         """
         if n_queries < 1:
             raise ValueError("n_queries must be >= 1")
-        if n_shards != 1:
-            raise ValueError("the port prices one row shard; got "
-                             f"n_shards={n_shards}")
         kw = dict(n_rows=n_rows, fragment_chars=fragment_chars,
                   pattern_chars=pattern_chars, backend=backend,
-                  chunk_rows=chunk_rows, predicate=predicate)
+                  chunk_rows=chunk_rows, predicate=predicate,
+                  n_shards=n_shards, one_card=one_card)
         single = self.plan(**kw)
         if n_queries == 1:
             return BatchPlan(coalesced=False, plan=single, n_queries=1,

@@ -576,7 +576,8 @@ class MatchService:
                 pattern_chars=first.pattern_chars, n_queries=n_q,
                 backend=first.backend, chunk_rows=first.chunk_rows,
                 predicate=first.predicate,
-                n_shards=self.engine.n_shards)
+                n_shards=self.engine.n_shards,
+                one_card=self.engine.one_card)
         if bp is not None and bp.coalesced:
             tr = self.obs.tracer
             with tr.span("service.coalesce",

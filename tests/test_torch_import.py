@@ -60,7 +60,8 @@ def test_imports_with_jax_blocked():
     "repro_torch.serving.engine", "repro_torch.serving.speculative",
     "repro_torch.optim.adamw", "repro_torch.runtime.steps",
     "repro_torch.runtime.loop", "repro_torch.checkpoint.manager",
-    "repro_torch.data.pipeline", "repro_torch.launch.train"])
+    "repro_torch.data.pipeline", "repro_torch.launch.train",
+    "repro_torch.distributed.sharding", "repro_torch.launch.mesh"])
 def test_slice_modules_import_with_jax_blocked(module):
     code = (
         "import sys, importlib\n"
@@ -187,6 +188,14 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # A row mesh without devices= takes S visible cards or raises.
+    from repro_torch.launch.mesh import make_row_mesh
+    for n_shards in (1, 4):
+        with pytest.raises(RuntimeError, match="CUDA devices"):
+            make_row_mesh(n_shards)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_row_mesh(2, devices=["cuda:0"] * 2)
+    assert make_row_mesh(3, devices=["cpu"] * 3).size == 3
     # Named CPU runs the plain versions.
     assert resolve_device("cpu").type == "cpu"
     assert MatchEngine(frags, device="cpu").device.type == "cpu"

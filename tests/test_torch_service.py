@@ -368,6 +368,10 @@ def test_plan_batch_validates():
     with pytest.raises(ValueError, match="n_queries"):
         tm.Planner().plan_batch(n_rows=R, fragment_chars=F, pattern_chars=P,
                                 n_queries=0)
-    with pytest.raises(ValueError, match="n_shards"):
-        tm.Planner().plan_batch(n_rows=R, fragment_chars=F, pattern_chars=P,
-                                n_queries=2, n_shards=4)
+    # Row shards are priced per shard, as the reference prices them.
+    kw = dict(n_rows=R, fragment_chars=F, pattern_chars=P, n_queries=2,
+              n_shards=4, backend="swar")
+    a, b = jm.Planner().plan_batch(**kw), tm.Planner().plan_batch(**kw)
+    assert b.plan.n_shards == a.plan.n_shards == 4
+    assert (b.coalesced, b.plan.chunk_rows) == (a.coalesced,
+                                                a.plan.chunk_rows)
