@@ -194,11 +194,27 @@ printing its wall time beside the card's name and power limit:
    and a compaction, with (a), (c) and (e) equal after the tombstones and
    after the compaction, the shards balanced to a row and the pack
    counters flat; peak memory above the phase's start.
-13. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
+13. Row shards across processes: phase 12's 4 shards held by 2 ranks
+   of ``torch.distributed`` spawned through
+   ``repro_torch.launch.cluster`` (``chip_smoke.py --procs-worker
+   DIR``, fresh interpreters), 2 shards each: on one card both ranks on
+   ``cuda:0`` under a gloo named here, with a card a rank rank ``r`` on
+   ``cuda:r`` under NCCL.  Each rank reads phase 4's rows and phase 12's
+   4-shard results from ``build/phase13`` and runs (a)-(f) and (c'),
+   then phase 12's appends, tombstones and compaction with (a), (c), (e)
+   after each, every result bit for bit phase 12's ((f) by phase 12's
+   rule); the ranks agree, pack once a form and each launch half of
+   phase 12's launches.  Per rank: backend, devices, torch version, ms a
+   query (host clock, the least of 3 after a warm-up) beside phase
+   12's, collectives and their bytes a run beside phase 12's, the host
+   ms its collectives took, peak memory.  A failed rank fails the phase
+   (the others are killed).
+14. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
    (``match_swar``'s launches count phase 10's; each row also carries
-   phase 12's launches, ``launches_sharded``), the script's wall time,
-   the card's name and power limit, and ``{"ok": true, "device":
-   {...}}`` as the last line.
+   phase 12's launches, ``launches_sharded``, and phase 13's over both
+   ranks, ``launches_procs``), the script's wall time, the card's name
+   and power limit, and ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Any mismatch raises and the script exits non-zero; no phase catches a
 failure.
@@ -208,6 +224,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -370,6 +387,16 @@ TRAIN_OPT_BYTES = 32
 SHARDS, SHARDS_2 = 4, 2
 SHARD_APPEND = 1024
 TOMBSTONE_EVERY = 100
+# Row shards across processes (phase 13): ranks (each holding SHARDS /
+# PROCS shards), the phase's time limit, the process group's collective
+# timeout, and the queries held after the tombstones and the compaction.
+PROCS = 2
+PROCS_TIMEOUT_S = 600
+PROCS_GROUP_S = 300
+PROCS_MUTATED = ("a", "c", "e")
+# Blocks a rank of phase 13's gather probe (bytes): a reduced pull, (c)'s
+# joins, the verify's and (c')'s score blocks.
+PROBE_BYTES = (4096, 1 << 20, 64 << 20)
 
 
 def check(cond: bool, what: str) -> None:
@@ -2646,13 +2673,14 @@ def same_result(a, b) -> bool:
     return True
 
 
-def timed_runs(engine, q, sync):
-    """A warm-up run, then ``TIMED_RUNS`` timed runs (host clock, each
-    ending in ``sync()``): the last result and the run times in seconds."""
+def timed_runs(engine, q, sync, reps=None):
+    """A warm-up run, then ``reps`` (default ``TIMED_RUNS``) timed runs
+    (host clock, each ending in ``sync()``): the last result and the run
+    times in seconds."""
     cm = engine.compile(q)
     cm.run()
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(TIMED_RUNS if reps is None else reps):
         t = time.perf_counter()
         res = cm.run()
         sync()
@@ -2662,7 +2690,7 @@ def timed_runs(engine, q, sync):
 
 def shard_phase(frags, queries, want, *, zero_counts, read_counts, sync,
                 device="cuda:0", shards=SHARDS, shards_2=SHARDS_2,
-                n_append=SHARD_APPEND):
+                n_append=SHARD_APPEND, keep=None):
     """Phase 12: the row-sharded main path on one card.
 
     ``frags`` are phase 4's rows (its host copy), ``queries`` phase 4's
@@ -2675,7 +2703,10 @@ def shard_phase(frags, queries, want, *, zero_counts, read_counts, sync,
     ``TOMBSTONE_EVERY`` rows and a compaction, with (a), (c) and (e) held
     equal after the tombstones and after the compaction, the shards
     balanced and the pack counters flat.  Returns what the phase prints.
-    ``device="cpu"`` rehearses it at a small size.
+    ``keep`` (a dict) receives the ``shards``-shard results phase 13
+    holds its ranks to: by query key, and ``"{key}@{stage}"`` after the
+    tombstones and the compaction.  ``device="cpu"`` rehearses it at a
+    small size.
     """
     import numpy as np
     import torch
@@ -2697,12 +2728,16 @@ def shard_phase(frags, queries, want, *, zero_counts, read_counts, sync,
     check(e1.n_shards == 1, "one-shard twin")
     for key, q in queries.items():
         zero_counts()
-        pulls0, coll0 = es.merger.n_pulls, es.merger.collective_bytes
+        m = es.merger
+        pulls0, coll0, ncoll0 = (m.n_pulls, m.collective_bytes,
+                                 m.n_collectives)
         res, ts = timed_runs(es, q, sync)
         counts = {n: c for n, c in read_counts().items() if c}
         runs = TIMED_RUNS + 1
-        pulls = (es.merger.n_pulls - pulls0) / runs
-        coll = (es.merger.collective_bytes - coll0) / runs
+        pulls = (m.n_pulls - pulls0) / runs
+        coll = (m.collective_bytes - coll0) / runs
+        if keep is not None:
+            keep[key] = res
         res1, ts1 = timed_runs(e1, q, sync)
         ref = want[key]
         if res.plan.strategy == ref.plan.strategy:
@@ -2728,6 +2763,7 @@ def shard_phase(frags, queries, want, *, zero_counts, read_counts, sync,
             "launches": counts, "launches_per_run": launches,
             "launches_per_shard_chunk": launches / shards / res.n_chunks,
             "pulls": pulls, "collective_bytes": coll,
+            "n_collectives": (m.n_collectives - ncoll0) / runs,
             "est_collective_bytes": res.plan.est_collective_bytes,
             "reason": res.plan.reason}
         out["queries"][key] = info
@@ -2797,6 +2833,8 @@ def shard_phase(frags, queries, want, *, zero_counts, read_counts, sync,
             r1 = e1.compile(queries[key]).run()
             check(same_result(r1, r4),
                   f"({key}) {stage}: {shards} shards equal one shard")
+            if keep is not None:
+                keep[f"{key}@{stage}"] = r4
     live = es.shard_live_rows()
     check(int(live.sum()) == es.corpus.n_rows == n_now - dead.size
           and int(live.max() - live.min()) <= 1,
@@ -2821,6 +2859,378 @@ def shard_phase(frags, queries, want, *, zero_counts, read_counts, sync,
     del es, e1
     train_free(cuda)
     return out
+
+
+def result_digest(res) -> dict:
+    """sha256 of each result array (dtype and shape included): what the
+    ranks of phase 13 compare."""
+    import hashlib
+
+    import numpy as np
+    out = {}
+    for f in SHARD_FIELDS:
+        x = getattr(res, f)
+        if x is not None:
+            x = np.ascontiguousarray(x)
+            x = hashlib.sha256(f"{x.dtype}{x.shape}".encode()
+                               + x.tobytes()).hexdigest()
+        out[f] = x
+    return out
+
+
+def same_as_sharded(want, res) -> bool:
+    """Phase 12's rule: bit for bit where the filter-or-scan verdict is
+    the same, else the hits (the deliverable both must equal)."""
+    import numpy as np
+    if res.plan.strategy == want.plan.strategy:
+        return same_result(want, res)
+    return np.array_equal(want.hits, res.hits)
+
+
+def match_kernels() -> dict:
+    """The match path's kernel wrappers by name; each counts its launches
+    in ``n_launches``."""
+    from repro_torch.kernels import filter_qgram as kfq
+    from repro_torch.kernels import match_mxu as kmx
+    from repro_torch.kernels import match_swar as ksw
+    return {"match_swar": ksw.match_swar,
+            "match_swar_best": ksw.match_swar_best,
+            "match_swar_masks": ksw.match_swar_masks,
+            "match_mxu": kmx.match_mxu,
+            "match_mxu_best": kmx.match_mxu_best,
+            "filter_qgram": kfq.filter_qgram}
+
+
+def gather_probe(mesh, sync, reps: int = 5) -> dict:
+    """The host ms of one ``RowMesh.all_gather`` of an int32 block a rank
+    (``PROBE_BYTES``) on an idle card, and of its steps under gloo: the
+    copy to the host, the group's all-gather of host tensors, the join
+    and copy back; the least of ``reps`` each, the ranks lined up by a
+    barrier before every reading."""
+    import torch
+    dist = torch.distributed
+    out = {}
+    for nbytes in PROBE_BYTES:
+        t = torch.zeros(nbytes // 4, dtype=torch.int32, device=mesh.device)
+        rows = [t.shape[0]] * mesh.world
+        ms = {"total": [], "d2h": [], "gather": [], "h2d": []}
+        for _ in range(reps):
+            sync()
+            dist.barrier()
+            a = time.perf_counter()
+            mesh.all_gather(t, rows)
+            sync()
+            ms["total"].append(time.perf_counter() - a)
+            dist.barrier()
+            a = time.perf_counter()
+            h = t.cpu()
+            ms["d2h"].append(time.perf_counter() - a)
+            outs = [torch.empty_like(h) for _ in range(mesh.world)]
+            dist.barrier()
+            a = time.perf_counter()
+            dist.all_gather(outs, h)
+            ms["gather"].append(time.perf_counter() - a)
+            a = time.perf_counter()
+            torch.cat(outs).to(mesh.device)
+            sync()
+            ms["h2d"].append(time.perf_counter() - a)
+        out[str(nbytes)] = {k: min(v) * 1e3 for k, v in ms.items()}
+    return out
+
+
+def procs_rank(work: Path, devices, info) -> dict:
+    """Phase 13's work on one rank: phase 12's engine and queries over
+    this rank's shards, every result held to phase 12's; then phase 12's
+    appends, tombstones and compaction with (a), (c), (e) held after
+    each.  Returns what the rank reports."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_row_mesh
+    from repro_torch.match import MatchEngine
+
+    cuda = devices[0] != "cpu"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rank = info.process_id
+    frags = np.load(work / "rows.npy")
+    with open(work / "inputs.pkl", "rb") as fh:
+        inp = pickle.load(fh)       # written by this script's parent
+    queries, want, reps = inp["queries"], inp["want"], inp["timed_runs"]
+    kernels = match_kernels()
+    if cuda:
+        torch.cuda.set_device(torch.device(devices[0]))
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    mesh = make_row_mesh(inp["shards"], devices=devices)
+    es = MatchEngine(frags, mesh=mesh)
+    m = es.merger
+    check(es.n_shards == inp["shards"] and m.multiprocess,
+          f"rank {rank}: a {inp['shards']}-shard engine across processes")
+    out = {"rank": rank, "world": info.process_count, "devices": devices,
+           "local_shards": list(mesh.local_shards), "backend": mesh.backend,
+           "torch": torch.__version__, "queries": {}}
+    runs = reps + 1
+    for key, q in queries.items():
+        for k in kernels.values():
+            k.n_launches = 0
+        before = (m.n_pulls, m.collective_bytes, m.n_collectives,
+                  m.collective_seconds)
+        res, ts = timed_runs(es, q, sync, reps)
+        check(same_as_sharded(want[key], res),
+              f"rank {rank}: ({key}) equals phase 12's result")
+        pulls, coll, ncoll, coll_s = (
+            (a - b) / runs for a, b in zip(
+                (m.n_pulls, m.collective_bytes, m.n_collectives,
+                 m.collective_seconds), before))
+        out["queries"][key] = {
+            "strategy": res.plan.strategy, "n_chunks": res.n_chunks,
+            "ms": [t * 1e3 for t in ts], "best_ms": min(ts) * 1e3,
+            "launches": {n: k.n_launches for n, k in kernels.items()
+                         if k.n_launches},
+            "pulls": pulls, "collective_bytes": coll,
+            "n_collectives": ncoll, "collective_ms": coll_s * 1e3,
+            "digest": result_digest(res)}
+    if mesh.backend == "gloo":
+        out["gather_probe"] = gather_probe(mesh, sync)
+
+    # Phase 12's growth, tombstones and compaction.
+    more = np.random.default_rng(SEED + 12).integers(
+        0, 4, (inp["n_append"], frags.shape[1]), np.uint8)
+    t = time.perf_counter()
+    es.corpus.append_rows(more)
+    sync()
+    out["append_s"] = time.perf_counter() - t
+    dead = np.arange(0, es.corpus.n_rows, TOMBSTONE_EVERY)
+    check(es.corpus.tombstone(dead) == dead.size, "tombstones")
+    for stage in ("tombstoned", "compacted"):
+        if stage == "compacted":
+            t = time.perf_counter()
+            check(es.corpus.compact() == dead.size, "compaction")
+            sync()
+            out["compact_s"] = time.perf_counter() - t
+        for key in PROCS_MUTATED:
+            res = es.compile(queries[key]).run()
+            check(same_result(want[f"{key}@{stage}"], res),
+                  f"rank {rank}: ({key}) {stage}: equals phase 12's result")
+            out["queries"][f"{key}@{stage}"] = {"digest": result_digest(res)}
+    c = es.corpus
+    out["packs"] = {"swar": c.swar_pack_count, "onehot": c.onehot_pack_count,
+                    "host_total": c.host_pack_count,
+                    "signatures": es.index.sig_pack_count}
+    out["shard_live_rows"] = es.shard_live_rows().tolist()
+    if cuda:
+        sync()
+        out["peak_bytes_above_start"] = (torch.cuda.max_memory_allocated()
+                                         - mem0)
+    return out
+
+
+def procs_worker(work: str) -> int:
+    """One rank of phase 13, spawned by ``procs_phase`` as ``chip_smoke.py
+    --procs-worker DIR``: joins the group its environment names, runs
+    ``procs_rank`` and writes its report to ``DIR/rank{r}.json``."""
+    from repro_torch.launch import cluster
+    devices = os.environ["REPRO_SHARD_DEVICES"].split(",")
+    info = cluster.initialize(backend=os.environ["REPRO_BACKEND"],
+                              device=devices[0], timeout_s=PROCS_GROUP_S)
+    try:
+        out = procs_rank(Path(work), devices, info)
+    finally:
+        cluster.shutdown()
+    with open(Path(work) / f"rank{info.process_id}.json", "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def procs_phase(frags, queries, want, sharded, *, device="cuda",
+                procs=PROCS, shards=SHARDS, n_append=SHARD_APPEND):
+    """Phase 13: the row-sharded main path across processes.
+
+    ``frags``, ``queries`` as phase 12 takes them, ``want`` phase 12's
+    ``shards``-shard results (``shard_phase``'s ``keep``) and ``sharded``
+    what phase 12 printed.  ``procs`` ranks spawned through
+    ``repro_torch.launch.cluster``, each holding ``shards / procs``
+    shards: on one card every rank on ``cuda:0`` under a gloo named
+    here, with a card a rank rank ``r`` on ``cuda:r`` under NCCL.  Each
+    rank holds every result to phase 12's; here the ranks must agree,
+    pack once a form and launch half of phase 12's launches each.  A
+    failed rank fails the phase (the others are killed).  Returns what
+    the phase prints; ``device="cpu"`` rehearses it on gloo CPU ranks.
+    """
+    import pickle
+
+    import numpy as np
+    import torch
+    from repro_torch.launch import cluster
+
+    cuda = device != "cpu"
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "phase13"
+    work.mkdir(parents=True, exist_ok=True)
+    for old in work.glob("rank*"):
+        old.unlink()
+    np.save(work / "rows.npy", frags)
+    with open(work / "inputs.pkl", "wb") as fh:
+        pickle.dump({"queries": queries, "want": want, "shards": shards,
+                     "n_append": n_append, "timed_runs": TIMED_RUNS}, fh)
+    cards = torch.cuda.device_count() if cuda else 0
+    backend, ranks, _ = cluster.demo_layout(
+        procs, shards // procs, device,
+        None if not cuda or cards >= procs else "gloo")
+    coord = f"127.0.0.1:{cluster.free_port()}"
+    envs = [cluster.process_env(r, procs, coord, ranks[r], backend)
+            for r in range(procs)]
+    tags = [f"rank{r}" for r in range(procs)]
+    print(f"  {procs} ranks of {shards // procs} shards ({shards} in all), "
+          f"backend {backend}, {cards} card(s): "
+          + "; ".join(f"rank {r} on {ranks[r]}" for r in range(procs)))
+    t = time.perf_counter()
+    cluster.run_workers([sys.executable, str(Path(__file__).resolve()),
+                         "--procs-worker", str(work)], envs, tags,
+                        PROCS_TIMEOUT_S, log_dir=str(work))
+    workers_s = time.perf_counter() - t
+    for name in ("rows.npy", "inputs.pkl"):
+        (work / name).unlink()
+    outs = []
+    for tag in tags:
+        with open(work / f"{tag}.json") as fh:
+            outs.append(json.load(fh))
+    out = {"procs": procs, "shards": shards, "backend": backend,
+           "card": Phase.card, "workers_s": workers_s,
+           "ranks": [{k: o.get(k) for k in (
+               "rank", "devices", "local_shards", "backend", "torch",
+               "packs", "shard_live_rows", "gather_probe")}
+               for o in outs], "queries": {}}
+    for o in outs:
+        check(o["backend"] == backend and o["world"] == procs,
+              f"rank {o['rank']} in a {procs}-rank {backend} group")
+        check(o["packs"]["swar"] == o["packs"]["onehot"]
+              == o["packs"]["signatures"] == 1
+              and o["packs"]["host_total"] == sharded["packs"][0],
+              f"rank {o['rank']} packs once a form ({o['packs']})")
+        print(f"  rank {o['rank']}: devices {o['devices']}, shards "
+              f"{o['local_shards']}, torch {o['torch']}, packs "
+              f"{o['packs']}" + (
+                  f", peak {o['peak_bytes_above_start'] / 2**30:.3f} GiB "
+                  "above its start" if cuda else ""))
+        for nbytes, ms in o.get("gather_probe", {}).items():
+            print(f"    gather of {int(nbytes):,} bytes a rank: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+                  + f" ms (least of 5); card: {Phase.card}")
+    launches = {}
+    for key, per in outs[0]["queries"].items():
+        check(all(o["queries"][key]["digest"] == per["digest"]
+                  for o in outs), f"({key}) ranks agree")
+        if "@" in key:
+            continue
+        ref = sharded["queries"][key]
+        rows = [o["queries"][key] for o in outs]
+        if cuda:
+            for name, n in ref["launches"].items():
+                got = [r["launches"].get(name, 0) for r in rows]
+                check(all(g * procs == n for g in got),
+                      f"({key}) {name}: each rank launches 1/{procs} of "
+                      f"phase 12's {n} ({got})")
+        for r in rows:
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+        out["queries"][key] = {
+            "best_ms": [r["best_ms"] for r in rows],
+            "ms": [r["ms"] for r in rows],
+            "best_ms_sharded": ref["best_ms"],
+            "launches": [r["launches"] for r in rows],
+            "launches_sharded": ref["launches"],
+            "n_collectives": rows[0]["n_collectives"],
+            "n_collectives_sharded": ref["n_collectives"],
+            "collective_bytes": rows[0]["collective_bytes"],
+            "collective_bytes_sharded": ref["collective_bytes"],
+            "collective_ms": [r["collective_ms"] for r in rows],
+            "pulls": rows[0]["pulls"], "strategy": rows[0]["strategy"]}
+        info = out["queries"][key]
+        print(f"  ({key}) {info['strategy']}: "
+              + ", ".join(f"rank {i} {ms:.3f} ms" for i, ms in
+                          enumerate(info["best_ms"]))
+              + f" (phase 12, one process: {ref['best_ms']:.3f} ms); "
+              f"{info['n_collectives']:g} collectives, "
+              f"{info['collective_bytes']:.0f} bytes a run (phase 12: "
+              f"{ref['n_collectives']:g}, {ref['collective_bytes']:.0f}); "
+              "collectives " + ", ".join(f"{c:.3f}" for c in
+                                         info["collective_ms"])
+              + f" ms a run by rank; launches {info['launches']}; card: "
+              f"{Phase.card}")
+    out["launches"] = launches
+    out["mutated"] = [k for k in outs[0]["queries"] if "@" in k]
+    out["append_s"] = [o["append_s"] for o in outs]
+    out["compact_s"] = [o["compact_s"] for o in outs]
+    if cuda:
+        out["peak_bytes_above_start"] = [o["peak_bytes_above_start"]
+                                         for o in outs]
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  appended {n_append} rows, tombstoned, compacted: "
+          f"{', '.join(PROCS_MUTATED)} equal phase 12's after each on "
+          f"every rank; ranks ran {workers_s:.1f} s; phase "
+          f"{out['wall_s']:.1f} s; card: {Phase.card}")
+    return out
+
+
+def main_path_queries(ref, n_rows: int, rng):
+    """Phase 4's reads at known (row, loc) and its queries, drawn from
+    ``rng`` in phase 4's order: ``(queries, reads)``, the queries (a)-(f)
+    and (c') by key, the reads' rows, locs, (a)'s read, (b)'s IUPAC
+    string, (c)'s reads and mismatched queries and (c')'s rows."""
+    import numpy as np
+    from repro_torch.core import encoding
+    from repro_torch.match import MatchQuery
+    step = FRAG - READ + 1
+    # Reads at known (row, loc): distinct rows, every read wholly inside
+    # its row (loc <= FRAG - READ), so it occurs in that row only.
+    rows = rng.choice(n_rows - 1, N_BATCH + 2, replace=False)
+    locs = rng.integers(0, FRAG - READ + 1, N_BATCH + 2)
+
+    def read_at(i):
+        pos = int(rows[i]) * step + int(locs[i])
+        return ref[pos:pos + READ].copy()
+
+    read_a = read_at(0)
+    read_b = read_at(1)
+    iupac = list(encoding.decode_dna(read_b))
+    for i in rng.choice(READ, 16, replace=False)[:10]:
+        iupac[i] = "N"
+    for i in range(0, READ, 17):
+        if iupac[i] in "AG":
+            iupac[i] = "R"
+        elif iupac[i] in "CT":
+            iupac[i] = "Y"
+    iupac = "".join(iupac)
+    reads_c = np.stack([read_at(2 + q) for q in range(N_BATCH)])
+    n_mism = np.arange(N_BATCH) % 4
+    queries_c = reads_c.copy()
+    for q in range(N_BATCH):
+        for i in rng.choice(READ, n_mism[q], replace=False):
+            queries_c[q, i] = (queries_c[q, i] + 1) % 4
+    qe = MatchQuery.exact(read_a, reduction="threshold", threshold=99,
+                          filter=True)
+    # (c'): a row subset that holds (c)'s planted rows.
+    planted_c = rows[2:2 + N_BATCH]
+    others = rng.choice(n_rows, 2 * SUBSET_C2, replace=False)
+    others = others[~np.isin(others, planted_c)][:SUBSET_C2 - N_BATCH]
+    rows_c2 = np.sort(np.concatenate([planted_c, others]))
+    queries = {
+        "a": MatchQuery.exact(read_a, reduction="best", backend="swar"),
+        "b": MatchQuery.iupac(iupac, reduction="threshold", threshold=95,
+                              backend="swar"),
+        "c": MatchQuery.exact(queries_c, mode="batched", reduction="topk",
+                              k=10, backend="mxu"),
+        "d": MatchQuery.exact(read_a, reduction="best"),
+        "c2": MatchQuery.exact(queries_c, mode="batched",
+                               reduction="threshold", threshold=THRESHOLD_C2,
+                               backend="mxu", rows=rows_c2, filter=False),
+        "e": qe,
+        "f": dataclasses.replace(qe, filter=None)}
+    return queries, {"rows": rows, "locs": locs, "n_mism": n_mism,
+                     "a": read_a, "iupac": iupac, "c": reads_c,
+                     "queries_c": queries_c, "rows_c2": rows_c2}
 
 
 def main() -> int:
@@ -2880,10 +3290,7 @@ def main() -> int:
         print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
               f"cuda {torch.version.cuda}  device "
               f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
+        smi = card_name()
         print(f"card: {smi}")
         Phase.card = smi
 
@@ -3056,56 +3463,16 @@ def main() -> int:
         engine = MatchEngine(corpus)
         n_rows = corpus.n_rows
         frags_chr1 = corpus.fragments.copy()   # phases 7-8 change the corpus
-        step = FRAG - READ + 1
         print(f"  reference {CHR1_BP} bp -> {n_rows} rows x {FRAG} chars "
               f"(set-up {time.perf_counter() - t0:.1f} s)")
 
-        # Reads at known (row, loc): distinct rows, every read wholly
-        # inside its row (loc <= FRAG - READ), so it occurs in that row
-        # only.
-        rows = rng.choice(n_rows - 1, N_BATCH + 2, replace=False)
-        locs = rng.integers(0, FRAG - READ + 1, N_BATCH + 2)
-
-        def read_at(i):
-            pos = int(rows[i]) * step + int(locs[i])
-            return ref[pos:pos + READ].copy()
-
-        read_a = read_at(0)
-        read_b = read_at(1)
-        iupac = list(encoding.decode_dna(read_b))
-        for i in rng.choice(READ, 16, replace=False)[:10]:
-            iupac[i] = "N"
-        for i in range(0, READ, 17):
-            if iupac[i] in "AG":
-                iupac[i] = "R"
-            elif iupac[i] in "CT":
-                iupac[i] = "Y"
-        iupac = "".join(iupac)
-        reads_c = np.stack([read_at(2 + q) for q in range(N_BATCH)])
-        n_mism = np.arange(N_BATCH) % 4
-        queries_c = reads_c.copy()
-        for q in range(N_BATCH):
-            for i in rng.choice(READ, n_mism[q], replace=False):
-                queries_c[q, i] = (queries_c[q, i] + 1) % 4
-
-        qa = MatchQuery.exact(read_a, reduction="best", backend="swar")
-        qb = MatchQuery.iupac(iupac, reduction="threshold", threshold=95,
-                              backend="swar")
-        qc = MatchQuery.exact(queries_c, mode="batched", reduction="topk",
-                              k=10, backend="mxu")
-        qd = MatchQuery.exact(read_a, reduction="best")
-        qe = MatchQuery.exact(read_a, reduction="threshold", threshold=99,
-                              filter=True)
-        qf = dataclasses.replace(qe, filter=None)
+        queries, reads = main_path_queries(ref, n_rows, rng)
+        qa, qb, qc, qd, qc2, qe, qf = (queries[k] for k in
+                                       ("a", "b", "c", "d", "c2", "e", "f"))
         qe_scan = dataclasses.replace(qe, filter=False)
-        # (c'): a row subset that holds (c)'s planted rows.
-        planted_c = rows[2:2 + N_BATCH]
-        others = rng.choice(n_rows, 2 * SUBSET_C2, replace=False)
-        others = others[~np.isin(others, planted_c)][:SUBSET_C2 - N_BATCH]
-        rows_c2 = np.sort(np.concatenate([planted_c, others]))
-        qc2 = MatchQuery.exact(queries_c, mode="batched",
-                               reduction="threshold", threshold=THRESHOLD_C2,
-                               backend="mxu", rows=rows_c2, filter=False)
+        rows, locs, n_mism = reads["rows"], reads["locs"], reads["n_mism"]
+        read_a, iupac, rows_c2 = reads["a"], reads["iupac"], reads["rows_c2"]
+        reads_c, queries_c = reads["c"], reads["queries_c"]
         runs = TIMED_RUNS + 1                     # warm-up + timed runs
 
         torch.cuda.reset_peak_memory_stats()
@@ -3759,21 +4126,30 @@ def main() -> int:
     # -- 12. row shards -------------------------------------------------------
     with Phase(f"phase 12: row-sharded main path, {SHARDS} and {SHARDS_2} "
                "shards on one card"):
+        sharded = {}
         shard_info = shard_phase(
-            frags_chr1, {"a": qa, "b": qb, "c": qc, "d": qd, "c2": qc2,
-                         "e": qe, "f": qf}, results,
+            frags_chr1, queries, results,
             zero_counts=zero_counts, read_counts=read_counts,
-            sync=torch.cuda.synchronize)
+            sync=torch.cuda.synchronize, keep=sharded)
         print("shard " + json.dumps(shard_info))
     shard_launches = {}
     for info in shard_info["queries"].values():
         for name, n in info["launches"].items():
             shard_launches[name] = shard_launches.get(name, 0) + n
 
-    # -- 13. summary ---------------------------------------------------------
+    # -- 13. row shards across processes --------------------------------------
+    with Phase(f"phase 13: row shards across processes, {PROCS} ranks of "
+               f"{SHARDS // PROCS} shards"):
+        procs_info = procs_phase(frags_chr1, queries, sharded,
+                                 shard_info)
+        del sharded
+        print("procs " + json.dumps(procs_info))
+
+    # -- 14. summary ---------------------------------------------------------
     # Each kernel's launches come from its own path's run; match_swar's
-    # path is (e)-(f)'s verify and phase 10's speculators.  Phase 12's
-    # launches of the same kernels on the sharded path stand beside them.
+    # path is (e)-(f)'s verify and phase 10's speculators.  Phases 12 and
+    # 13's launches of the same kernels on the sharded paths stand beside
+    # them.
     path_launches = dict(launches)
     path_launches["match_mxu"] = launches_c2["match_mxu"]
     path_launches["match_swar"] = launches_ef["match_swar"] + lm_launches
@@ -3797,6 +4173,7 @@ def main() -> int:
             "shape_rows": k["rows"], "n_launches": n,
             "matches_plain": k["max_abs_err"] == 0,
             "launches_sharded": shard_launches.get(k["name"], 0),
+            "launches_procs": procs_info["launches"].get(k["name"], 0),
             **{x: k[x] for x in EXTRA_MS + ("rows_unpadded",) if x in k}})
     check(len(rows_out) == len(SOURCES), "every kernel measured")
     print("kernels " + json.dumps([
@@ -3811,5 +4188,15 @@ def main() -> int:
     return 0
 
 
+def card_name() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--procs-worker"]:
+        sys.exit(procs_worker(sys.argv[2]))
     sys.exit(main())

@@ -148,3 +148,9 @@ def cyclic_unpermute(a, n_shards: int):
     J = R // n_shards
     return a.reshape(n_shards, J, *a.shape[1:]).swapaxes(0, 1).reshape(
         R, *a.shape[1:])
+
+
+def first_local(xs):
+    """The first entry of a per-shard list that this process holds (the
+    others are ``None``: shards another process owns)."""
+    return next(x for x in xs if x is not None)

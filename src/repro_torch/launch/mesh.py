@@ -1,22 +1,40 @@
 """Row meshes for sharded match engines (port of ``repro.launch.mesh``'s
 ``make_row_mesh``).
 
-A mesh here is one controller process's list of devices, one per row
-shard, under the single axis ``data`` (the ``rows`` rule's axis).  Each
-shard's corpus forms are tensors on its own device; the engine launches
-the kernels shard by shard and joins the reduced results on the first
-device.  ``make_production_mesh`` and ``make_debug_mesh`` belong to the
-LM's sharding and are not ported yet.
+A mesh here is the list of row shards under the single axis ``data``
+(the ``rows`` rule's axis), one ``torch.device`` a shard.  In one
+process every shard is local: each shard's corpus forms are tensors on
+its own device, the engine launches the kernels shard by shard and
+joins the reduced results on the first device.
+
+Under an initialised ``torch.distributed`` group (``launch.cluster``)
+the mesh spans the group's ranks: ``size`` and ``axis_names`` read the
+same on every rank, shard ``s`` is owned by rank ``s // (S / world)``
+(rank 0 holds the first block of shards, as ``jax.devices()`` orders
+devices by process for the reference's mesh), and ``devices`` holds
+``None`` for every shard another rank owns.  ``all_gather`` and
+``all_reduce_sum`` are the mesh's collectives over the group: under
+gloo they stage through host tensors (``.cpu()`` before, ``.to(dev)``
+after), under NCCL device tensors go in directly.
+``make_production_mesh`` and ``make_debug_mesh`` belong to the LM's
+sharding and are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+import socket
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, canonical_device, resolve_device
+from repro_torch.launch import cluster
+
+# dtypes a varying-size ``all_gather`` can announce in its header.
+_DTYPES = (torch.bool, torch.uint8, torch.int32, torch.int64,
+           torch.bfloat16, torch.float32)
+_HEADER = 6     # rows, ndim, three trailing dims, dtype index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,10 +43,17 @@ class RowMesh:
 
     ``axis_names`` and ``shape`` read as a ``jax.sharding.Mesh``'s do, so
     ``repro_torch.distributed.sharding.resolve_axis`` takes either.
+    ``devices[s]`` is ``None`` where another rank owns shard ``s``;
+    ``homes[s]`` names the device of shard ``s`` alike on every rank
+    (host name and device), so every rank counts the same cards.
     """
 
-    devices: Tuple[torch.device, ...]
+    devices: Tuple[Optional[torch.device], ...]
     axis_names: Tuple[str, ...] = ("data",)
+    homes: Tuple[str, ...] = ()
+    rank: int = 0
+    world: int = 1
+    backend: Optional[str] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -40,33 +65,141 @@ class RowMesh:
 
     @property
     def n_cards(self) -> int:
-        """Distinct devices the shards sit on."""
-        return len(set(self.devices))
+        """Distinct devices the shards sit on, over every rank."""
+        return len(set(self.homes or self.devices))
+
+    @property
+    def multiprocess(self) -> bool:
+        """The shards span more than one process."""
+        return self.world > 1
+
+    def owner(self, shard: int) -> int:
+        """The rank that holds shard ``shard``."""
+        return int(shard) // (self.size // self.world)
+
+    @property
+    def local_shards(self) -> Tuple[int, ...]:
+        """The shards this rank holds, in shard order."""
+        return tuple(s for s, d in enumerate(self.devices) if d is not None)
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's first shard's device: where its shards join."""
+        return self.devices[self.local_shards[0]]
+
+    # -- collectives over the group ---------------------------------------------
+    def _stage(self, t: torch.Tensor) -> torch.Tensor:
+        """Where the group's collectives take ``t``: the host under gloo,
+        its device under NCCL."""
+        return t.cpu() if self.backend == "gloo" else t
+
+    def all_gather(self, t: Optional[torch.Tensor],
+                   rows: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Every rank's ``t`` joined on dim 0 in rank order, on this
+        rank's join device.
+
+        ``rows`` gives each rank's row count where every rank knows them
+        (then one collective).  Without it the ranks exchange a header
+        first (rows, shape, dtype) and pad to the largest; a rank with no
+        rows passes ``None`` and learns the trailing shape and dtype from
+        the others.
+        """
+        dev = self.device if t is None else t.device
+        if rows is None:
+            head = torch.full((_HEADER,), -1, dtype=torch.int64)
+            if t is not None:
+                head[0], head[1] = t.shape[0], t.ndim
+                head[2:2 + t.ndim - 1] = torch.tensor(t.shape[1:])
+                head[5] = _DTYPES.index(t.dtype)
+            if self.backend != "gloo":
+                head = head.to(dev)
+            heads = [torch.empty_like(head) for _ in range(self.world)]
+            torch.distributed.all_gather(heads, head)
+            heads = torch.stack(heads).cpu()
+            rows = [max(0, int(h[0])) for h in heads]
+            full = next(h for h in heads if int(h[1]) > 0)
+            trail = tuple(int(d) for d in full[2:2 + int(full[1]) - 1])
+            dtype = _DTYPES[int(full[5])]
+            if t is None:
+                t = torch.empty((0, *trail), dtype=dtype, device=dev)
+        top = max(rows)
+        x = self._stage(t)
+        if x.shape[0] < top:
+            x = torch.cat([x, x.new_zeros((top - x.shape[0],
+                                           *x.shape[1:]))], 0)
+        outs = [torch.empty_like(x) for _ in range(self.world)]
+        torch.distributed.all_gather(outs, x.contiguous())
+        g = torch.cat([o[:n] for o, n in zip(outs, rows)], 0)
+        return g.to(dev)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks, on every rank, on ``t``'s device."""
+        x = self._stage(t).clone()
+        torch.distributed.all_reduce(x)
+        return x.to(t.device)
+
+
+def _home(device: torch.device) -> str:
+    return f"{socket.gethostname()}/{device}"
+
+
+def _rank_cards(local: int, world: int) -> List[str]:
+    """This rank's default cards: ``local`` of them from card
+    ``local_rank * local``, by ``launch.cluster.initialize``'s rule (its
+    index among the processes of its host: SLURM's local id, else its
+    rank).  Raises when this host has too few visible cards."""
+    first = (cluster.local_rank(cluster.detect_environment()) * local
+             if world > 1 else 0)
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < first + local:
+        raise RuntimeError(
+            f"need CUDA devices {first}..{first + local - 1} for this "
+            f"process's {local} shard(s) of a row mesh, have {have} -- pass "
+            "devices=[...] to place several shards on one card "
+            "(['cuda:0'] * S) or on the CPU (['cpu'] * S)")
+    return [f"cuda:{first + i}" for i in range(local)]
 
 
 def make_row_mesh(n_shards: int,
                   devices: Optional[Sequence[DeviceLike]] = None) -> RowMesh:
     """``n_shards`` row shards, one per device.
 
-    ``devices=None`` takes the first ``n_shards`` visible CUDA cards and
-    raises when there are fewer.  Several shards on one card, or on the
-    CPU, must be asked for by name: ``devices=["cuda:0"] * 4`` or
-    ``["cpu"] * S``.
+    One process: ``devices=None`` takes the first ``n_shards`` visible
+    CUDA cards and raises when there are fewer.  Several shards on one
+    card, or on the CPU, must be asked for by name: ``devices=["cuda:0"]
+    * 4`` or ``["cpu"] * S``.
+
+    Under an initialised process group ``devices`` are this rank's own
+    ``L = n_shards / world`` shards (``None``: ``L`` cards from card
+    ``local_rank * L`` of this host's visible ones); ``n_shards`` must
+    divide by the world size.  Under NCCL the first of them, where this
+    rank's shards join, becomes the current card.  Every rank calls this
+    together: the ranks exchange the names of their devices.
     """
     n_shards = int(n_shards)
     if n_shards < 1:
         raise ValueError(f"a row mesh needs >= 1 shard, got {n_shards}")
+    world = cluster.process_count()
+    rank = cluster.process_index()
+    if n_shards % world:
+        raise ValueError(f"a {n_shards}-shard row mesh does not divide over "
+                         f"{world} processes")
+    local = n_shards // world
     if devices is None:
-        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if have < n_shards:
-            raise RuntimeError(
-                f"need {n_shards} CUDA devices for a {n_shards}-shard row "
-                f"mesh, have {have} -- pass devices=[...] to place several "
-                "shards on one card (['cuda:0'] * S) or on the CPU "
-                "(['cpu'] * S)")
-        devices = [f"cuda:{i}" for i in range(n_shards)]
+        devices = _rank_cards(local, world)
     devs = tuple(canonical_device(resolve_device(d)) for d in devices)
-    if len(devs) != n_shards:
-        raise ValueError(f"a {n_shards}-shard row mesh needs {n_shards} "
-                         f"devices, got {len(devs)}")
-    return RowMesh(devices=devs)
+    if len(devs) != local:
+        raise ValueError(f"a {n_shards}-shard row mesh needs {local} devices "
+                         f"a process ({world} processes), got {len(devs)}")
+    if world == 1:
+        return RowMesh(devices=devs, homes=tuple(_home(d) for d in devs))
+    backend = torch.distributed.get_backend()
+    if backend == "nccl" and devs[0].type == "cuda":
+        torch.cuda.set_device(devs[0])
+    homes: List[Optional[list]] = [None] * world
+    torch.distributed.all_gather_object(homes, [_home(d) for d in devs])
+    all_devs: List[Optional[torch.device]] = [None] * n_shards
+    all_devs[rank * local:(rank + 1) * local] = devs
+    return RowMesh(devices=tuple(all_devs),
+                   homes=tuple(h for hs in homes for h in hs),
+                   rank=rank, world=world, backend=backend)

@@ -77,6 +77,7 @@ from repro_torch.kernels import filter_qgram as _fq
 from repro_torch.kernels import match_mxu as _mxu
 from repro_torch.kernels import match_swar as _swar
 from repro_torch.kernels import ref as _kref
+from repro_torch.launch import cluster as _cluster
 from repro_torch.match.planner import (FilterContext, Planner,
                                        _mxu_geometry,
                                        _swar_geometry,
@@ -592,9 +593,13 @@ def bench_provenance(cost_source: Optional[CostSource] = None, *,
 
     ``calibration`` is the cost-source tag that priced the run's planner
     decisions ("static" when no source was loaded); ``n_processes`` /
-    ``n_hosts`` the controller topology (one process on one host until
-    the port runs across cards); ``power_limit_w`` the card's power
-    limit, since a card set below its maximum runs slower under load.
+    ``n_hosts`` the controller topology, read off the process group when
+    one is initialised (a multi-process artifact measured collective
+    merges, a one-process one did not; the host names are those
+    ``launch.cluster.initialize`` gathered, ``None`` for a group it did
+    not make);
+    ``power_limit_w`` the card's power limit, since a card set below its
+    maximum runs slower under load.
     """
     dev = resolve_device(device)
     return {
@@ -602,8 +607,8 @@ def bench_provenance(cost_source: Optional[CostSource] = None, *,
         "backend": backend_name(dev),
         "calibration": cost_source.tag if cost_source is not None
         else "static",
-        "n_processes": 1,
-        "n_hosts": 1,
+        "n_processes": _cluster.process_count(),
+        "n_hosts": _cluster.host_count(),
         "power_limit_w": _power_limit_w(dev),
     }
 

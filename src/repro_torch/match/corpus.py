@@ -35,9 +35,16 @@ layout of ``repro_torch.distributed.sharding``), each shard holds
 round-robin over the shards, growth zero-extends each shard in place (a
 row never changes shard or slot), and a splice writes each touched row
 at its shard and slot; packing stays one event a form, not one a shard.
-With one shard the list holds the one form of the whole corpus.  The
-per-host builders of the JAX corpus (one process a card) are not ported
-yet.
+With one shard the list holds the one form of the whole corpus.
+
+On a mesh that spans processes (one process a card, ``launch.cluster``)
+each process holds only its own shards: ``devices`` and every per-shard
+list hold ``None`` for a shard another process owns.  The host fragment
+buffer stays whole on every process (every ingest call presents the same
+rows everywhere, the SPMD discipline); packing, growth, splices and
+``compact`` touch only the local shards, and the pack counters stay flat
+per process (one event a form on each).  This is the counterpart of the
+JAX corpus's per-host packing.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch
 
 from repro_torch.core import encoding
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import first_local
 from repro_torch.kernels import match_swar as _swar
 from repro_torch.obs import NULL_OBS
 
@@ -199,8 +207,14 @@ class PackedCorpus:
 
     @property
     def devices(self) -> tuple:
-        """One device a shard (the corpus's own device when unsharded)."""
+        """One device a shard (the corpus's own device when unsharded);
+        ``None`` for a shard another process owns."""
         return self._devices
+
+    @property
+    def local_shards(self) -> List[int]:
+        """The shards this process holds."""
+        return [s for s, d in enumerate(self._devices) if d is not None]
 
     def _shard_live(self, s: int) -> int:
         S, n = self.n_shards, self._n_rows
@@ -220,8 +234,9 @@ class PackedCorpus:
         """Configure the cyclic row layout over ``mesh.devices``.
 
         Called by the engine after resolving the mesh row axes
-        (``row_axes``, the reference's argument: one process places a
-        shard a device of ``mesh.devices``).  Raises ``row_pad`` to a
+        (``row_axes``, the reference's argument: a shard goes to its
+        device of ``mesh.devices``, ``None`` where another process owns
+        it).  Raises ``row_pad`` to a
         multiple of ``ROW_TILE * n_shards`` and drops the cached forms
         when the layout changes (forms built for another shard count are
         laid out differently).  Reconfiguring to the same layout is a
@@ -283,8 +298,11 @@ class PackedCorpus:
                    ) -> List[torch.Tensor]:
         """Full-capacity form, a tensor a shard: live rows packed on the
         shard's device, the rest 0."""
-        forms = []
+        forms: List[Optional[torch.Tensor]] = []
         for s in range(self.n_shards):
+            if self._devices[s] is None:
+                forms.append(None)
+                continue
             form = torch.zeros((self.shard_stride, width), dtype=dtype,
                                device=self._devices[s])
             live = self._shard_live(s)
@@ -329,7 +347,7 @@ class PackedCorpus:
                 self._swar = self._pack_form(width, torch.int32, pack_words)
             self.swar_pack_count += 1
             self.obs.metrics.counter("corpus.packs").inc()
-        elif self._swar[0].shape[1] < need_words:
+        elif first_local(self._swar).shape[1] < need_words:
             self._swar = [self._grow_cols(f, need_words) for f in self._swar]
         return self._swar
 
@@ -350,19 +368,25 @@ class PackedCorpus:
                                                one_hot_flat)
             self.onehot_pack_count += 1
             self.obs.metrics.counter("corpus.packs").inc()
-        elif self._onehot[0].shape[1] < f_chars * 4:
+        elif first_local(self._onehot).shape[1] < f_chars * 4:
             self._onehot = [self._grow_cols(f, f_chars * 4)
                             for f in self._onehot]
         return self._onehot
 
     @staticmethod
-    def _grow_cols(form: torch.Tensor, width: int) -> torch.Tensor:
+    def _grow_cols(form: Optional[torch.Tensor], width: int
+                   ) -> Optional[torch.Tensor]:
+        if form is None:
+            return None
         pad = torch.zeros((form.shape[0], width - form.shape[1]),
                           dtype=form.dtype, device=form.device)
         return torch.cat([form, pad], 1)
 
     @staticmethod
-    def _grow_rows(form: torch.Tensor, rows: int) -> torch.Tensor:
+    def _grow_rows(form: Optional[torch.Tensor], rows: int
+                   ) -> Optional[torch.Tensor]:
+        if form is None:
+            return None
         pad = torch.zeros((rows - form.shape[0], form.shape[1]),
                           dtype=form.dtype, device=form.device)
         return torch.cat([form, pad], 0)
@@ -391,9 +415,10 @@ class PackedCorpus:
             [self._dead, np.zeros(capacity - self.capacity, bool)])
         self._frags = np.concatenate([self._frags, grow], 0)
         j = self.shard_stride
-        if self._swar is not None and self._swar[0].shape[0] < j:
+        if self._swar is not None and first_local(self._swar).shape[0] < j:
             self._swar = [self._grow_rows(f, j) for f in self._swar]
-        if self._onehot is not None and self._onehot[0].shape[0] < j:
+        if (self._onehot is not None
+                and first_local(self._onehot).shape[0] < j):
             self._onehot = [self._grow_rows(f, j) for f in self._onehot]
         for ix in self._indexes:
             ix._on_capacity()
@@ -426,12 +451,12 @@ class PackedCorpus:
 
     # -- incremental updates ---------------------------------------------------
     def shard_slices(self, start: int, n: int):
-        """Logical rows [start, start+n) by shard: ``(s, i0, j0, m)`` for
-        each shard holding some, where ``rows[i0::S]`` (m rows) are shard
-        ``s``'s slots [j0, j0+m)."""
+        """Logical rows [start, start+n) by local shard: ``(s, i0, j0, m)``
+        for each shard of this process holding some, where ``rows[i0::S]``
+        (m rows) are shard ``s``'s slots [j0, j0+m)."""
         S = self.n_shards
         out = []
-        for s in range(S):
+        for s in self.local_shards:
             i0 = (s - start) % S
             if i0 < n:
                 out.append((s, i0, (start + i0) // S, -(-(n - i0) // S)))

@@ -39,6 +39,18 @@ before its one pull.  Row subsets and filter survivors run on the shard
 that holds each row and come back in query order.  Results are bit for
 bit the one-shard engine's.
 
+One process a card: on a mesh that spans the ranks of a
+``torch.distributed`` group (``launch.cluster``) each rank launches the
+kernels on its own shards only and the merger's joins become
+collectives over the group, so every rank returns the same
+``MatchResult``.  Every decision taken before a collective -- the plan,
+chunk bounds, hot rows, survivors, filter-or-scan -- comes from host
+state every rank holds alike or from values already joined, and runtime
+feedback is off by default there (wall clocks differ between ranks;
+plans that diverged would issue different collectives and hang).
+Per-row and batched SWAR queries are refused there, as the reference
+refuses them.
+
 Results keep the JAX package's layout: ``MatchResult`` fields are numpy
 arrays of the same dtypes, so the two packages compare like with like.
 """
@@ -57,10 +69,12 @@ from repro_torch.core import encoding
 from repro_torch.core.tech import CostSource
 from repro_torch.device import DeviceLike, canonical_device, resolve_device
 from repro_torch.distributed import sharding as _sharding
+from repro_torch.distributed.sharding import first_local
 from repro_torch.kernels import filter_qgram as _fq
 from repro_torch.kernels import match_mxu as _mxu
 from repro_torch.kernels import match_swar as _swar
 from repro_torch.kernels import ref as _kref
+from repro_torch.launch import cluster as _cluster
 from repro_torch.obs import Observability
 
 from . import index as _ix
@@ -502,7 +516,7 @@ class CompiledMatch:
                 if shard_phys:
                     # The hot logical rows' places in the chunk's
                     # shard-major order.
-                    jc = int(scores[0].shape[0])
+                    jc = int(first_local(scores).shape[0])
                     pos = (hot_rows % S) * jc + hot_rows // S
                 else:
                     pos = hot_rows
@@ -531,7 +545,7 @@ class CompiledMatch:
                         self._k_eff,
                         plan.n_patterns if plan.mode == "batched" else 0,
                         engine.device)
-                n_bs = (S * int(bs[0].shape[0]) if shard_phys
+                n_bs = (S * int(first_local(bs).shape[0]) if shard_phys
                         else int(bs.shape[0]))
                 alive_chunk = np.zeros(n_bs, bool)
                 alive_chunk[:valid] = True if alive is None else alive
@@ -609,7 +623,8 @@ class MatchEngine:
     ``corpus`` may be a PackedCorpus or a raw (R, F) uint8 fragment
     matrix.  ``device=None`` means the CUDA device (or, for a
     PackedCorpus, the device it was built on; with a mesh, the mesh's
-    first device).  ``mesh`` (a ``RowMesh``) shards corpus rows over the
+    first device, or this process's first shard's on a mesh across
+    processes).  ``mesh`` (a ``RowMesh``) shards corpus rows over the
     mesh axes the ``rows`` logical rule maps to; ``rules`` replaces the
     default rule table.  A row count the mesh does not divide falls back
     to one shard with a ``UserWarning``.  ``index`` attaches the
@@ -630,7 +645,7 @@ class MatchEngine:
                  device: DeviceLike = None, mesh=None, rules=None):
         self.obs = obs if obs is not None else Observability()
         if mesh is not None and device is None:
-            device = mesh.devices[0]
+            device = mesh.device
         if isinstance(corpus, PackedCorpus):
             if device is not None and resolve_device(device) != corpus.device:
                 raise ValueError(f"corpus lives on {corpus.device}, engine "
@@ -668,9 +683,9 @@ class MatchEngine:
         self.device = self.corpus.device
         S = self._row_shards
         if S > 1 and (canonical_device(self.device)
-                      != canonical_device(mesh.devices[0])):
+                      != canonical_device(mesh.device)):
             raise ValueError(f"corpus lives on {self.device}, the mesh's "
-                             f"first device is {mesh.devices[0]}")
+                             f"first device is {mesh.device}")
         self.corpus.obs = self.obs
         # The cyclic row layout over the mesh's devices (a no-op when the
         # corpus already has this layout).
@@ -689,8 +704,12 @@ class MatchEngine:
         self.planner = planner
         # Runtime feedback: on for calibrated sources, off for the static
         # fallback, whose decisions must not drift while the engine runs.
+        # Off past one process: wall clocks differ between ranks, and
+        # feedback re-pricing would drift their plans apart (divergent
+        # plans issue divergent collectives -- a hang).
         if record_runtimes is None:
-            record_runtimes = self.planner.cost_source.name != "static"
+            record_runtimes = (self.planner.cost_source.name != "static"
+                               and _cluster.process_count() == 1)
         self.record_runtimes = bool(record_runtimes)
         self.compile_cache_size = int(compile_cache_size)
         self._compiled: "OrderedDict[MatchQuery, CompiledMatch]" = \
@@ -731,9 +750,10 @@ class MatchEngine:
         return self.corpus.shard_live_rows
 
     def _per_shard(self, x) -> list:
-        """A tensor (or tuple of tensors, or None) on each shard's device:
-        one entry a shard, the same object where devices repeat."""
-        copies: dict = {}
+        """A tensor (or tuple of tensors, or None) on each local shard's
+        device: one entry a shard (``None`` for another process's), the
+        same object where devices repeat."""
+        copies: dict = {None: None}
         for d in self.corpus.devices:
             if d not in copies:
                 copies[d] = (None if x is None else
@@ -810,8 +830,9 @@ class MatchEngine:
     @property
     def one_card(self) -> bool:
         """Every row shard on one card: a cross-shard join is a copy
-        within device memory, not over a link."""
-        return len(set(self.corpus.devices)) == 1
+        within device memory, not over a link.  Every process of a mesh
+        across processes reads the same answer off the mesh."""
+        return self._row_shards == 1 or self.mesh.n_cards == 1
 
     # -- q-gram filter stage ----------------------------------------------------
     def _filter_context(self, query: MatchQuery, mode: Optional[str],
@@ -897,11 +918,12 @@ class MatchEngine:
         qsigs = self._per_shard(cm._filter_dev)
         sigs = self.index.signature_shards()
         tile = _fq.FILTER_ROW_TILE
-        jn = min(sigs[0].shape[0],
+        jn = min(first_local(sigs).shape[0],
                  -(-(-(-n_rows // self._row_shards)) // tile) * tile)
         flags = None
         for qi in range(ops.qsig_words.shape[0]):
-            f = [_fq.filter_qgram(sg[:jn], qs[qi:qi + 1],
+            f = [None if sg is None else
+                 _fq.filter_qgram(sg[:jn], qs[qi:qi + 1],
                                   slack=ops.slacks[qi])
                  for sg, qs in zip(sigs, qsigs)]
             flags = f if flags is None else self.merger.or_(flags, f)
@@ -918,26 +940,35 @@ class MatchEngine:
 
     # -- kernel dispatch (one chunk, pure device) -----------------------------
     def _launches(self, c0: int, c1: int, idx: Optional[torch.Tensor],
-                  idx_log: Optional[np.ndarray]) -> List[_Launch]:
-        """The kernel launches of query rows [c0, c1).
+                  idx_log: Optional[np.ndarray]
+                  ) -> Tuple[List[_Launch], Optional[np.ndarray]]:
+        """The kernel launches of query rows [c0, c1), and, for gathered
+        rows, the order the merger joins them in.
 
-        Resident rows: one launch of slots [c0/S, c1/S) a shard (the whole
-        chunk with one shard).  Gathered rows (``idx``: padded row ids on
-        the device, ``idx_log`` the same on the host): one launch on the
-        one shard, or, with shards, one a shard that holds some of the
-        chunk's rows, its slots padded to the SWAR row tile.
+        Resident rows: one launch of slots [c0/S, c1/S) a local shard
+        (the whole chunk with one shard).  Gathered rows (``idx``: padded
+        row ids on the device, ``idx_log`` the same on the host): one
+        launch on the one shard, or, with shards, one a local shard that
+        holds some of the chunk's rows, its slots padded to the SWAR row
+        tile; the order lists the chunk positions of every shard's rows,
+        in shard order (``ShardMerger.join_rows``).
         """
         S = self._row_shards
         if idx is None:
             if S == 1:
-                return [_Launch(0, slice(c0, c1))]
-            return [_Launch(s, slice(c0 // S, c1 // S)) for s in range(S)]
+                return [_Launch(0, slice(c0, c1))], None
+            return [_Launch(s, slice(c0 // S, c1 // S))
+                    for s in self.corpus.local_shards], None
         if S == 1:
-            return [_Launch(0, idx[c0:c1])]
+            return [_Launch(0, idx[c0:c1])], None
         ids = idx_log[c0:c1]
         owner = ids % S
-        parts = [(s, np.flatnonzero(owner == s)) for s in range(S)]
+        parts = [(s, np.flatnonzero(owner == s))
+                 for s in self.corpus.local_shards]
         parts = [(s, pos) for s, pos in parts if pos.size]
+        order = np.argsort(owner, kind="stable")
+        if not parts:
+            return [], order
         # Every launch's slots in one upload, each padded to the row tile.
         tile = _swar.ROW_TILE
         ends = np.cumsum([-(-pos.size // tile) * tile for _, pos in parts])
@@ -947,19 +978,34 @@ class MatchEngine:
             slots[a:a + pos.size] = ids[pos] // S
         dev = torch.from_numpy(slots).to(self.device)
         return [_Launch(s, dev[a:b].to(self.corpus.devices[s]), pos)
-                for (s, pos), a, b in zip(parts, starts, ends)]
+                for (s, pos), a, b in zip(parts, starts, ends)], order
 
-    def _chunk_out(self, launches: List[_Launch], outs: list):
+    def _chunk_out(self, launches: List[_Launch], order, outs: list):
         """Per-launch outputs -> the chunk's: the one tensor (one shard),
-        a tensor a shard (resident rows, cyclic layout), or one tensor in
-        query order on the join device (gathered rows)."""
+        a tensor a shard (resident rows, cyclic layout; ``None`` for
+        another process's shard), or one tensor in query order on the
+        join device (gathered rows, ``order`` set)."""
         if self._row_shards == 1:
             return outs[0]
-        if launches[0].pos is None:
-            return outs
+        if order is None:
+            full: List[Optional[torch.Tensor]] = [None] * self._row_shards
+            for ln, o in zip(launches, outs):
+                full[ln.shard] = o
+            return full
         return self.merger.join_rows(
-            [o[:ln.pos.size] for ln, o in zip(launches, outs)],
-            [ln.pos for ln in launches])
+            [o[:ln.pos.size] for ln, o in zip(launches, outs)], order)
+
+    def _refuse_multiprocess(self, plan: Plan) -> None:
+        """Per-row and batched SWAR layouts tile or interleave pattern
+        rows across shards, which has no multi-process lowering in the
+        reference either: refuse them with its message."""
+        if (self.merger.multiprocess and plan.backend == "swar"
+                and plan.mode in ("per_row", "batched")):
+            raise NotImplementedError(
+                f"{plan.mode} SWAR queries are not supported on a "
+                "multi-process mesh (shared-pattern queries and the "
+                "batched MXU backend are); use backend=\"mxu\" or run "
+                "the patterns as separate queries")
 
     def _chunk_scores(self, plan: Plan, pats2d: np.ndarray, c0: int,
                       c1: int, packed: list, idx: Optional[torch.Tensor],
@@ -989,8 +1035,9 @@ class MatchEngine:
                                     for q in range(plan.n_patterns)], -1)
             return fn(frags, pats[c0:c1] if plan.mode == "per_row" else pats)
 
-        launches = self._launches(c0, c1, idx, idx_log)
-        return self._chunk_out(launches, [
+        self._refuse_multiprocess(plan)
+        launches, order = self._launches(c0, c1, idx, idx_log)
+        return self._chunk_out(launches, order, [
             self._launch_scores(plan, c0, c1, ln, packed[ln.shard])
             for ln in launches])
 
@@ -1051,11 +1098,12 @@ class MatchEngine:
         from kernels that reduce in their epilogue: ``match_mxu_best``
         (q = q_pad) or, for exact SWAR, ``match_swar_best`` (q = Q
         batched, else 1)."""
-        launches = self._launches(c0, c1, idx, idx_log)
+        self._refuse_multiprocess(plan)
+        launches, order = self._launches(c0, c1, idx, idx_log)
         outs = [self._launch_best(plan, c0, c1, ln, packed[ln.shard])
                 for ln in launches]
-        return (self._chunk_out(launches, [o[0] for o in outs]),
-                self._chunk_out(launches, [o[1] for o in outs]))
+        return (self._chunk_out(launches, order, [o[0] for o in outs]),
+                self._chunk_out(launches, order, [o[1] for o in outs]))
 
     def _launch_best(self, plan: Plan, c0: int, c1: int, ln: _Launch,
                      packed) -> Tuple[torch.Tensor, torch.Tensor]:

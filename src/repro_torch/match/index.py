@@ -32,9 +32,11 @@ logical rows ``s::S``, each shard's slot count padded to
 ``FILTER_ROW_TILE`` on its own (``shard_stride``).  Per-row bit counts
 then stay on the shards' devices too, and ``density`` is a cross-shard
 sum over the live slots, joined on the first device and cached per
-corpus generation (the host mean of one shard, bit for bit).  The JAX
-index's per-host build belongs to one process a card and is not ported
-yet.
+corpus generation (the host mean of one shard, bit for bit).  On a mesh
+that spans processes each process builds, splices and sums only its own
+shards (``None`` stands for the others, as in the corpus); one
+``all_reduce`` of the int64 sum then gives every process the same
+density, so every process plans alike (the JAX index's per-host build).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import first_local
 from repro_torch.kernels import filter_qgram as _fq
 from repro_torch.match.feedback import EwmaRatio
 
@@ -317,6 +320,10 @@ class CorpusIndex:
                 S, n = c.n_shards, c.n_rows
                 sigs, bits = [], []
                 for s in range(S):
+                    if c.devices[s] is None:
+                        sigs.append(None)
+                        bits.append(None)
+                        continue
                     live = c._shard_live(s)
                     form = torch.zeros((self.shard_stride, self.sig_words),
                                        dtype=torch.int32,
@@ -367,13 +374,14 @@ class CorpusIndex:
                 [self._row_bits,
                  np.zeros(cap - self._row_bits.shape[0], np.int32)])
         jf = self.shard_stride
-        if self._sigs is not None and self._sigs[0].shape[0] < jf:
+        if self._sigs is not None and first_local(self._sigs).shape[0] < jf:
             # Per-shard zero-extension: rows keep their shard and slot.
-            self._sigs = [torch.cat([f, f.new_zeros(
+            self._sigs = [None if f is None else torch.cat([f, f.new_zeros(
                 (jf - f.shape[0], self.sig_words))], 0) for f in self._sigs]
             if self._bits_dev is not None:
-                self._bits_dev = [torch.cat([b, b.new_zeros(
-                    jf - b.shape[0])]) for b in self._bits_dev]
+                self._bits_dev = [None if b is None else torch.cat([
+                    b, b.new_zeros(jf - b.shape[0])])
+                    for b in self._bits_dev]
 
     def _on_invalidate(self) -> None:
         self._sigs = None
@@ -400,19 +408,24 @@ class CorpusIndex:
         """Live-row mean bit count from the shards' device counts.
 
         Each shard sums its live slots on its device; the sums join on
-        the first device and one scalar crosses to the host.
-        ``float(total) / n`` reproduces the host ``np.mean`` (an exact
-        integer sum, one float64 divide) bit for bit.  Cached per
-        (generation, n): density is read on every plan, the corpus
-        mutates far less often.
+        the first device (across processes, one ``all_reduce`` over the
+        mesh's group: a collective every process reaches at the same
+        plan) and one scalar crosses to the host.  ``float(total) / n``
+        reproduces the host ``np.mean`` (an exact integer sum, one
+        float64 divide) bit for bit.  Cached per (generation, n): density
+        is read on every plan, the corpus mutates far less often.
         """
         key = (self.corpus.generation, n)
         if self._dcache is not None and self._dcache[0] == key:
             return self._dcache[1]
-        dev0 = self.corpus.devices[0]
-        total = int(torch.stack([
+        dev0 = first_local(self.corpus.devices)
+        total = torch.stack([
             b[:self.corpus._shard_live(s)].sum(dtype=torch.int64).to(dev0)
-            for s, b in enumerate(self._bits_dev)]).sum())
+            for s, b in enumerate(self._bits_dev) if b is not None]).sum()
+        mesh = self.corpus._mesh
+        if mesh is not None and mesh.multiprocess:
+            total = mesh.all_reduce_sum(total)
+        total = int(total)
         val = float(total) / n / self.n_bits
         self._dcache = (key, val)
         return val

@@ -5,15 +5,21 @@
 across row shards and cross to the host.  A *sharded value* is a list of
 per-shard tensors, shard ``s``'s on its own device, in the corpus's
 cyclic layout (shard ``s``'s slot ``j`` of a chunk starting at logical row
-``c0`` is row ``c0 + j*S + s``).  Reductions run shard by shard where the
-shard's rows are; the reduced state then joins on the mesh's first
-device (``.to(dev0, non_blocking=True)`` and ``torch.cat`` or a merge; on
-one card the ``.to`` is a no-op) and crosses to the host in one pull.
-That join is this single process's counterpart of the JAX package's
-``all_gather`` under ``shard_map``; ``n_collectives`` and
-``collective_bytes`` count it as the reference counts its collectives
-(a ring's ``(S-1)/S`` of the joined payload).  One process a card, with
-``torch.distributed`` collectives, is not ported yet.
+``c0`` is row ``c0 + j*S + s``); an entry is ``None`` where another
+process owns the shard.  Reductions run shard by shard where the shard's
+rows are; the reduced state then joins on the join device (this
+process's first shard's device): the local shards ``torch.cat`` there
+(``.to(dev, non_blocking=True)``; on one card the ``.to`` is a no-op)
+and, on a mesh that spans processes, one ``all_gather`` over the group
+brings every rank's block (``RowMesh.all_gather``: staged through the
+host under gloo, device tensors under NCCL), so every rank holds the
+same joined value and runs the same un-permute or merge on it.  The
+join is the counterpart of the JAX package's ``all_gather`` under
+``shard_map``; ``n_collectives`` and ``collective_bytes`` count it as the
+reference counts its collectives (a ring's ``(S-1)/S`` of the joined
+payload) at any process count, and ``collective_seconds`` is the host
+time spent in the process group's collectives, staging included (a copy
+to the host first waits for the device work queued before it).
 
 * ``pull`` -- a tensor or a sharded value -> host ndarray; a sharded one
   is joined first and, with ``unpermute=True``, put back in logical row
@@ -35,11 +41,13 @@ That join is this single process's counterpart of the JAX package's
   pair and sort last.  torch has no ``lexsort``: one int64 key
   ``(-score) << 32 | row`` sorts the same way.  On a sharded chunk each
   shard first keeps its own top-k over the logical ids
-  ``c0 + slot*S + s``; only those candidates join the running state.
+  ``c0 + slot*S + s``; only those candidates join the running state,
+  which every process holds alike.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -54,22 +62,25 @@ from repro_torch.obs import NULL_OBS, Observability
 ROW_SENTINEL = np.int32(np.iinfo(np.int32).max)
 SCORE_SENTINEL = np.int32(-1)
 
-Value = Union[torch.Tensor, List[torch.Tensor]]
+Value = Union[torch.Tensor, List[Optional[torch.Tensor]]]
 
 
 def _map(fn, x: Value) -> Value:
-    """``fn`` on a tensor, or on each shard of a sharded value."""
-    return [fn(t) for t in x] if isinstance(x, list) else fn(x)
+    """``fn`` on a tensor, or on each local shard of a sharded value."""
+    if isinstance(x, list):
+        return [None if t is None else fn(t) for t in x]
+    return fn(x)
 
 
 class ShardMerger:
     """Chunk reductions, cross-shard merges and host pulls for one engine.
 
     ``n_shards == 1`` is the one-device engine (``merge_path == "host"``);
-    with shards, every cross-shard combine joins on ``mesh.devices[0]``
-    (``merge_path == "device"``).  ``row_axes`` (the mesh axes the rows
-    shard over) is the reference's argument; one process joins over the
-    mesh's device list and does not read it.
+    with shards, every cross-shard combine joins on the mesh's join device
+    and, across processes, over the mesh's group (``merge_path ==
+    "device"``).  ``row_axes`` (the mesh axes the rows shard over) is the
+    reference's argument; the joins follow the mesh's shard list and do
+    not read it.
     """
 
     def __init__(self, mesh=None, row_axes=None, n_shards: int = 1,
@@ -78,12 +89,14 @@ class ShardMerger:
         self.n_shards = int(n_shards)
         self.mesh = mesh if self.n_shards > 1 else None
         # The join device: where cross-shard results meet before a pull.
-        self.device = None if self.mesh is None else self.mesh.devices[0]
+        self.device = None if self.mesh is None else self.mesh.device
+        self.multiprocess = self.mesh is not None and self.mesh.multiprocess
         self.collective_bytes = 0
         self.reduced_pull_bytes = 0
         self.block_pull_bytes = 0
         self.n_collectives = 0
         self.n_pulls = 0
+        self.collective_seconds = 0.0
 
     @property
     def merge_path(self) -> str:
@@ -95,13 +108,25 @@ class ShardMerger:
         self.collective_bytes += (int(nbytes) * (self.n_shards - 1)
                                   ) // self.n_shards
 
-    def join(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Per-shard blocks -> one tensor on the join device (physical,
-        shard-major order)."""
+    def _gather(self, g: Optional[torch.Tensor], rows=None) -> torch.Tensor:
+        """This process's joined block -> every process's, in rank order
+        (``RowMesh.all_gather``); timed into ``collective_seconds``."""
+        t = time.perf_counter()
+        out = self.mesh.all_gather(g, rows)
+        self.collective_seconds += time.perf_counter() - t
+        return out
+
+    def join(self, parts: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+        """Per-shard blocks, each of one shape -> one tensor on the join
+        device (physical, shard-major order): the local shards
+        concatenated, then, across processes, every rank's block."""
         if len(parts) == 1:
             return parts[0]
-        return torch.cat([p.to(self.device, non_blocking=True)
-                          for p in parts], 0)
+        g = torch.cat([p.to(self.device, non_blocking=True)
+                       for p in parts if p is not None], 0)
+        if self.multiprocess:
+            g = self._gather(g, [g.shape[0]] * self.mesh.world)
+        return g
 
     def pull(self, x: Value, *, unpermute: bool = False,
              kind: str = "reduced") -> np.ndarray:
@@ -137,12 +162,8 @@ class ShardMerger:
         shard by shard for a sharded value."""
         tr = self.obs.tracer
         with tr.span("merge", {"op": "best"} if tr.enabled else None):
-            if isinstance(scores, list):
-                pairs = [(s.argmax(dim=1).to(torch.int32), s.amax(dim=1))
-                         for s in scores]
-                return [p[0] for p in pairs], [p[1] for p in pairs]
-            return (scores.argmax(dim=1).to(torch.int32),
-                    scores.amax(dim=1))
+            return (_map(lambda s: s.argmax(dim=1).to(torch.int32), scores),
+                    _map(lambda s: s.amax(dim=1), scores))
 
     def slice_best(self, best_loc: Value, best_score: Value,
                    n_patterns: int, *, batched: bool
@@ -178,7 +199,7 @@ class ShardMerger:
         """Elementwise OR (the filter stage's union across patterns), on
         each shard's device."""
         if isinstance(a, list):
-            return [x | y for x, y in zip(a, b)]
+            return [None if x is None else x | y for x, y in zip(a, b)]
         return a | b
 
     def gather_rows(self, arr: Value, idx: np.ndarray) -> torch.Tensor:
@@ -192,26 +213,30 @@ class ShardMerger:
             if not isinstance(arr, list):
                 i = torch.from_numpy(idx).to(arr.device)
                 return arr.index_select(0, i)
-            J = arr[0].shape[0]
-            parts, positions = [], []
+            J = _sharding.first_local(arr).shape[0]
+            owner = idx // J
+            parts = []
             for s, a in enumerate(arr):
-                pos = np.flatnonzero(idx // J == s)
-                if pos.size:
+                pos = np.flatnonzero(owner == s)
+                if a is not None and pos.size:
                     slots = torch.from_numpy(idx[pos] % J).to(a.device)
                     parts.append(a.index_select(0, slots))
-                    positions.append(pos)
-            return self.join_rows(parts, positions)
+            return self.join_rows(parts, np.argsort(owner, kind="stable"))
 
     def join_rows(self, parts: Sequence[torch.Tensor],
-                  positions: Sequence[np.ndarray]) -> torch.Tensor:
-        """Row blocks from several shards -> one tensor on the join
-        device, row ``positions[i][r]`` holding ``parts[i][r]``
-        (``positions`` together a permutation of ``range(n)``)."""
+                  order: np.ndarray) -> torch.Tensor:
+        """Row blocks of this process's shards -> one tensor on the join
+        device holding every shard's rows: ``order`` lists, for the rows
+        of every shard in shard order (each process's part of them in its
+        ``parts``), the place each takes in the output.  The parts differ
+        in size between processes (one may hold none), so the ranks
+        exchange their counts first."""
         if len(parts) == 1 and self.n_shards == 1:
             return parts[0]
-        g = torch.cat([p.to(self.device, non_blocking=True)
-                       for p in parts], 0)
-        order = np.concatenate(positions)
+        g = (torch.cat([p.to(self.device, non_blocking=True)
+                        for p in parts], 0) if parts else None)
+        if self.multiprocess:
+            g = self._gather(g)
         inv = np.empty_like(order)
         inv[order] = np.arange(order.size)
         out = g.index_select(0, torch.from_numpy(inv).to(g.device))
@@ -249,23 +274,26 @@ class ShardMerger:
             k = st_s2.shape[0]
             if phys:
                 S = len(bs)
-                jc = bs[0].shape[0]
+                b0 = _sharding.first_local(bs)
+                jc = b0.shape[0]
                 # Logical position slot*S + s: shard s's mask is column s.
                 alive_all = torch.from_numpy(alive_chunk).to(
-                    bs[0].device).view(jc, S)
-                cands = []
+                    b0.device).view(jc, S)
+                cands: List[Optional[torch.Tensor]] = [None] * S
                 for s, b in enumerate(bs):
+                    if b is None:
+                        continue
                     dev = b.device
                     alive = alive_all[:, s].to(dev)
                     rows = torch.arange(jc, device=dev) * S + (c0 + s)
                     keys = self._candidate_keys(b, rows, alive)
-                    cands.append(torch.sort(keys, dim=0).values[:k])
+                    cands[s] = torch.sort(keys, dim=0).values[:k]
                 if S > 1:
                     self.n_collectives += 1
-                    self.collective_bytes += ((S - 1) * min(k, jc)
-                                              * cands[0].shape[1] * 12)
+                    q = b0.shape[1] if b0.ndim == 2 else 1
+                    self.collective_bytes += (S - 1) * min(k, jc) * q * 12
                 cand = self.join(cands)
-                ndim = bs[0].ndim
+                ndim = b0.ndim
             else:
                 dev = bs.device
                 alive = torch.from_numpy(alive_chunk).to(dev)

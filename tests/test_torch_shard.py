@@ -516,10 +516,12 @@ def test_plan_batch_prices_shards_as_the_reference(n_shards):
     assert "priced per shard" in b.plan.reason
 
 
-def test_chip_smoke_phase_12_rehearses_on_the_cpu(monkeypatch):
+def rehearse_phase_12(monkeypatch, keep=None):
     """``chip_smoke.py``'s phase 12 (``shard_phase``) at a small size on
     CPU devices, with counting wrappers over the kernels it launches (on
-    the CPU a wrapper runs the plain version and counts nothing)."""
+    the CPU a wrapper runs the plain version and counts nothing).
+    Returns the script as a module, the rows, the queries and what the
+    phase returned."""
     import importlib.util
     from pathlib import Path
 
@@ -566,11 +568,60 @@ def test_chip_smoke_phase_12_rehearses_on_the_cpu(monkeypatch):
     out = cs.shard_phase(
         frags, queries, want, zero_counts=counts.clear,
         read_counts=lambda: dict(counts), sync=lambda: None, device="cpu",
-        n_append=100)
+        n_append=100, keep=keep)
+    return cs, frags, queries, out
+
+
+@pytest.fixture(scope="module")
+def phase_12_rehearsal():
+    """One rehearsal of phase 12 for the module (it is slow on a loaded
+    host), its 4-shard results kept for phase 13; the patches end with
+    it."""
+    keep: dict = {}
+    threads = torch.get_num_threads()
+    # One host thread: on a loaded host (the suite's other workers)
+    # every thread past that spins against them.
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            cs, frags, queries, out = rehearse_phase_12(mp, keep)
+    finally:
+        torch.set_num_threads(threads)
+    return cs, frags, queries, out, keep
+
+
+def test_chip_smoke_phase_12_rehearses_on_the_cpu(phase_12_rehearsal):
+    out = phase_12_rehearsal[3]
     assert out["queries"]["a"]["launches_per_shard_chunk"] == 1
     assert out["queries"]["c"]["n_chunks"] > 1
     assert out["queries"]["e"]["strategy"] == "filter"
     assert sum(out["shard_live_rows"]) == 2100 - 21
+
+
+def test_chip_smoke_phase_13_rehearses_on_the_cpu(phase_12_rehearsal,
+                                                  monkeypatch, tmp_path):
+    """``chip_smoke.py``'s phase 13 (``procs_phase``) on two gloo ranks of
+    2 CPU shards each, held to the rehearsed phase 12's 4-shard results
+    (the ranks are fresh interpreters: on the CPU nothing counts their
+    launches)."""
+    cs, frags, queries, sharded, keep = phase_12_rehearsal
+    assert set(keep) == set(queries) | {
+        f"{k}@{s}" for k in ("a", "c", "e")
+        for s in ("tombstoned", "compacted")}
+    monkeypatch.setattr(cs, "TIMED_RUNS", 1)
+    monkeypatch.setattr(cs, "ROOT", tmp_path)     # its build/phase13
+    # One host thread a rank, as in the fixture.
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = cs.procs_phase(frags, queries, keep, sharded, device="cpu",
+                         n_append=100)
+    assert out["backend"] == "gloo"
+    assert [r["local_shards"] for r in out["ranks"]] == [[0, 1], [2, 3]]
+    for key, info in out["queries"].items():
+        assert info["n_collectives"] == info["n_collectives_sharded"], key
+        assert (info["collective_bytes"]
+                == info["collective_bytes_sharded"]), key
+    assert len(out["mutated"]) == 6
+    assert all(sum(r["shard_live_rows"]) == 2100 - 21 for r in out["ranks"])
 
 
 @pytest.mark.gpu
