@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's match, LM serving and LM training paths on one
-NVIDIA card and check them.
+"""Drive the PyTorch port's match, LM serving, LM training and LM sharding
+paths on one NVIDIA card and check them.
 
 Run from the root of a checkout, on a machine with a CUDA device, the
 CUDA toolkit and PyTorch built for CUDA:
@@ -209,7 +209,27 @@ printing its wall time beside the card's name and power limit:
    12's, collectives and their bytes a run beside phase 12's, the host
    ms its collectives took, peak memory.  A failed rank fails the phase
    (the others are killed).
-14. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
+14. The LM's sharding (no kernel of its own: the reference shards its
+   ``jnp`` LM through GSPMD, the port through DTensor): four ranks form
+   ``make_debug_mesh(2, 2)``, a ``(data, model)`` mesh, as threads of
+   this process under torch's ``"threaded"`` process group (one card:
+   every rank's shards on ``cuda:0``; four or more: rank ``r`` on
+   ``cuda:r``; the layout is printed), whose collectives are device
+   copies.  (z1) llama3.2-1b at full width and depth, batch 8 x seq 128,
+   (t1)'s optimizer: 3 one-device steps, then the same weights through
+   ``convert.shard_params`` for the same 3 steps on the mesh under
+   ``activation_sharding`` with the "2d" rules, then the optimized
+   config's "fsdp" rules for 1 step: every loss within 1e-3 relative of
+   the one-device loss, the gradient norm within 1e-2, every updated
+   leaf (gathered whole) within 3e-2 relative L2; leaves sharded over
+   data, model, both and neither; ms a step (median after 1 warm-up)
+   beside the one-device step; the collectives of a step by kind and
+   their bytes (``CommDebugMode``); peak memory on the card.  (z2) a
+   mesh-less checkpoint at full width and 2 layers restored with
+   ``restore(shardings=)``: every rank's local block of every leaf equal
+   to its slice of the saved array, bit for bit; the directory removed.
+   The phase fails past 150 s.
+15. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
    (``match_swar``'s launches count phase 10's; each row also carries
    phase 12's launches, ``launches_sharded``, and phase 13's over both
    ranks, ``launches_procs``), the script's wall time, the card's name
@@ -381,6 +401,19 @@ TRAIN_B2, TRAIN_S2, TRAIN_B3, TRAIN_S3 = 4, 128, 2, 64
 TRAIN_T4_LAYERS, TRAIN_T4_STEPS, TRAIN_T4_EVERY = 2, 8, 4
 TRAIN_LOSS_RTOL, TRAIN_LEAF_RTOL, TRAIN_FLIP_SHARE = 1e-3, 3e-2, 1e-2
 TRAIN_OPT_BYTES = 32
+# The LM's sharding (phase 14): llama3.2-1b at full width and depth on a
+# MESH_DATA x MESH_MODEL (data, model) mesh of threaded ranks, batch
+# SHARDED_B x seq SHARDED_S and (t1)'s optimizer; SHARDED_STEPS steps under
+# the "2d" profile, ms a step the median after one warm-up, then
+# SHARDED_FSDP_STEPS under the optimized config's "fsdp" profile, each
+# against the one-device run of the same weights and batches: the loss
+# within TRAIN_LOSS_RTOL relative, the gradient norm within
+# SHARDED_NORM_RTOL, every leaf within TRAIN_LEAF_RTOL relative L2.  (z2)
+# restores a mesh-less checkpoint at SHARDED_CKPT_LAYERS layers onto the
+# mesh.  The phase must end within SHARDED_LIMIT_S.
+MESH_DATA, MESH_MODEL = 2, 2
+SHARDED_B, SHARDED_S, SHARDED_STEPS, SHARDED_FSDP_STEPS = 8, 128, 3, 1
+SHARDED_NORM_RTOL, SHARDED_CKPT_LAYERS, SHARDED_LIMIT_S = 1e-2, 2, 150.0
 # Row shards (phase 12): the sharded engine's shard count on one card, the
 # second count held for (a) and (c), the seeded rows appended before the
 # tombstones (1 in TOMBSTONE_EVERY live rows) and the compaction.
@@ -2658,6 +2691,337 @@ def train_t4(*, device, smoke):
           f"{out['wall_s']:.1f} s; card: {Phase.card}")
     return out
 
+def sharded_opt():
+    """(t1)'s optimizer: the train launcher's defaults."""
+    from repro_torch.optim import adamw
+    return adamw.OptConfig(peak_lr=3e-4, warmup_steps=20, decay_steps=100)
+
+
+def sharded_layout(device) -> str:
+    """Where phase 14's ranks put their shards."""
+    import torch
+    ranks = MESH_DATA * MESH_MODEL
+    if torch.device(device).type != "cuda":
+        return f"{ranks} threaded ranks on the CPU"
+    if torch.cuda.device_count() >= ranks:
+        return f"{ranks} threaded ranks, rank r on cuda:r"
+    return f"{ranks} threaded ranks, every rank's shards on cuda:0"
+
+
+COLLECTIVES = ("all_gather_into_tensor", "all_reduce",
+               "reduce_scatter_tensor", "all_to_all_single",
+               "shard_dim_alltoall", "broadcast")
+
+
+class CommBytes:
+    """``CommDebugMode`` plus the bytes of each collective's input."""
+
+    def __new__(cls):
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        class Mode(CommDebugMode):
+            def __init__(self):
+                super().__init__()
+                self.nbytes = {}
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                import torch
+                name = func.__name__.split(".")[0]
+                if name in COLLECTIVES:
+                    n = sum(t.numel() * t.element_size()
+                            for t in args if isinstance(t, torch.Tensor))
+                    self.nbytes[name] = self.nbytes.get(name, 0) + n
+                return super().__torch_dispatch__(func, types, args,
+                                                  kwargs)
+        return Mode()
+
+
+def sharded_leaf_counts(lm) -> dict:
+    """How many parameter leaves shard over data only, model only, both,
+    or neither."""
+    from repro_torch.models.spec import leaves
+    out = {"data": 0, "model": 0, "both": 0, "neither": 0}
+    for _, t in leaves(lm.params):
+        d, m = (not p.is_replicate() for p in t.placements)
+        out["both" if d and m else "data" if d else "model" if m
+            else "neither"] += 1
+    return out
+
+
+def sharded_steps(init, cfg, n_steps, want, *, device, sync):
+    """``n_steps`` train steps of ``cfg`` on the mesh, from the one-device
+    weights ``init`` (a ``CausalLM``), each rank a thread: per rank,
+    (loss, grad norm, ms) a step, the collectives of the first step, the
+    leaf counts; rank 0 also returns each leaf's relative L2 error after
+    the last step (gathered whole) against ``want``'s (one device's)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import activation_sharding
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models.spec import leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rsteps
+    kind = torch.device(device).type
+    rules = sharding.RULE_PROFILES[cfg.sharding_profile]
+
+    def rank(r):
+        mesh = lmesh.make_debug_mesh(MESH_DATA, MESH_MODEL,
+                                     device_type=kind)
+        lm = convert.shard_params(init, mesh, rules)
+        st = adamw.init(lm)
+        step = rsteps.make_train_step(cfg, sharded_opt())
+        hist, comm = [], None
+        with activation_sharding(mesh, rules):
+            for i in range(n_steps):
+                batch = train_batch(cfg, SHARDED_B, SHARDED_S, i, "cpu")
+                mode = CommBytes() if i == 0 and r == 0 else None
+                sync()
+                t = time.perf_counter()
+                if mode is not None:
+                    with mode:
+                        lm, st, m = step(lm, st, batch)
+                    comm = {"counts": {str(k).split(".")[-1]: v for k, v in
+                                       mode.get_comm_counts().items()},
+                            "bytes": mode.nbytes}
+                else:
+                    lm, st, m = step(lm, st, batch)
+                sync()
+                hist.append((m["loss"].item(), m["grad_norm"].item(),
+                             1e3 * (time.perf_counter() - t)))
+        out = {"hist": hist, "comm": comm,
+               "leaves": sharded_leaf_counts(lm),
+               "devices": sorted({str(t.to_local().device)
+                                  for _, t in leaves(lm.params)})}
+        errs = {}
+        with torch.no_grad():
+            for path, t in leaves(lm.params):
+                whole = t.full_tensor()
+                if r == 0:
+                    w = want[path]
+                    errs[path] = float(torch.linalg.norm(whole.to(w.device)
+                                                         - w)
+                                       / torch.linalg.norm(w))
+                del whole
+        out["leaf_errs"] = errs
+        del lm, st
+        return out
+    return lmesh.run_threaded(MESH_DATA * MESH_MODEL, rank)
+
+
+def sharded_hold(label, ranks, want_hist) -> dict:
+    """Every rank's losses and norms against the one-device run's, rank
+    0's leaf errors; the worst of each."""
+    worst = {"loss": 0.0, "norm": 0.0}
+    for res in ranks:
+        for (gl, gn, _), (wl, wn) in zip(res["hist"], want_hist):
+            worst["loss"] = max(worst["loss"], abs(gl - wl) / abs(wl))
+            worst["norm"] = max(worst["norm"], abs(gn - wn) / abs(wn))
+    check(worst["loss"] < TRAIN_LOSS_RTOL, f"(z1) {label} losses "
+          f"{[r['hist'] for r in ranks]} vs {want_hist}")
+    check(worst["norm"] < SHARDED_NORM_RTOL, f"(z1) {label} gradient "
+          f"norms {[r['hist'] for r in ranks]} vs {want_hist}")
+    leaf = max(ranks[0]["leaf_errs"].items(), key=lambda kv: kv[1])
+    check(leaf[1] < TRAIN_LEAF_RTOL, f"(z1) {label} worst leaf {leaf}")
+    worst["leaf"] = leaf
+    return worst
+
+
+def lm_sharding_phase(*, device="cuda", smoke=False,
+                      profiles=("2d", "fsdp")) -> dict:
+    """Phase 14: (z1) llama3.2-1b's train steps on the (data, model) mesh
+    under the rule ``profiles`` against the one-device steps, (z2) a
+    mesh-less checkpoint restored onto the mesh.  ``smoke`` runs the
+    smoke config (a CPU rehearsal with ``device="cpu"``)."""
+    import torch
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    layout = sharded_layout(device)
+    info = {"layout": layout, "z1": sharded_z1(
+        device=device, sync=sync, smoke=smoke, layout=layout,
+        profiles=profiles)}
+    train_free(cuda)
+    info["z2"] = sharded_z2(device=device, smoke=smoke)
+    train_free(cuda)
+    info["wall_s"] = time.perf_counter() - t_phase
+    check(smoke or info["wall_s"] < SHARDED_LIMIT_S,
+          f"phase 14 within {SHARDED_LIMIT_S} s: {info['wall_s']:.1f} s")
+    return info
+
+
+def sharded_z1(*, device, sync, smoke, layout, profiles) -> dict:
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lmm
+    from repro_torch.models.spec import leaves, map_tree
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rsteps
+    cuda = torch.device(device).type == "cuda"
+    cfg = get_config(LM_ARCH, smoke=smoke)
+    fsdp = get_config(LM_ARCH, smoke=smoke, optimized=True)
+    if smoke:       # the registry's overrides apply at full width only
+        fsdp = dataclasses.replace(fsdp, sharding_profile="fsdp")
+    check(cfg.sharding_profile == "2d" and fsdp.sharding_profile == "fsdp",
+          "(z1) the default config shards 2d, the optimized one fsdp")
+    # One device: the same weights and batches; copies (on the device)
+    # of the weights before the first step and after the first and the
+    # last.
+    lm = lmm.init_params(cfg, SEED, device, trainable=True)
+    with torch.no_grad():
+        init = lmm.CausalLM(cfg, map_tree(torch.clone, lm.params),
+                            trainable=True)
+    step = rsteps.make_train_step(cfg, sharded_opt())
+    st = adamw.init(lm)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    one, after = [], {}
+    for i in range(SHARDED_STEPS):
+        batch = train_batch(cfg, SHARDED_B, SHARDED_S, i, device)
+        sync()
+        t = time.perf_counter()
+        lm, st, m = step(lm, st, batch)
+        sync()
+        one.append((m["loss"].item(), m["grad_norm"].item(),
+                    1e3 * (time.perf_counter() - t)))
+        if i + 1 in (SHARDED_FSDP_STEPS, SHARDED_STEPS):
+            after[i + 1] = {p: t.detach().clone()
+                            for p, t in leaves(lm.params)}
+    one_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    del lm, st, m
+    train_free(cuda)
+    out = {"n_params": cfg.n_params(), "one_device": {
+        "hist": one, "ms_step": statistics.median(h[2] for h in one[1:]),
+        "peak_gb": one_peak / 1e9}}
+    for label, c, n in (("2d", cfg, SHARDED_STEPS),
+                        ("fsdp", fsdp, SHARDED_FSDP_STEPS)):
+        if label not in profiles:
+            continue
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        t = time.perf_counter()
+        ranks = sharded_steps(init, c, n, after[n], device=device,
+                              sync=sync)
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        worst = sharded_hold(label, ranks, [h[:2] for h in one[:n]])
+        ms = [h[2] for h in ranks[0]["hist"]]
+        res = {"steps": n, "hist": [r["hist"] for r in ranks],
+               "ms_first": ms[0],
+               "ms_step": statistics.median(ms[1:]) if n > 1 else None,
+               "ms_step_ranks_max": (max(statistics.median(
+                   h[2] for h in r["hist"][1:]) for r in ranks)
+                   if n > 1 else None),
+               "comm": ranks[0]["comm"], "leaves": ranks[0]["leaves"],
+               "devices": sorted({d for r in ranks for d in r["devices"]}),
+               "peak_gb": (peak - base) / 1e9, "kept_gb": base / 1e9,
+               "wall_s": wall,
+               "worst_loss": worst["loss"], "worst_norm": worst["norm"],
+               "worst_leaf": worst["leaf"]}
+        del ranks
+        train_free(cuda)
+        out[label] = res
+        comm = res["comm"] or {"counts": {}, "bytes": {}}
+        steady = (f"{res['ms_step']:.1f} ms a step (median after 1 "
+                  f"warm-up; slowest rank {res['ms_step_ranks_max']:.1f})"
+                  if n > 1 else f"{res['ms_first']:.1f} ms (its first "
+                  "step, with DTensor's sharding propagation)")
+        print(f"  (z1) {c.name} {label} on the {MESH_DATA}x{MESH_MODEL} "
+              f"(data, model) mesh, {layout}, batch {SHARDED_B} x seq "
+              f"{SHARDED_S}: losses "
+              + ", ".join(f"{h[0]:.6f}" for h in res["hist"][0])
+              + " vs one device "
+              + ", ".join(f"{h[0]:.6f}" for h in one[:n])
+              + f" (worst relative {res['worst_loss']:.2e}; grad norm "
+              f"{res['worst_norm']:.2e}); worst leaf {res['worst_leaf'][0]}"
+              f" {res['worst_leaf'][1]:.2e} (relative L2); leaves sharded "
+              f"over data only {res['leaves']['data']}, model only "
+              f"{res['leaves']['model']}, both {res['leaves']['both']}, "
+              f"neither {res['leaves']['neither']}; {steady}, first step "
+              f"{res['ms_first']:.1f} ms, one device "
+              f"{out['one_device']['ms_step']:.1f} ms; collectives a "
+              "step: " + ", ".join(
+                  f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.1f} MB)"
+                  for k, v in sorted(comm["counts"].items()))
+              + f"; peak {res['peak_gb']:.2f} GB on the card (every "
+              f"rank's, above the {res['kept_gb']:.2f} GB of one-device "
+              f"copies kept for the comparison), one device "
+              f"{out['one_device']['peak_gb']:.2f} GB;"
+              f" {wall:.1f} s; card: {Phase.card}")
+    return out
+
+
+def sharded_z2(*, device, smoke) -> dict:
+    """(z2) a mesh-less checkpoint of llama3.2-1b at full width and
+    SHARDED_CKPT_LAYERS layers restored onto the mesh with
+    ``shardings=``: every rank's local block of every leaf equals its
+    slice of the saved array, bit for bit.  The directory is removed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import model as lmm
+    from repro_torch.models.spec import leaves
+    cfg = dataclasses.replace(get_config(LM_ARCH, smoke=smoke),
+                              n_layers=SHARDED_CKPT_LAYERS)
+    like = lmm.init_params(cfg, SEED, "cpu")
+    d = ROOT / "build" / "sharded_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    kind = torch.device(device).type
+    t = time.perf_counter()
+    try:
+        CheckpointManager(d, async_write=False).save(0, like, blocking=True)
+        rules = sharding.RULE_PROFILES[cfg.sharding_profile]
+
+        def rank(r):
+            mesh = lmesh.make_debug_mesh(MESH_DATA, MESH_MODEL,
+                                         device_type=kind)
+            placed = sharding.shardings_for(lmm.param_axes(cfg),
+                                            lmm.abstract_params(cfg), mesh,
+                                            rules)
+            got, step = CheckpointManager(d).restore(like, shardings=placed)
+            manifest = json.loads((d / "step_000000000" /
+                                   "manifest.json").read_text())["arrays"]
+            by_path = dict(leaves(placed))
+            n_equal = n_leaves = 0
+            for path, t_ in leaves(got.params):
+                saved = np.load(d / "step_000000000"
+                                / manifest[path]["file"], mmap_mode="r")
+                block = saved[sharding.local_slices(saved.shape,
+                                                    by_path[path])]
+                local = t_.to_local()
+                n_leaves += 1
+                n_equal += (local.device.type == kind and torch.equal(
+                    local.cpu(), torch.from_numpy(np.array(block))))
+            return step, n_leaves, n_equal
+        ranks = lmesh.run_threaded(MESH_DATA * MESH_MODEL, rank)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for step, n_leaves, n_equal in ranks:
+        check(step == 0 and n_equal == n_leaves, f"(z2) rank blocks equal "
+              f"the saved slices: {ranks}")
+    out = {"leaves": ranks[0][1], "ranks": len(ranks),
+           "bytes": sum(t_.numel() * t_.element_size()
+                        for _, t_ in leaves(like.params)),
+           "wall_s": time.perf_counter() - t}
+    print(f"  (z2) {cfg.name} at {cfg.n_layers} layers "
+          f"({out['bytes'] / 1e9:.2f} GB): a mesh-less checkpoint restored "
+          f"onto the mesh with shardings=: every rank's block of each of "
+          f"{out['leaves']} leaves equal to its slice of the saved array; "
+          f"{out['wall_s']:.1f} s; card: {Phase.card}")
+    return out
+
+
 SHARD_FIELDS = ("scores", "best_locs", "best_scores", "topk_rows",
                 "topk_scores", "hits", "survivor_rows")
 
@@ -4145,7 +4509,14 @@ def main() -> int:
         del sharded
         print("procs " + json.dumps(procs_info))
 
-    # -- 14. summary ---------------------------------------------------------
+    # -- 14. the LM's sharding ------------------------------------------------
+    with Phase(f"phase 14: the LM's sharding on the card: {LM_ARCH} on a "
+               f"{MESH_DATA}x{MESH_MODEL} (data, model) mesh, both rule "
+               "profiles, restore onto the mesh"):
+        sharding_info = lm_sharding_phase()
+        print("lm_sharding " + json.dumps(sharding_info))
+
+    # -- 15. summary ---------------------------------------------------------
     # Each kernel's launches come from its own path's run; match_swar's
     # path is (e)-(f)'s verify and phase 10's speculators.  Phases 12 and
     # 13's launches of the same kernels on the sharded paths stand beside

@@ -21,8 +21,14 @@ async, auto-resuming, on the reference's on-disk layout.
 
 ``restore`` places each leaf on the device of ``like``'s leaf; a leaf
 of ``like`` that is not a tensor goes to ``device`` (``None``: the
-card, raising without one).  The reference's ``shardings=`` waits for
-the port's sharding (ROADMAP item 14).
+card, raising without one).  With ``shardings`` (a tree of
+``distributed.sharding.NamedSharding``s matching ``like``) every leaf
+comes back as a DTensor with those placements on any mesh, whatever mesh
+(or none) wrote it: each rank reads only its own block of the file
+(``np.load(mmap_mode="r")``).  ``save`` of a tree of DTensors gathers
+each leaf whole and writes on rank 0 alone, so a sharded run's
+checkpoint restores with or without a mesh; a blocking save returns on
+every rank once the checkpoint is on disk.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as _sharding
+from repro_torch.distributed.context import is_dtensor
 from repro_torch.models.model import CausalLM
 
 BF16 = "bfloat16"
@@ -85,6 +93,8 @@ def _rebuild(like, flat: Dict[str, Any], prefix: str = ""):
 def _to_host(x) -> Tuple[np.ndarray, str]:
     """(a numpy copy of ``x``, its dtype's name); bf16 as its bits."""
     if isinstance(x, torch.Tensor):
+        if is_dtensor(x):
+            x = x.full_tensor()
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), BF16
@@ -94,12 +104,22 @@ def _to_host(x) -> Tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _from_file(path: pathlib.Path, dtype: str) -> torch.Tensor:
-    a = np.load(path)
+def _from_file(path: pathlib.Path, dtype: str,
+               sharding=None) -> torch.Tensor:
+    """The saved array, or with ``sharding`` a DTensor whose local shard
+    is this rank's block of it (only that block is read)."""
+    if sharding is None:
+        return _to_tensor(np.load(path), dtype)
+    a = np.load(path, mmap_mode="r")
+    block = _to_tensor(a[_sharding.local_slices(a.shape, sharding)], dtype)
+    return _sharding.from_block(block, a.shape, sharding)
+
+
+def _to_tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
     if dtype == BF16:
         bits = np.ascontiguousarray(a).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16)
-    return torch.from_numpy(a)
+    return torch.from_numpy(np.array(a))
 
 
 class CheckpointManager:
@@ -115,18 +135,26 @@ class CheckpointManager:
 
     # -- write --------------------------------------------------------------
     def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
-        """Snapshot now; write in the background unless blocking."""
+        """Snapshot now; write in the background unless blocking.  A
+        tree with DTensor leaves is gathered on every rank (each rank
+        calls this) and written by rank 0."""
         t0 = time.perf_counter()
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        flat = _flatten(tree)
+        sharded = any(is_dtensor(v) for v in flat.values())
+        host = {k: _to_host(v) for k, v in flat.items()}
         snapshot_s = time.perf_counter() - t0
         self.wait()
         self.last_save = {"snapshot_s": snapshot_s}
-        if self.async_write and not blocking:
+        if sharded and torch.distributed.get_rank() != 0:
+            pass                    # rank 0 writes
+        elif self.async_write and not blocking:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host), daemon=True)
             self._thread.start()
         else:
             self._write(step, host)
+        if sharded and blocking:
+            torch.distributed.barrier()
 
     def _write(self, step: int, host: Dict[str, Tuple[np.ndarray, str]]
                ) -> None:
@@ -178,12 +206,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device: DeviceLike = None) -> Tuple[Any, int]:
+                device: DeviceLike = None,
+                shardings: Any = None) -> Tuple[Any, int]:
         """Restore into the structure of ``like`` (a ``CausalLM`` comes
         back as a new one, as trainable as ``like``).  Each leaf keeps the
         dtype it was saved with and goes to the device of ``like``'s leaf,
-        or to ``device`` where ``like``'s leaf is not a tensor.  Returns
-        (tree, step)."""
+        or to ``device`` where ``like``'s leaf is not a tensor; with
+        ``shardings`` (a matching tree of ``NamedSharding``s) it comes
+        back as a DTensor placed by its sharding.  Returns (tree,
+        step)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -192,11 +223,17 @@ class CheckpointManager:
         with open(d / "manifest.json") as f:
             manifest = json.load(f)["arrays"]
         flat_like = _flatten(like)
+        flat_sh = _flatten(shardings) if shardings is not None else {}
         dev = None
         loaded = {}
         for key, leaf in flat_like.items():
             if key not in manifest:
                 raise KeyError(f"checkpoint missing array {key}")
+            if shardings is not None:
+                loaded[key] = _from_file(d / manifest[key]["file"],
+                                         manifest[key]["dtype"],
+                                         flat_sh[key])
+                continue
             if isinstance(leaf, torch.Tensor):
                 target = leaf.device
             else:

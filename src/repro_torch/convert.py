@@ -27,10 +27,15 @@ the reference holds, and these functions build the port's equivalent on
 * ``opt_state_from_numpy`` -- the reference's AdamW state (``{"m", "v",
   "step"}``, numpy leaves) as the port's: ``m`` and ``v`` f32, checked
   against the parameters' paths and shapes, ``step`` a 0-d int32 tensor.
+* ``shard_params`` -- a one-device ``CausalLM`` (from ``init_params`` or
+  ``params_from_numpy``) onto a named mesh: every leaf a DTensor placed
+  by ``shardings_for(param_axes, abstract_params, mesh, rules)``, the
+  config's rule profile by default; each rank copies only its own block.
 * ``to_numpy`` -- the other way: a port tree (a ``CausalLM``, a tree of
   tensors such as gradients or the AdamW state) as nested dicts of numpy
   arrays (copies), bf16 leaves widened to f32 (exact), so a test holds them
-  against the reference's ``jax.tree.map(np.asarray, ...)``.
+  against the reference's ``jax.tree.map(np.asarray, ...)``; a DTensor
+  leaf is gathered whole first (a collective: every rank calls it).
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as _sharding
+from repro_torch.distributed.context import is_dtensor
 from repro_torch.match.corpus import PackedCorpus
 from repro_torch.models import model as _model
 from repro_torch.models import ssm as _ssm
@@ -185,6 +192,24 @@ def to_numpy(tree) -> Any:
     """A port tree as nested dicts of numpy arrays (bf16 widened to
     f32)."""
     def leaf(t):
+        if is_dtensor(t):
+            t = t.full_tensor()
         t = t.detach().to("cpu", copy=True)      # apart from the tensor
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return map_tree(leaf, _model.param_tree(tree))
+
+
+def shard_params(lm: "_model.CausalLM", mesh,
+                 rules=None) -> "_model.CausalLM":
+    """``lm``'s parameters as DTensors on ``mesh`` (a new ``CausalLM``, as
+    trainable as ``lm``), placed by the config's rule profile unless
+    ``rules`` names a table.  Every rank calls it with the same weights."""
+    cfg = lm.cfg
+    if rules is None:
+        rules = _sharding.RULE_PROFILES[cfg.sharding_profile]
+    placed = _sharding.shardings_for(_model.param_axes(cfg),
+                                     _model.abstract_params(cfg), mesh,
+                                     rules)
+    tree = map_tree(_sharding.distribute, _model.param_tree(lm), placed)
+    trainable = any(p.requires_grad for p in lm.parameters())
+    return _model.CausalLM(cfg, tree, trainable=trainable)

@@ -1,7 +1,20 @@
-"""Row meshes for sharded match engines (port of ``repro.launch.mesh``'s
-``make_row_mesh``).
+"""Meshes (port of ``repro.launch.mesh``): the LM's named
+``(data, model)`` / ``(pod, data, model)`` meshes, and row meshes for
+sharded match engines.
 
-A mesh here is the list of row shards under the single axis ``data``
+``make_production_mesh`` and ``make_debug_mesh`` build a named
+``torch.distributed`` ``DeviceMesh`` over the initialised process group
+(one rank a device of the reference's mesh, ranks in row-major order as
+``jax.make_mesh`` lays out devices); the LM's parameters, batches and
+activations are placed on it as DTensors
+(``repro_torch.distributed.sharding``, ``convert.shard_params``).  The
+device type is ``cuda`` unless the caller names ``"cpu"``.
+``run_threaded`` runs a function on each rank of a ``"threaded"`` process
+group: ranks that are threads of one process, whose collectives are
+device copies, so a 2x2 mesh fits on one card (every rank's shards on
+``cuda:0``) or a card a rank where there are enough.
+
+A row mesh is the list of row shards under the single axis ``data``
 (the ``rows`` rule's axis), one ``torch.device`` a shard.  In one
 process every shard is local: each shard's corpus forms are tensors on
 its own device, the engine launches the kernels shard by shard and
@@ -23,8 +36,10 @@ sharding and are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import math
 import socket
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -87,7 +102,7 @@ class RowMesh:
         """This rank's first shard's device: where its shards join."""
         return self.devices[self.local_shards[0]]
 
-    # -- collectives over the group ---------------------------------------------
+    # -- collectives over the group -------------------------------------------
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
         """Where the group's collectives take ``t``: the host under gloo,
         its device under NCCL."""
@@ -203,3 +218,102 @@ def make_row_mesh(n_shards: int,
     return RowMesh(devices=tuple(all_devs),
                    homes=tuple(h for hs in homes for h in hs),
                    rank=rank, world=world, backend=backend)
+
+
+# -- the LM's meshes ----------------------------------------------------------
+
+def _named_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+                device_type: str, hint: str):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the first
+    prod(shape) ranks of the initialised process group."""
+    from torch.distributed.device_mesh import DeviceMesh
+    n = math.prod(shape)
+    have = (torch.distributed.get_world_size()
+            if torch.distributed.is_initialized() else 1)
+    if have < n:
+        raise RuntimeError(f"need {n} devices for mesh {shape}, have {have}"
+                           f" -- {hint}")
+    if device_type == "cuda" and torch.cuda.is_available():
+        # Rank r on card r % cards: every rank on cuda:0 with one card.
+        rank = torch.distributed.get_rank()
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """16x16 ``(data, model)`` for one pod; 2x16x16 ``(pod, data, model)``
+    for two pods, over the first prod(shape) ranks of the process group
+    (raises with fewer)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _named_mesh(shape, axes, device_type,
+                       "initialise a process group of that many ranks "
+                       "(a 'fake' group builds it without devices)")
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 2,
+                    multi_pod: bool = False, device_type: str = "cuda"):
+    """A small mesh for sharding tests: ``(n_data, n_model)``, or
+    ``(2, n_data, n_model)`` with a pod axis."""
+    shape = (2, n_data, n_model) if multi_pod else (n_data, n_model)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _named_mesh(shape, axes, device_type,
+                       "initialise a process group of that many ranks "
+                       "(run_threaded gives one in threads)")
+
+
+def run_threaded(world_size: int, fn: Callable[[int], Any],
+                 timeout: float = 600.0) -> List[Any]:
+    """``fn(rank)`` on each rank of a ``"threaded"`` process group of
+    ``world_size`` ranks (threads of this process); returns the results
+    in rank order.  The first rank's exception is raised after every
+    thread has stopped (a failing rank wakes the others' collectives)."""
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+    c10d = torch.distributed
+    results: List[Any] = [None] * world_size
+    errors: List[Optional[BaseException]] = [None] * world_size
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    world = mt._install_threaded_pg()
+    if not hasattr(world, "comms"):
+        # Some torch releases' thread-local world lacks the list that
+        # ``destroy_process_group`` empties; it never holds anything here.
+        world.comms = []
+    store = c10d.HashStore()
+    failing = threading.Lock()
+
+    def worker(rank: int) -> None:
+        c10d.init_process_group("threaded", rank=rank,
+                                world_size=world_size, store=store)
+        try:
+            results[rank] = fn(rank)
+        except BaseException as e:       # re-raised on the caller's thread
+            errors[rank] = e
+            with failing:       # wake the ranks waiting in a collective
+                try:
+                    mt.ProcessLocalGroup.exception_handle(e)
+                except RuntimeError:    # a collective started meanwhile
+                    pass
+        finally:
+            if c10d.distributed_c10d._world is world:
+                c10d.destroy_process_group()
+
+    threads = [threading.Thread(target=worker, args=(r,), daemon=True)
+               for r in range(world_size)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout)
+        if any(t.is_alive() for t in threads):
+            raise TimeoutError(f"threaded ranks still running after "
+                               f"{timeout} s")
+    finally:
+        mt.ProcessLocalGroup.reset()
+        mt._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    for e in errors:
+        if e is not None:
+            raise e
+    return results

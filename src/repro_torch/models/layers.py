@@ -35,6 +35,14 @@ valid in decode), and the MoE's top-k routing with per-group capacity
 (``moe_route``).  Without ``xa`` a cross-attention layer runs the
 reference's other branch: causal self-attention over its own cross cache
 (the reference's serving path, which never passes an encoder output).
+
+On a mesh (DTensor parameters and activations) a weight is gathered
+over the mesh dims that shard the batch at each use and keeps its other
+shards (``weight``), the attention core runs on each rank's batch rows
+and heads (``_on_shards``), and the MoE, SSD and RG-LRU blocks run on
+each rank's batch rows with whole weights (``moe_apply``,
+``on_batch_rows``): the same per-row arithmetic as one device's, with
+the collectives at the edges.
 """
 
 from __future__ import annotations
@@ -43,6 +51,9 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed.context import is_dtensor
+from repro_torch.distributed.sharding import from_local
 
 from .config import ModelConfig
 from .spec import P
@@ -60,6 +71,22 @@ def norm_specs(cfg: ModelConfig) -> Dict[str, P]:
         return {"scale": P((cfg.d_model,), ("embed",), "ones")}
     return {"scale": P((cfg.d_model,), ("embed",), "ones"),
             "bias": P((cfg.d_model,), ("embed",), "zeros")}
+
+
+def weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A weight cast to ``x``'s dtype for its use on ``x``.  On a mesh it
+    is gathered over the mesh dims that shard ``x``'s batch (FSDP's
+    gather before use) and keeps its other shards (tensor parallelism),
+    so the product with ``x`` needs no other collective on its way in."""
+    w = w.to(x.dtype)
+    if not (is_dtensor(w) and is_dtensor(x)):
+        return w
+    from torch.distributed.tensor import Replicate
+    placements = [Replicate() if xp.is_shard(0) else wp
+                  for wp, xp in zip(w.placements, x.placements)]
+    if placements == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, placements)
 
 
 def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -168,6 +195,31 @@ def _online_softmax_scan(q, k, v, *, q_offset, block_kv: int,
         m = new_m
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def _on_shards(core, q, k, v, **kw):
+    """``core(q, k, v, **kw)`` (an attention core); on a mesh each rank
+    runs it on its own batch rows and heads.  The batch dim keeps its
+    shards, the heads dim keeps them where the KV heads divide over them
+    (a query head's KV head is on the same rank), every other mesh dim
+    replicates; the output is placed as the inputs were brought."""
+    if not is_dtensor(q):
+        return core(q, k, v, **kw)
+    from torch.distributed.tensor import Replicate
+    mesh = q.device_mesh
+    K = k.shape[1]
+    placements, split = [], 1
+    for p, n in zip(q.placements, mesh.shape):
+        if p.is_shard(0):
+            placements.append(p)
+        elif p.is_shard(1) and K % (split * n) == 0:
+            placements.append(p)
+            split *= n
+        else:
+            placements.append(Replicate())
+    q, k, v = (t.redistribute(mesh, placements) for t in (q, k, v))
+    out = core(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return from_local(out, mesh, placements, q.shape)
 
 
 def _local_block_attention(q, k, v, *, window: int):
@@ -279,17 +331,17 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     """
     B = x.shape[0]
     H, K, hd = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim
-    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
+    q = torch.einsum("bsd,dhk->bhsk", x, weight(p["wq"], x))
     if "bq" in p:
-        q = q + p["bq"].to(x.dtype)[None, :, None, :]
+        q = q + weight(p["bq"], x)[None, :, None, :]
     k = v = None      # cross-attention decode reads the cached enc K/V
     if mode != "decode" or xa is None:
         kv_src = x if xa is None else xa
-        k = torch.einsum("bsd,dhk->bhsk", kv_src, p["wk"].to(x.dtype))
-        v = torch.einsum("bsd,dhk->bhsk", kv_src, p["wv"].to(x.dtype))
+        k = torch.einsum("bsd,dhk->bhsk", kv_src, weight(p["wk"], x))
+        v = torch.einsum("bsd,dhk->bhsk", kv_src, weight(p["wv"], x))
         if "bk" in p:
-            k = k + p["bk"].to(x.dtype)[None, :, None, :]
-            v = v + p["bv"].to(x.dtype)[None, :, None, :]
+            k = k + weight(p["bk"], x)[None, :, None, :]
+            v = v + weight(p["bv"], x)[None, :, None, :]
     if cfg.rope_theta > 0 and xa is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -328,8 +380,8 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
                         and xa is None)
         if xa is not None or bidir:
             # Every query sees every key of k, v (not of the cache).
-            out = _online_softmax_scan(
-                q, k, v, q_offset=0, bidir=True,
+            out = _on_shards(
+                _online_softmax_scan, q, k, v, q_offset=0, bidir=True,
                 block_kv=_pick_block(k.shape[2], cfg.attn_block_kv))
         elif continuation:
             if cfg.kv_quant:
@@ -339,15 +391,16 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
                       * cache["v_scale"][..., None].to(COMPUTE_DTYPE))
             else:
                 kk, vv = cache["k"], cache["v"]
-            out = _online_softmax_scan(
-                q, kk.to(q.dtype), vv.to(q.dtype), q_offset=offset,
+            out = _on_shards(
+                _online_softmax_scan, q, kk.to(q.dtype), vv.to(q.dtype),
+                q_offset=offset,
                 window=window,
                 block_kv=_pick_block(kk.shape[2], cfg.attn_block_kv))
         elif local and k.shape[2] % window == 0:
-            out = _local_block_attention(q, k, v, window=window)
+            out = _on_shards(_local_block_attention, q, k, v, window=window)
         else:
-            out = _online_softmax_scan(
-                q, k, v, q_offset=0, window=window,
+            out = _on_shards(
+                _online_softmax_scan, q, k, v, q_offset=0, window=window,
                 block_kv=_pick_block(k.shape[2], cfg.attn_block_kv))
     elif mode == "decode":
         assert cache is not None
@@ -376,7 +429,7 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     else:
         raise ValueError(mode)
 
-    y = torch.einsum("bhsk,hkd->bsd", out.to(x.dtype), p["wo"].to(x.dtype))
+    y = torch.einsum("bhsk,hkd->bsd", out.to(x.dtype), weight(p["wo"], x))
     return y, cache
 
 
@@ -448,12 +501,12 @@ def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     ``jax.nn.silu`` is x * logistic(x) and GELU is ``jax.nn.gelu``'s tanh
     form (its default), so bf16 rounds where the reference's does."""
     if cfg.act == "silu":
-        h = x @ p["wg"].to(x.dtype)
+        h = x @ weight(p["wg"], x)
         g = h * _logistic(h)
-        u = x @ p["wu"].to(x.dtype)
-        return (g * u) @ p["wd"].to(x.dtype)
-    h = _gelu_tanh(x @ p["wi"].to(x.dtype) + p["bi"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype) + p["bo"].to(x.dtype)
+        u = x @ weight(p["wu"], x)
+        return (g * u) @ weight(p["wd"], x)
+    h = _gelu_tanh(x @ weight(p["wi"], x) + weight(p["bi"], x))
+    return h @ weight(p["wo"], x) + weight(p["bo"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -516,14 +569,47 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
     expert's buffer slot and gathers each token's k expert outputs back,
     summed under its gate weights: the same sums, since each buffer slot
     holds at most one token.  Every expert runs on its whole buffer,
-    empty slots too, as the reference's do."""
+    empty slots too, as the reference's do.
+
+    On a mesh each rank routes its own batch rows through whole expert
+    weights (the groups are runs of tokens, so a rank whose rows hold
+    whole groups routes them as one device does; otherwise every rank
+    takes the whole batch), and the load-balance statistics are averaged
+    over the ranks' groups before the aux loss is formed."""
     B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
     T = B * S
     Sg = min(cfg.moe_group_size, T)
-    G = T // Sg
-    if G * Sg != T:
+    if T % Sg:
         raise AssertionError("tokens must divide the MoE group size")
+    if not is_dtensor(x):
+        out, f_e, p_e = _moe_core(cfg, p, x, Sg)
+        return out, cfg.n_experts * torch.sum(f_e * p_e)
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    placements = [xp if xp.is_shard(0) else Replicate()
+                  for xp in x.placements]
+    split = math.prod(n for pl, n in zip(placements, mesh.shape)
+                      if pl.is_shard(0))
+    if B % split or (T // split) % Sg:
+        placements, split = [Replicate()] * mesh.ndim, 1
+    out, f_e, p_e = _moe_core(cfg, _whole_leaves(p, placements),
+                              x.redistribute(mesh, placements).to_local(),
+                              Sg)
+    out = from_local(out, mesh, placements, x.shape)
+    # Each rank's means over its groups, one row a batch shard: their mean
+    # is the mean over every group.
+    f_e, p_e = (from_local(t[None], mesh, placements,
+                            (split, cfg.n_experts)).mean(0)
+                for t in (f_e, p_e))
+    return out, cfg.n_experts * torch.sum(f_e * p_e)
+
+
+def _moe_core(cfg: ModelConfig, p, x: torch.Tensor, Sg: int):
+    """(out, f_e, p_e): the MoE over x's tokens in groups of ``Sg``, with
+    the top-1 share ``f_e`` and mean gate ``p_e`` of each expert."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    G = B * S // Sg
     xt = x.reshape(G, Sg, d)
     logits = torch.einsum("gsd,de->gse", xt, p["router"].to(x.dtype))
     gates = torch.softmax(logits.float(), -1)
@@ -548,5 +634,40 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
     f_e = (r.idx[..., 0, None] == torch.arange(E, device=x.device)
            ).float().mean((0, 1))
     p_e = gates.mean((0, 1))
-    aux = E * torch.sum(f_e * p_e)
-    return out.reshape(B, S, d), aux
+    return out.reshape(B, S, d), f_e, p_e
+
+
+# ---------------------------------------------------------------------------
+# Blocks run on each rank's batch rows
+# ---------------------------------------------------------------------------
+
+def _whole_leaves(p, rows):
+    """A parameter tree with every DTensor leaf gathered whole, as plain
+    tensors for a computation on this rank's batch rows (``rows``: the
+    placements of those rows).  Each rank's gradient of a leaf covers its
+    own rows, so it is a partial sum over the mesh dims that split the
+    batch, reduced on its way back to the shards."""
+    if hasattr(p, "keys"):
+        return {k: _whole_leaves(p[k], rows) for k in p.keys()}
+    if not is_dtensor(p):
+        return p
+    from torch.distributed.tensor import Partial, Replicate
+    whole = p.redistribute(p.device_mesh, [Replicate()] * len(rows))
+    return whole.to_local(grad_placements=[
+        Partial() if r.is_shard(0) else Replicate() for r in rows])
+
+
+def on_batch_rows(fn, p, x: torch.Tensor) -> torch.Tensor:
+    """``fn(p, x)`` -> y of x's shape, each row of y from the same row of
+    x (a recurrent or SSD block over its sequence).  On a mesh each rank
+    runs ``fn`` on its own batch rows with the weights whole, and y is
+    placed as those rows are."""
+    if not is_dtensor(x):
+        return fn(p, x)
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    placements = [xp if xp.is_shard(0) else Replicate()
+                  for xp in x.placements]
+    y = fn(_whole_leaves(p, placements),
+           x.redistribute(mesh, placements).to_local())
+    return from_local(y, mesh, placements, x.shape)

@@ -24,8 +24,21 @@ build an autograd graph when the parameters take gradients
 ``torch.no_grad()``.  Where the reference wraps its scanned units in
 ``jax.checkpoint`` (``cfg.remat``, a cacheless full-mode call), the port
 wraps each unit in ``torch.utils.checkpoint`` when it records a graph:
-memory, not values.  The reference's ``constrain`` sharding hints are
-no-ops on one device and are left out (item 14).
+memory, not values.
+
+Under a mesh the parameters are DTensors (``convert.shard_params``) and
+the training entry points (``forward``, ``encode``, ``loss_fn``) run the
+same code.  The reference's three ``constrain`` hints (after each unit's
+block, after the embedding, on the logits) redistribute the activations
+where ``distributed.context.activation_sharding`` installed a mesh.
+Tensors the model builds at the global shapes a DTensor reports
+(positions, RoPE tables, the loss's vocab ids) are taken as replicated
+(``replicating``: DTensor's implicit replication, entered only when a
+parameter is a DTensor).  The embedding lookup takes whole rows of the
+table, and ``loss_fn`` takes the gold logit through a one-hot select,
+which is right on vocab-sharded logits (``layers`` says how the blocks
+run).  ``abstract_params``, ``param_axes`` and ``input_specs`` give the
+meta trees and logical axes the sharding rules read.
 """
 
 from __future__ import annotations
@@ -38,11 +51,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.context import (constrain, is_dtensor,
+                                             replicating, whole_dim)
 
 from . import layers, rglru, ssm
-from .config import ModelConfig
+from .config import InputShape, ModelConfig
 from .layers import COMPUTE_DTYPE
-from .spec import P, initialize, leaves, stack, tree_map
+from .spec import P, abstract, initialize, leaves, stack, tree_axes, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -98,13 +113,16 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions, mode: str,
     ``ssm.ssd_apply``."""
     h = layers.apply_norm(cfg, p["ln1"], x)
     if kind == "ssd":
-        s, _ = ssm.ssd_apply(cfg, p["ssd"], h, mode=mode,
-                             cache=cache["ssd"] if cache else None,
-                             state_bf16=state_bf16)
+        s = layers.on_batch_rows(
+            lambda pp, hh: ssm.ssd_apply(
+                cfg, pp, hh, mode=mode, cache=cache["ssd"] if cache else None,
+                state_bf16=state_bf16)[0], p["ssd"], h)
         return x + s, None
     if kind == "rglru":
-        r, _ = rglru.rglru_apply(cfg, p["rglru"], h, mode=mode,
-                                 cache=cache["rglru"] if cache else None)
+        r = layers.on_batch_rows(
+            lambda pp, hh: rglru.rglru_apply(
+                cfg, pp, hh, mode=mode,
+                cache=cache["rglru"] if cache else None)[0], p["rglru"], h)
         x = x + r
     elif kind in ("attn", "local_attn", "moe"):
         a, _ = layers.attention_apply(
@@ -187,11 +205,15 @@ def _unstack(tree, n: int):
     return [{k: v[u] for k, v in per_key.items()} for u in range(n)]
 
 
-def _apply_layers(cfg: ModelConfig, run, x, **kw):
-    """``run``'s (kind, params, cache) layers in turn: (x, aux or None)."""
+def _apply_layers(cfg: ModelConfig, run, x, unit: bool, **kw):
+    """``run``'s (kind, params, cache) layers in turn: (x, aux or None).
+    ``unit``: the layers are a stacked unit's, whose output the reference
+    constrains after each block."""
     aux_total = None
     for kind, p, cache in run:
         x, aux = block_apply(cfg, kind, p, x, cache=cache, **kw)
+        if unit:
+            x = constrain(x, ("batch", None, None))
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return x, aux_total
@@ -206,7 +228,7 @@ def _apply_stack(cfg: ModelConfig, stack_params, x, *, positions, mode,
     pattern = pattern or cfg.block_pattern
     kw = dict(positions=positions, mode=mode, cache_index=cache_index,
               xa=xa, bidir=bidir, state_bf16=state_bf16)
-    groups = []         # (layers, remat): a unit each, then the rest
+    groups = []         # (layers, remat, unit): a unit each, then the rest
     if "units" in stack_params:
         units = stack_params["units"]
         n_units = next(leaves(units))[1].shape[0]
@@ -220,20 +242,21 @@ def _apply_stack(cfg: ModelConfig, stack_params, x, *, positions, mode,
         for u_params, u_cache in zip(_unstack(units, n_units), u_caches):
             groups.append(([(kind, u_params[str(i)],
                              u_cache[str(i)] if u_cache else None)
-                            for i, kind in enumerate(pattern)], remat))
+                            for i, kind in enumerate(pattern)], remat, True))
     if "rest" in stack_params:
         # Remainder layers continue the pattern from a unit boundary.
         groups.append(([(pattern[i % len(pattern)], stack_params["rest"][key],
                          caches["rest"][key] if caches else None)
                         for i, key in enumerate(sorted(stack_params["rest"],
-                                                       key=int))], False))
+                                                       key=int))], False,
+                       False))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for run, remat in groups:
+    for run, remat, unit in groups:
         if remat:
-            x, aux = checkpoint(_apply_layers, cfg, run, x,
+            x, aux = checkpoint(_apply_layers, cfg, run, x, unit,
                                 use_reentrant=False, **kw)
         else:
-            x, aux = _apply_layers(cfg, run, x, **kw)
+            x, aux = _apply_layers(cfg, run, x, unit, **kw)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -264,6 +287,15 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         out = tree_map(lambda s: P(s.shape, s.axes, s.init, torch.bfloat16),
                        out)
     return out
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree as meta tensors (no allocation)."""
+    return abstract(param_specs(cfg))
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    return tree_axes(param_specs(cfg))
 
 
 def _to_param_tree(tree, trainable: bool) -> nn.ParameterDict:
@@ -384,13 +416,28 @@ def _written_positions(caches, cross: bool) -> Optional[int]:
                 if path.endswith(ends)), default=None)
 
 
+def _on(x, dev) -> torch.Tensor:
+    """``x`` as a tensor on ``dev``; a DTensor stays as it is."""
+    return x if is_dtensor(x) else torch.as_tensor(x, device=dev)
+
+
+def _sharded(p) -> bool:
+    """The parameters are DTensors (on a mesh)."""
+    return is_dtensor(p["embed"])
+
+
 def encode(cfg: ModelConfig, params: Params, frames) -> torch.Tensor:
     """Whisper-style encoder over precomputed (stub) frame embeddings
     (B, n_frames, d): sinusoidal positions, then bidirectional attention
     blocks; (B, n_frames, d) bf16."""
     p = param_tree(params)
+    with replicating(_sharded(p)):
+        return _encode(cfg, p, frames)
+
+
+def _encode(cfg: ModelConfig, p, frames) -> torch.Tensor:
     dev = p["embed"].device
-    x = torch.as_tensor(frames, device=dev).to(COMPUTE_DTYPE)
+    x = _on(frames, dev).to(COMPUTE_DTYPE)
     B, S = x.shape[0], x.shape[1]
     pos = torch.from_numpy(_sinusoid(S, cfg.d_model)).to(dev)
     x = x + pos.to(COMPUTE_DTYPE)[None]
@@ -410,19 +457,33 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     loss summed over the layers, a 0-d f32 tensor (0 without MoE
     blocks)."""
     p = param_tree(params)
+    with replicating(_sharded(p)):
+        return _forward(cfg, p, batch, mode, caches, cache_index)
+
+
+def _forward(cfg: ModelConfig, p, batch, mode, caches, cache_index):
     embed = p["embed"]
+    if caches is not None and is_dtensor(embed):
+        raise NotImplementedError("prefill and decode on a mesh (caches "
+                                  "sharded by cache_specs' axes) are not "
+                                  "ported; serve from one device")
     dev = embed.device
     xa = None
     if cfg.is_encdec:
-        xa = (encode(cfg, params, batch["frames"]) if "frames" in batch
+        xa = (_encode(cfg, p, batch["frames"]) if "frames" in batch
               else batch.get("enc_out"))
     if cfg.input_mode == "embeddings" and "embeds" in batch:
-        x = torch.as_tensor(batch["embeds"], device=dev).to(COMPUTE_DTYPE)
+        x = _on(batch["embeds"], dev).to(COMPUTE_DTYPE)
         B, S = x.shape[0], x.shape[1]
     else:
-        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        tokens = _on(batch["tokens"], dev).long()
         B, S = tokens.shape
-        x = embed[tokens].to(COMPUTE_DTYPE)
+        # On a mesh the lookup takes whole rows of the table: a lookup on
+        # vocab shards leaves a masked partial sum that DTensor cannot
+        # reduce once the batch is sharded too.
+        x = torch.nn.functional.embedding(
+            tokens, whole_dim(embed, 0)).to(COMPUTE_DTYPE)
+    x = constrain(x, ("batch", None, None))
     if cache_index is not None and layers.scalar_index(cache_index) is None:
         s_max = _written_positions(caches, cross=xa is None)
         if s_max is not None and not isinstance(cache_index, torch.Tensor):
@@ -451,6 +512,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         logits = torch.einsum("bsd,vd->bsv", x, embed.to(x.dtype))
     else:
         logits = x @ p["unembed"].to(x.dtype)
+    logits = constrain(logits, ("batch", None, "vocab"))
     return logits.float(), caches, aux
 
 
@@ -458,13 +520,22 @@ def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
     """Next-token cross entropy over the positions whose ``labels`` are
     >= 0, plus 0.01 x the MoE load-balance loss: a 0-d f32 tensor.
     ``batch`` is ``forward``'s plus ``labels`` (B, S)."""
-    logits, _, aux = forward(cfg, params, batch, mode="full")
-    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    logz = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    ce = ((logz - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    return ce + 0.01 * aux
+    p = param_tree(params)
+    with replicating(_sharded(p)):
+        logits, _, aux = _forward(cfg, p, batch, "full", None, None)
+        labels = _on(batch["labels"], logits.device).long()
+        logz = torch.logsumexp(logits, -1)
+        if is_dtensor(logits):
+            # A gather on vocab-sharded logits is not right on a shard; a
+            # one-hot select is, and sums to the same value.
+            vocab = torch.arange(logits.shape[-1], device=logits.device)
+            hot = labels.clamp_min(0)[..., None] == vocab
+            gold = torch.where(hot, logits, 0.0).sum(-1)
+        else:
+            gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        ce = ((logz - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        return ce + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -515,3 +586,45 @@ def decode_step(cfg: ModelConfig, params: Params, caches, tokens,
     logits, caches, _ = forward(cfg, params, batch, mode="decode",
                                 caches=caches, cache_index=cache_index)
     return logits[:, -1], caches
+
+
+# ---------------------------------------------------------------------------
+# input_specs: meta-tensor stand-ins for a batch (no allocation)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """The batch an (arch x shape) step takes, as meta tensors: the
+    reference's keys, shapes and dtypes, caches from ``abstract(
+    cache_specs(...))``."""
+    B, S = shape.global_batch, shape.seq_len
+    tok = _meta((B, S), torch.int32)
+    frames = lambda: _meta((B, cfg.n_audio_frames, cfg.d_model),
+                           COMPUTE_DTYPE)
+    if shape.kind == "train":
+        if cfg.is_encdec:
+            return {"frames": frames(), "tokens": tok, "labels": tok}
+        if cfg.input_mode == "embeddings":
+            return {"embeds": _meta((B, S, cfg.d_model), COMPUTE_DTYPE),
+                    "labels": tok}
+        return {"tokens": tok, "labels": tok}
+    if shape.kind == "prefill":
+        base: Dict[str, Any] = {"caches": abstract(cache_specs(cfg, B, S))}
+        if cfg.is_encdec:
+            base.update({"frames": frames(), "tokens": tok})
+        elif cfg.input_mode == "embeddings":
+            base["embeds"] = _meta((B, S, cfg.d_model), COMPUTE_DTYPE)
+        else:
+            base["tokens"] = tok
+        return base
+    if shape.kind == "decode":
+        base = {"caches": abstract(cache_specs(cfg, B, S)),
+                "tokens": _meta((B, 1), torch.int32),
+                "cache_index": _meta((), torch.int32)}
+        if cfg.is_encdec:
+            base["enc_out"] = frames()
+        return base
+    raise ValueError(shape.kind)

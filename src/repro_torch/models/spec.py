@@ -1,9 +1,14 @@
 """Parameter-spec system (port of ``repro.models.spec``).
 
-Each parameter is declared once as ``P(shape, axes, init, dtype)``; the
-logical ``axes`` are kept for the sharding work of ROADMAP item 14
-(``abstract``/``tree_axes`` wait for it).  From the same declarations:
+Each parameter is declared once as ``P(shape, axes, init, dtype)``, its
+``axes`` naming the *logical* mesh axis of every dim.  From the same
+declarations:
 
+* ``abstract(specs)`` -- ``device="meta"`` tensors of each leaf's shape
+  and dtype, no allocation (the counterpart of ``ShapeDtypeStruct``s);
+* ``tree_axes(specs)`` -- the logical-axis tree that
+  ``repro_torch.distributed.sharding.shardings_for`` turns into DTensor
+  placements on a mesh;
 * ``initialize(specs, generator, device)`` -- materialized tensors, the
   reference's init rules drawn from an explicit ``torch.Generator``
   (JAX's PRNG stream is not reproduced; parity carries weights across
@@ -70,6 +75,16 @@ def map_tree(fn: Callable[..., Any], tree, *rest) -> Any:
         return fn(tree, *rest)
     return {k: map_tree(fn, tree[k], *(r[k] for r in rest))
             for k in sorted(tree.keys())}
+
+
+def abstract(specs) -> Any:
+    """A tree of meta tensors (shape and dtype only, no storage)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
+
+
+def tree_axes(specs) -> Any:
+    return tree_map(lambda s: s.axes, specs)
 
 
 def _init_leaf(s: P, gen: torch.Generator, device) -> torch.Tensor:

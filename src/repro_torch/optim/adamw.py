@@ -8,6 +8,11 @@ the device (not Python floats), and each parameter updated in f32 and
 cast back.  ``torch.optim.AdamW`` is none of these: it keeps its
 moments in the parameter's dtype and has no clip and no schedule.
 
+On a mesh the parameters are DTensors: the moments are made with
+their placements (``zeros_like``), the gradients must come with them
+(the train step redistributes them), and ``global_norm`` sums each
+leaf's squares over the whole tensor, not over this rank's shard.
+
 Trees are nested dicts of tensors (a ``CausalLM`` stands for its
 ``params``); the state is ``{"m": tree, "v": tree, "step": 0-d int32}``,
 ``m`` and ``v`` mirroring the parameters path for path, so a checkpoint
@@ -26,6 +31,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from repro_torch.distributed.context import is_dtensor
 from repro_torch.models.model import param_tree
 from repro_torch.models.spec import leaves, map_tree
 
@@ -63,10 +69,10 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params) -> Dict[str, Any]:
-    """Zero moments (f32, on each parameter's device) and step 0."""
+    """Zero moments (f32, on each parameter's device, with its
+    placements on a mesh) and step 0."""
     tree = param_tree(params)
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     dev = next(leaves(tree))[1].device
     return {"m": map_tree(zeros, tree), "v": map_tree(zeros, tree),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -74,10 +80,12 @@ def init(params) -> Dict[str, Any]:
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares (a
+    DTensor's over all its shards)."""
     total = 0
     for g in _leaves(tree):
-        total = total + torch.sum(torch.square(g.float()))
+        sq = torch.sum(torch.square(g.float()))
+        total = total + (sq.full_tensor() if is_dtensor(sq) else sq)
     return torch.sqrt(total)
 
 

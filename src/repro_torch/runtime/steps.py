@@ -7,6 +7,16 @@ with ``torch.autograd.grad`` (never summed into ``.grad``, which for a
 bf16 parameter would round at every microbatch), added into explicit f32
 buffers, and divided by the count at the end.  Gradients then pass the
 compression hook and AdamW updates the parameters and state in place.
+
+On a mesh (the parameters are DTensors, ``convert.shard_params``) the
+same step runs sharded: a plain batch is placed by
+``distributed.sharding.batch_specs`` (a DTensor batch is taken as it
+is; microbatches are split from the whole batch, then placed), the loss
+and its gradients run under implicit replication, and each gradient is
+redistributed to its parameter's placements before accumulation,
+compression and the update -- the data-parallel reduction XLA inserts
+for the reference's ``out_shardings``.  The accumulators and AdamW's
+moments carry the parameters' placements.
 """
 
 from __future__ import annotations
@@ -15,6 +25,8 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.context import is_dtensor, replicating
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import leaves, map_tree
@@ -30,13 +42,38 @@ def _split_microbatches(batch: Dict[str, Any], n: int) -> Dict[str, Any]:
     return {k: sp(v) for k, v in batch.items()}
 
 
+def _place_batch(batch: Dict[str, Any], mesh, dev) -> Dict[str, Any]:
+    """The batch's arrays on ``dev``, or, on a mesh, as DTensors placed
+    by ``batch_specs`` (a DTensor is taken as it is)."""
+    if mesh is None:
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    plain = {k: v for k, v in batch.items() if not is_dtensor(v)}
+    plain = {k: torch.as_tensor(v) for k, v in plain.items()}
+    specs = sharding.batch_specs(plain, mesh)
+    return {k: (v if is_dtensor(v)
+                else sharding.distribute(plain[k], specs[k]))
+            for k, v in batch.items()}
+
+
+def _whole(x):
+    """A batch array whole on every rank (a DTensor's full tensor)."""
+    return x.full_tensor() if is_dtensor(x) else torch.as_tensor(x)
+
+
 def _grads_of(cfg: ModelConfig, params, ps: List[torch.Tensor], batch
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """(loss, its gradient for each of ``ps``; zeros for a parameter the
-    batch does not reach, as ``jax.grad`` gives)."""
+    batch does not reach, as ``jax.grad`` gives).  On a mesh each
+    gradient comes back with its parameter's placements."""
+    sharded = is_dtensor(ps[0])
     loss = model.loss_fn(cfg, params, batch)
-    grads = torch.autograd.grad(loss, ps, allow_unused=True,
-                                materialize_grads=True)
+    with replicating(sharded):
+        grads = torch.autograd.grad(loss, ps, allow_unused=True,
+                                    materialize_grads=True)
+    if sharded:
+        grads = tuple(g.redistribute(p.device_mesh, p.placements)
+                      for g, p in zip(grads, ps))
+        loss = loss.full_tensor()
     return loss.detach(), grads
 
 
@@ -52,16 +89,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig
         tree = model.param_tree(params)
         ps = [p for _, p in leaves(tree)]
         dev = ps[0].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        mesh = ps[0].device_mesh if is_dtensor(ps[0]) else None
         n_mb = max(cfg.microbatch, 1)
         if n_mb > 1:
-            mbs = _split_microbatches(batch, n_mb)
+            whole = ({k: _whole(v) for k, v in batch.items()}
+                     if mesh is not None else _place_batch(batch, None, dev))
+            mbs = _split_microbatches(whole, n_mb)
             loss = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                     for p in ps]
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
             for i in range(n_mb):
                 mb = {k: v[i] if v.ndim else v for k, v in mbs.items()}
-                mb_loss, mb_grads = _grads_of(cfg, params, ps, mb)
+                mb_loss, mb_grads = _grads_of(cfg, params, ps,
+                                              _place_batch(mb, mesh, dev))
                 loss = loss + mb_loss
                 with torch.no_grad():
                     for acc, g in zip(grads, mb_grads):
@@ -71,7 +110,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig
                 for acc in grads:
                     acc /= n_mb
         else:
-            loss, grads = _grads_of(cfg, params, ps, batch)
+            loss, grads = _grads_of(cfg, params, ps,
+                                    _place_batch(batch, mesh, dev))
         it = iter(grads)
         grads = map_tree(lambda _: next(it), tree)
         grads = adamw.decompress(opt_cfg, adamw.compress(opt_cfg, grads))

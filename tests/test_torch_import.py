@@ -62,7 +62,8 @@ def test_imports_with_jax_blocked():
     "repro_torch.runtime.loop", "repro_torch.checkpoint.manager",
     "repro_torch.data.pipeline", "repro_torch.launch.train",
     "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
-    "repro_torch.launch.cluster"])
+    "repro_torch.launch.cluster", "repro_torch.distributed.context",
+    "repro_torch.convert"])
 def test_slice_modules_import_with_jax_blocked(module):
     code = (
         "import sys, importlib\n"
