@@ -228,7 +228,23 @@ printing its wall time beside the card's name and power limit:
    mesh-less checkpoint at full width and 2 layers restored with
    ``restore(shardings=)``: every rank's local block of every leaf equal
    to its slice of the saved array, bit for bit; the directory removed.
-   The phase fails past 150 s.
+   (z1)-(z2) fail past 150 s.  (z3) serving on the mesh: llama3.2-1b's
+   serving config (bf16 weights, int8 KV, 16 KV heads) at full width
+   and depth, 4 prompts of 128 tokens prefilled into a 256-position
+   cache (``init_cache(mesh=)``), 2 decode steps at a scalar position
+   and 1 at per-row positions through the steps, then mamba2-130m (one
+   prefill, one decode): greedy tokens equal to one device's wherever
+   its top-1/top-2 margin clears the rule ``lm_same_greedy`` uses, and
+   every logit row within relative L2 2e-3 of one device's or twice the
+   floor, if larger (one device against itself with its projections
+   rounded once from f32, the mesh's row-parallel arithmetic); ms a
+   prefill and a decode step beside one device's; a decode step's
+   collectives by kind.  (z4) the dry run (``repro_torch.launch.dryrun
+   .lower_cell``) of (z1)'s "2d" train step and (z3)'s decode step on a
+   2x2 mesh under a ``fake`` group, in a subprocess (``chip_smoke.py
+   --dryrun-worker IN OUT``): its collectives by kind equal those
+   ``CommDebugMode`` counted on the card, its ``argument_bytes`` rank
+   0's local shards.  (z3)-(z4) fail past 120 s.
 15. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
    (``match_swar``'s launches count phase 10's; each row also carries
    phase 12's launches, ``launches_sharded``, and phase 13's over both
@@ -414,6 +430,23 @@ TRAIN_OPT_BYTES = 32
 MESH_DATA, MESH_MODEL = 2, 2
 SHARDED_B, SHARDED_S, SHARDED_STEPS, SHARDED_FSDP_STEPS = 8, 128, 3, 1
 SHARDED_NORM_RTOL, SHARDED_CKPT_LAYERS, SHARDED_LIMIT_S = 1e-2, 2, 150.0
+# (z3) serving on that mesh: llama3.2-1b's serving config at full width
+# and depth, SERVE_B prompts of SERVE_S tokens prefilled into a
+# SERVE_MAX-position cache, then decode steps at scalar positions
+# (SERVE_DECODES of them) and one at per-row positions; mamba2-130m, one
+# prefill and one decode.  Greedy tokens equal to one device's wherever
+# its top-1/top-2 margin clears the rule ``lm_same_greedy`` uses; every
+# logit row within the larger of SERVE_RTOL and SERVE_FLOOR_X times the
+# floor (relative L2): one device against itself with its projections
+# rounded once from f32, the mesh's row-parallel arithmetic, which at full
+# width moves bf16 logits by ~1.5e-2 through 16 layers of rounding.
+# (z4) the dry run's
+# record of (z1)'s "2d" step and (z3)'s decode step on a 2x2 mesh under a
+# ``fake`` group, in a subprocess: its collectives by kind equal those
+# ``CommDebugMode`` counted on the card, its argument bytes rank 0's
+# shards.  (z3) and (z4) together fail past SERVE_LIMIT_S.
+SERVE_B, SERVE_S, SERVE_MAX, SERVE_DECODES = 4, 128, 256, 2
+SERVE_RTOL, SERVE_FLOOR_X, SERVE_LIMIT_S = 2e-3, 2.0, 120.0
 # Row shards (phase 12): the sharded engine's shard count on one card, the
 # second count held for (a) and (c), the seeded rows appended before the
 # tombstones (1 in TOMBSTONE_EVERY live rows) and the compaction.
@@ -2759,6 +2792,7 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
     from repro_torch import convert
     from repro_torch.distributed import sharding
     from repro_torch.distributed.context import activation_sharding
+    from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as lmesh
     from repro_torch.models.spec import leaves
     from repro_torch.optim import adamw
@@ -2772,11 +2806,14 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
         lm = convert.shard_params(init, mesh, rules)
         st = adamw.init(lm)
         step = rsteps.make_train_step(cfg, sharded_opt())
-        hist, comm = [], None
+        hist, comm, arg_bytes = [], None, None
         with activation_sharding(mesh, rules):
             for i in range(n_steps):
                 batch = train_batch(cfg, SHARDED_B, SHARDED_S, i, "cpu")
                 mode = CommBytes() if i == 0 and r == 0 else None
+                if mode is not None:
+                    arg_bytes = dryrun.argument_bytes(
+                        (lm, st, rsteps._place_batch(batch, mesh, None)))
                 sync()
                 t = time.perf_counter()
                 if mode is not None:
@@ -2790,7 +2827,7 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
                 sync()
                 hist.append((m["loss"].item(), m["grad_norm"].item(),
                              1e3 * (time.perf_counter() - t)))
-        out = {"hist": hist, "comm": comm,
+        out = {"hist": hist, "comm": comm, "arg_bytes": arg_bytes,
                "leaves": sharded_leaf_counts(lm),
                "devices": sorted({str(t.to_local().device)
                                   for _, t in leaves(lm.params)})}
@@ -2847,8 +2884,343 @@ def lm_sharding_phase(*, device="cuda", smoke=False,
     train_free(cuda)
     info["wall_s"] = time.perf_counter() - t_phase
     check(smoke or info["wall_s"] < SHARDED_LIMIT_S,
-          f"phase 14 within {SHARDED_LIMIT_S} s: {info['wall_s']:.1f} s")
+          f"phase 14 (z1)-(z2) within {SHARDED_LIMIT_S} s: "
+          f"{info['wall_s']:.1f} s")
+    t_serve = time.perf_counter()
+    info["z3"] = sharded_z3(device=device, sync=sync, smoke=smoke)
+    train_free(cuda)
+    cells = [dryrun_cell("z3 decode", info["z3"]["llama"]["cfg"], "decode",
+                         SERVE_MAX, SERVE_B, info["z3"]["llama"]["comm"],
+                         info["z3"]["llama"]["arg_bytes"])]
+    if "2d" in info["z1"]:
+        cells.insert(0, dryrun_cell(
+            "z1 2d train", {"arch": LM_ARCH, "smoke": smoke}, "train",
+            SHARDED_S, SHARDED_B, info["z1"]["2d"]["comm"],
+            info["z1"]["2d"]["arg_bytes"]))
+    info["z4"] = sharded_z4(cells, device=device)
+    info["serve_wall_s"] = time.perf_counter() - t_serve
+    check(smoke or info["serve_wall_s"] < SERVE_LIMIT_S,
+          f"phase 14 (z3)-(z4) within {SERVE_LIMIT_S} s: "
+          f"{info['serve_wall_s']:.1f} s")
+    info["wall_s"] = time.perf_counter() - t_phase
     return info
+
+
+def serve_config(arch: str, smoke: bool):
+    """The registry's serving deployment of ``arch`` (at smoke size, where
+    the registry's overrides do not apply, the same fields set)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, smoke=smoke, optimized=True, kind="serve")
+    if smoke and arch == LM_ARCH:
+        cfg = dataclasses.replace(cfg, kv_quant=True, param_dtype="bf16")
+    return cfg
+
+
+def serve_inputs(cfg, n_decodes: int):
+    """Seeded prompts (SERVE_B x SERVE_S) and decode calls: (tokens (B,
+    1), cache index) for ``n_decodes`` scalar positions after the
+    prompt, then one call at per-row positions when ``n_decodes`` > 1."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab, (SERVE_B, SERVE_S)).astype(np.int32)
+    idx = [SERVE_S + i for i in range(n_decodes)]
+    if n_decodes > 1:
+        idx.append(np.array([SERVE_S + n_decodes + 2 * (b % 2) + b // 2
+                             for b in range(SERVE_B)]))
+    return prompt, [(rng.integers(0, cfg.vocab, (SERVE_B, 1)).astype(
+        np.int32), ci) for ci in idx]
+
+
+def sharded_serve(cfg, n_decodes: int, *, device, sync, comm_call=None):
+    """``cfg`` served on one device, then on the MESH_DATA x MESH_MODEL
+    mesh of threaded ranks (the same weights, ``init_cache(mesh=)``, the
+    steps): (one device's logits a call (on the host), its ms a call, each
+    rank's results: rank 0's logits, ms a call, collectives of call
+    ``comm_call`` (``CommBytes``) and the local bytes of that call's
+    arguments; one device's logits with every projection formed in f32
+    and rounded once)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import activation_sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import layers
+    from repro_torch.models import model as lmm
+    from repro_torch.runtime import steps as rsteps
+    kind = torch.device(device).type
+    rules = sharding.RULE_PROFILES[cfg.sharding_profile]
+    prompt, decodes = serve_inputs(cfg, n_decodes)
+    lm = lmm.init_params(cfg, SEED, device)
+
+    def calls(lm_, caches, comm=None):
+        """The prefill and the decodes through the steps; ([logits on the
+        host], [ms]), ``comm`` filled at call ``comm_call``."""
+        prefill = rsteps.make_prefill_step(cfg)
+        decode = rsteps.make_decode_step(cfg)
+        logits, ms = [], []
+        batches = [dict(tokens=prompt)] + [dict(tokens=t, cache_index=ci)
+                                            for t, ci in decodes]
+        for i, b in enumerate(batches):
+            b["caches"] = caches
+            step = prefill if i == 0 else decode
+            sync()
+            t = time.perf_counter()
+            if comm is not None and i == comm_call:
+                comm["arg_bytes"] = dryrun.argument_bytes(
+                    (lm_, rsteps._place_serving(cfg, lm_, b)))
+                mode = CommBytes()
+                with mode:
+                    lg, caches = step(lm_, b)
+                comm["counts"] = {str(k).split(".")[-1]: v for k, v in
+                                  mode.get_comm_counts().items()}
+                comm["bytes"] = mode.nbytes
+            else:
+                lg, caches = step(lm_, b)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t))
+            whole = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+            logits.append(whole.float().cpu())
+        return logits, ms
+
+    one, one_ms = calls(lm, lmm.init_cache(cfg, SERVE_B, SERVE_MAX,
+                                           device=device))
+    # One device again, its projections formed in f32 and rounded once
+    # (the arithmetic of the mesh's row-parallel projections): how far
+    # another summation order alone moves the logits.
+    inner = layers.project
+
+    def project_f32(a, w, eq=None):
+        x, y = a.float(), layers.weight(w, a).float()
+        return (x @ y if eq is None else torch.einsum(eq, x, y)).to(a.dtype)
+    layers.project = project_f32
+    try:
+        floor = calls(lm, lmm.init_cache(cfg, SERVE_B, SERVE_MAX,
+                                         device=device))[0]
+    finally:
+        layers.project = inner
+
+    def rank(r):
+        mesh = lmesh.make_debug_mesh(MESH_DATA, MESH_MODEL,
+                                     device_type=kind)
+        sharded = convert.shard_params(lm, mesh, rules)
+        caches = lmm.init_cache(cfg, SERVE_B, SERVE_MAX, mesh=mesh)
+        comm = {} if r == 0 and comm_call is not None else None
+        with activation_sharding(mesh, rules):
+            logits, ms = calls(sharded, caches, comm)
+        return {"logits": logits if r == 0 else None, "ms": ms,
+                "comm": comm}
+    ranks = lmesh.run_threaded(MESH_DATA * MESH_MODEL, rank)
+    del lm
+    return one, one_ms, ranks, floor
+
+
+def row_errors(got, want):
+    """Relative L2 error of each logit row of each call."""
+    import torch
+    return [[float(torch.linalg.norm(g[b] - w[b]) / torch.linalg.norm(w[b]))
+             for b in range(w.shape[0])] for g, w in zip(got, want)]
+
+
+def serve_hold(label, one, got, floor) -> dict:
+    """Argmax equal to one device's wherever one device's top-1/top-2
+    margin is past LM_ATOL + LM_RTOL |top-1|, and every logit row of every
+    call within max(SERVE_RTOL, SERVE_FLOOR_X x the floor) relative L2 of
+    one device's.  The floor is ``floor``'s worst row: one device against
+    itself with its projections rounded once from f32, as the mesh's
+    row-parallel ones are (another summation order and nothing else).
+    The worst row, the near-ties and the floor."""
+    import torch
+    worst, ties, n_rows = 0.0, 0, 0
+    errs = row_errors(got, one)
+    for c, (w, g) in enumerate(zip(one, got)):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"(z3) {label} call {c}: finite logits of shape {w.shape}")
+        for b in range(w.shape[0]):
+            err = errs[c][b]
+            worst = max(worst, err)
+            top1, top2 = lm_top2(w[b])
+            n_rows += 1
+            if top1 - top2 < LM_ATOL + LM_RTOL * abs(top1):
+                ties += 1
+                continue
+            check(int(torch.argmax(g[b])) == int(torch.argmax(w[b])),
+                  f"(z3) {label} call {c} row {b}: greedy token "
+                  f"{int(torch.argmax(g[b]))} vs one device's "
+                  f"{int(torch.argmax(w[b]))} past the margin rule")
+    floor_errs = row_errors(floor, one)
+    floor_worst = max(max(e) for e in floor_errs)
+    gate = max(SERVE_RTOL, SERVE_FLOOR_X * floor_worst)
+    check(worst <= gate, f"(z3) {label}: worst logit row {worst:.2e} "
+          f"relative L2 past {gate:.2e} (the floor, one device's "
+          f"projections rounded once from f32: {floor_worst:.2e}); rows by "
+          f"call {[[round(e, 6) for e in c] for c in errs]}, floor "
+          f"{[[round(e, 6) for e in c] for c in floor_errs]}")
+    return {"worst_rel": worst, "near_ties": ties, "rows": n_rows,
+            "floor_rel": floor_worst, "gate": gate,
+            "rows_rel": errs, "floor_rows_rel": floor_errs}
+
+
+def sharded_z3(*, device, sync, smoke) -> dict:
+    """(z3) llama3.2-1b's serving config and mamba2-130m served on the
+    mesh against one device."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    out = {}
+    for label, arch, n_dec in (("llama", LM_ARCH, SERVE_DECODES),
+                               ("mamba2", "mamba2-130m", 1)):
+        # llama as its serving deployment, mamba2 as the registry holds it.
+        cfg = (serve_config(arch, smoke) if label == "llama"
+               else get_config(arch, smoke=smoke))
+        t = time.perf_counter()
+        # Call 2, the second scalar decode (the first after the one whose
+        # sharding DTensor propagates first), is the step (z4) lowers.
+        one, one_ms, ranks, floor = sharded_serve(
+            cfg, n_dec, device=device, sync=sync,
+            comm_call=2 if label == "llama" else None)
+        res = serve_hold(f"{cfg.name}", one, ranks[0]["logits"], floor)
+        ms = ranks[0]["ms"]
+        res.update({
+            "calls": len(ms), "ms_prefill": ms[0],
+            "ms_decode": statistics.median(ms[2:]) if len(ms) > 2 else ms[1],
+            "ms_first_decode": ms[1], "one_ms_prefill": one_ms[0],
+            "one_ms_decode": (statistics.median(one_ms[2:])
+                              if len(one_ms) > 2 else one_ms[1]),
+            "wall_s": time.perf_counter() - t})
+        if label == "llama":
+            comm = ranks[0]["comm"]
+            res.update({"comm": {"counts": comm["counts"],
+                                 "bytes": comm["bytes"]},
+                        "arg_bytes": comm["arg_bytes"],
+                        "cfg": {"arch": arch, "smoke": smoke,
+                                "optimized": True, "kind": "serve",
+                                "fields": ({"kv_quant": True,
+                                            "param_dtype": "bf16"}
+                                           if smoke else {})}})
+        out[label] = res
+        comm = res.get("comm", {"counts": {}, "bytes": {}})
+        print(f"  (z3) {cfg.name} (kv_quant {cfg.kv_quant}, params "
+              f"{cfg.param_dtype}) served on the {MESH_DATA}x{MESH_MODEL} "
+              f"mesh, {SERVE_B} prompts of {SERVE_S} into {SERVE_MAX} "
+              f"positions, {len(ms) - 1} decode calls: worst logit row "
+              f"{res['worst_rel']:.2e} relative L2 against one device "
+              f"(gate {res['gate']:.2e}: the larger of {SERVE_RTOL} and "
+              f"{SERVE_FLOOR_X:g} x the floor, one device against itself "
+              f"with its projections rounded once from f32, "
+              f"{res['floor_rel']:.2e}); rows by "
+              f"call {[[round(e, 5) for e in c] for c in res['rows_rel']]}"
+              f"; greedy tokens equal in "
+              f"{res['rows'] - res['near_ties']} of {res['rows']} rows "
+              f"(the rest near-ties); prefill {res['ms_prefill']:.1f} ms "
+              f"(first call) against one device {res['one_ms_prefill']:.1f};"
+              f" a decode step {res['ms_decode']:.1f} ms (first "
+              f"{res['ms_first_decode']:.1f}) against one device "
+              f"{res['one_ms_decode']:.1f}" + (
+                  "; a decode step's collectives: " + ", ".join(
+                      f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.3f} MB)"
+                      for k, v in sorted(comm["counts"].items()))
+                  if comm["counts"] else "")
+              + f"; {res['wall_s']:.1f} s; card: {Phase.card}")
+    return out
+
+
+def dryrun_cell(label, cfg_spec, kind, seq, batch, comm, arg_bytes) -> dict:
+    """One cell for (z4): the config (arch, smoke, registry deployment,
+    fields), the step's shape, and what the card counted."""
+    return {"label": label, "cfg": dict(cfg_spec), "kind": kind,
+            "seq": seq, "batch": batch, "comm": comm["counts"],
+            "arg_bytes": arg_bytes}
+
+
+def dryrun_worker(path_in: str, path_out: str) -> int:
+    """``chip_smoke.py --dryrun-worker IN OUT``: the dry run's record of
+    each cell of IN on a MESH_DATA x MESH_MODEL mesh under a ``fake``
+    group (meta shards: nothing runs on the card), written to OUT."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models.config import InputShape
+    job = json.loads(Path(path_in).read_text())
+    dryrun.fake_group(MESH_DATA * MESH_MODEL)
+    try:
+        mesh = lmesh.make_debug_mesh(MESH_DATA, MESH_MODEL,
+                                     device_type=job["device_type"])
+        recs = []
+        for cell in job["cells"]:
+            c = cell["cfg"]
+            cfg = get_config(c["arch"], smoke=c["smoke"],
+                             optimized=c.get("optimized", False),
+                             kind=c.get("kind", "train"))
+            cfg = dataclasses.replace(cfg, **c.get("fields", {}))
+            shape = InputShape(cell["label"], cell["kind"], cell["seq"],
+                               cell["batch"])
+            recs.append(dryrun.lower_cell(c["arch"], shape, cfg=cfg,
+                                          mesh=mesh))
+        Path(path_out).write_text(json.dumps(recs))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_z4(cells, *, device) -> dict:
+    """(z4) the dry run of ``cells`` in a subprocess (its fake group must
+    not meet the threaded one): each record ``ok``, its collectives by
+    kind equal to what ``CommDebugMode`` counted on the card for the same
+    step, its ``argument_bytes`` rank 0's shards."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed import op_analysis
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        path_in, path_out = Path(tmp) / "in.json", Path(tmp) / "out.json"
+        path_in.write_text(json.dumps({
+            "cells": cells, "device_type": torch.device(device).type}))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT / "src") + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--dryrun-worker", str(path_in),
+                              str(path_out)], env=env, capture_output=True,
+                             text=True, timeout=SERVE_LIMIT_S)
+        check(run.returncode == 0, f"(z4) the dry run: {run.stderr[-3000:]}")
+        recs = json.loads(path_out.read_text())
+    out = {}
+    for cell, rec in zip(cells, recs):
+        label = cell["label"]
+        check(rec.get("status") == "ok", f"(z4) {label}: {rec}")
+        card = {k: 0 for k in op_analysis.COLLECTIVES}
+        for name, n in cell["comm"].items():
+            card[op_analysis.COLLECTIVE_KIND[name]] += n
+        dry = {k: int(v) for k, v in rec["collective_counts"].items()}
+        check(dry == card, f"(z4) {label}: the dry run's collectives {dry} "
+              f"vs the card's {card}")
+        check(rec["memory"]["argument_bytes"] == cell["arg_bytes"],
+              f"(z4) {label}: argument bytes {rec['memory']} vs rank 0's "
+              f"{cell['arg_bytes']}")
+        out[label] = {k: rec[k] for k in (
+            "hlo_flops_per_dev", "hlo_bytes_per_dev",
+            "hlo_bytes_strict_per_dev", "collective_bytes_per_dev",
+            "dominant", "lower_s", "memory", "collective_counts",
+            "compute_s", "memory_s", "collective_s")}
+        print(f"  (z4) {label}: the dry run (meta shards, a fake group of "
+              f"{MESH_DATA * MESH_MODEL}) counts "
+              + ", ".join(f"{k} {v}" for k, v in dry.items() if v)
+              + f", as CommDebugMode did on the card; argument bytes "
+              f"{cell['arg_bytes']:,} as rank 0 holds; flops a device "
+              f"{rec['hlo_flops_per_dev']:.4g}, bytes "
+              f"{rec['hlo_bytes_per_dev']:.4g} (strict "
+              f"{rec['hlo_bytes_strict_per_dev']:.4g}), collective bytes "
+              f"{rec['collective_bytes_per_dev']:.4g}, temp "
+              f"{rec['memory']['temp_bytes']:,}, {rec['dominant']}-bound at "
+              f"the card's rates; traced in {rec['lower_s']} s")
+    out["wall_s"] = time.perf_counter() - t
+    return out
 
 
 def sharded_z1(*, device, sync, smoke, layout, profiles) -> dict:
@@ -2917,7 +3289,8 @@ def sharded_z1(*, device, sync, smoke, layout, profiles) -> dict:
                "ms_step_ranks_max": (max(statistics.median(
                    h[2] for h in r["hist"][1:]) for r in ranks)
                    if n > 1 else None),
-               "comm": ranks[0]["comm"], "leaves": ranks[0]["leaves"],
+               "comm": ranks[0]["comm"], "arg_bytes": ranks[0]["arg_bytes"],
+               "leaves": ranks[0]["leaves"],
                "devices": sorted({d for r in ranks for d in r["devices"]}),
                "peak_gb": (peak - base) / 1e9, "kept_gb": base / 1e9,
                "wall_s": wall,
@@ -4570,4 +4943,6 @@ def card_name() -> str:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--procs-worker"]:
         sys.exit(procs_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--dryrun-worker"]:
+        sys.exit(dryrun_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

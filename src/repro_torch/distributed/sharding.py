@@ -249,6 +249,15 @@ def local_slices(shape: Tuple[int, ...], sharding: NamedSharding
     return tuple(slice(o, o + n) for o, n in zip(offset, local))
 
 
+def local_rows(t) -> slice:
+    """The rows (dim 0) of DTensor ``t`` that this rank's shard holds."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(t.shape), t.device_mesh, t.placements)
+    return slice(offset[0], offset[0] + local[0])
+
+
 def mesh_device(mesh) -> torch.device:
     """The device this rank's shards of ``mesh`` sit on."""
     if mesh.device_type == "cpu":
@@ -271,8 +280,9 @@ def from_block(block: torch.Tensor, shape: Tuple[int, ...],
                sharding: NamedSharding):
     """A DTensor of global ``shape`` whose local shard on this rank is
     ``block`` (this rank's ``local_slices``), copied to the mesh's
-    device."""
-    local = block.detach().to(mesh_device(sharding.mesh), copy=True)
+    device; a meta block stays meta (an abstract tree: no device)."""
+    local = (block.detach() if block.is_meta
+             else block.detach().to(mesh_device(sharding.mesh), copy=True))
     return from_local(local, sharding.mesh, sharding.placements, shape)
 
 

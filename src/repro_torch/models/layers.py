@@ -48,12 +48,13 @@ the collectives at the edges.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.distributed.context import is_dtensor
-from repro_torch.distributed.sharding import from_local
+from repro_torch.distributed.sharding import from_local, local_rows
 
 from .config import ModelConfig
 from .spec import P
@@ -87,6 +88,28 @@ def weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if placements == list(w.placements):
         return w
     return w.redistribute(w.device_mesh, placements)
+
+
+def project(a: torch.Tensor, w: torch.Tensor,
+            eq: Optional[str] = None) -> torch.Tensor:
+    """``a @ w`` (or ``einsum(eq, a, w)``) in ``a``'s dtype, ``w`` taken
+    by ``weight``.  Where a mesh splits the contraction (tensor
+    parallelism's row-parallel projections: ``w`` sharded on its first
+    dim), each rank's partial product is formed in f32 and the partials
+    are summed in f32 before the one rounding to ``a``'s dtype, as one
+    device's product accumulates in f32 and rounds once (bf16 partials,
+    each rounded, would add a rounding a layer)."""
+    w = weight(w, a)
+
+    def mul(x, y):
+        return x @ y if eq is None else torch.einsum(eq, x, y)
+    if not (is_dtensor(w) and any(p.is_shard(0) for p in w.placements)):
+        return mul(a, w)
+    from torch.distributed.tensor import Replicate
+    y = mul(a.float(), w.float())
+    y = y.redistribute(y.device_mesh, [Replicate() if p.is_partial() else p
+                                       for p in y.placements])
+    return y.to(a.dtype)
 
 
 def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -271,11 +294,91 @@ def scalar_index(cache_index) -> Optional[int]:
     return None
 
 
-def _decode_write(cfg: ModelConfig, cache, k, v, cache_index,
+def _cache_call(fn, cache, q, *kv, **kw):
+    """``fn(cache, q, *kv, rows=..., **kw)``: an attention core that
+    reads and writes ``cache`` in place; returns its output (B, H, Sq,
+    D).  On a mesh (DTensor cache leaves, every leaf of one layer placed
+    alike by ``attn_cache_specs``' axes) each rank runs ``fn`` on its own
+    block: ``q`` and ``kv`` are brought to the cache's placements (rows
+    on the batch axes, heads where the cache shards its KV heads), the
+    cache's leaves are the rank's local tensors, written in place, and
+    ``rows`` is the slice of the batch the rank holds (for per-row write
+    positions).  The output is placed as the cache is."""
+    ref = cache["k"]
+    if not is_dtensor(ref):
+        return fn(cache, q, *kv, rows=slice(None), **kw)
+    mesh, placements = ref.device_mesh, ref.placements
+    local = {n: t.to_local() for n, t in cache.items()}
+    q_l, *kv_l = (None if t is None
+                  else t.redistribute(mesh, placements).to_local()
+                  for t in (q, *kv))
+    out = fn(local, q_l, *kv_l, rows=local_rows(ref), **kw)
+    return from_local(out, mesh, placements, q.shape)
+
+
+def _write_span(cfg: ModelConfig, cache, k, v, start: int) -> None:
+    """K/V (B, K, S, hd) written at positions ``start`` .. ``start + S``
+    of every row (quantized for the int8 cache)."""
+    S = k.shape[2]
+    if cfg.kv_quant:
+        kq, ks = _kv_quantize(k)
+        vq, vs = _kv_quantize(v)
+        cache["k"][:, :, start:start + S] = kq
+        cache["v"][:, :, start:start + S] = vq
+        cache["k_scale"][:, :, start:start + S] = ks
+        cache["v_scale"][:, :, start:start + S] = vs
+    else:
+        cache["k"][:, :, start:start + S] = k.to(cache["k"].dtype)
+        cache["v"][:, :, start:start + S] = v.to(cache["v"].dtype)
+
+
+def _write_at_0(cfg: ModelConfig, cache, q, k, v, *, rows) -> torch.Tensor:
+    """A full-mode write without a cache index: K/V at position 0
+    (clamped as ``_prefill_core`` clamps); returns ``q`` (the attention
+    runs over k, v, not the cache)."""
+    _write_span(cfg, cache, k, v, min(0, cache["k"].shape[2] - k.shape[2]))
+    return q
+
+
+def _prefill_core(cfg: ModelConfig, cache, q, k, v, *, rows, offset: int,
                   window: Optional[int]) -> torch.Tensor:
+    """Full mode into a cache: K/V written at ``offset`` (clamped into
+    range, as ``lax.dynamic_update_slice`` clamps the start), then the
+    queries attend the updated cache (the chunked continuation: the
+    speculative verify, a prefill into a cache); the causal mask (q_pos =
+    offset + i) hides stale higher positions."""
+    S, S_max = k.shape[2], cache["k"].shape[2]
+    _write_span(cfg, cache, k, v, min(max(offset, 0), S_max - S))
+    if cfg.kv_quant:
+        kk = (cache["k"].to(COMPUTE_DTYPE)
+              * cache["k_scale"][..., None].to(COMPUTE_DTYPE))
+        vv = (cache["v"].to(COMPUTE_DTYPE)
+              * cache["v_scale"][..., None].to(COMPUTE_DTYPE))
+    else:
+        kk, vv = cache["k"], cache["v"]
+    return _online_softmax_scan(
+        q, kk.to(q.dtype), vv.to(q.dtype), q_offset=offset, window=window,
+        block_kv=_pick_block(kk.shape[2], cfg.attn_block_kv))
+
+
+def _cross_core(cfg: ModelConfig, cache, q, k, v, *, rows) -> torch.Tensor:
+    """Cross-attention in full mode: the encoder's K/V cached from
+    position 0, cast to the cache's dtype as the reference casts them;
+    every query sees every key of k, v (not of the cache)."""
+    Sx = k.shape[2]
+    cache["k"][:, :, :Sx] = k.to(cache["k"].dtype)
+    cache["v"][:, :, :Sx] = v.to(cache["v"].dtype)
+    return _online_softmax_scan(
+        q, k, v, q_offset=0, bidir=True,
+        block_kv=_pick_block(Sx, cfg.attn_block_kv))
+
+
+def _decode_write(cfg: ModelConfig, cache, k, v, cache_index,
+                  window: Optional[int], rows: slice) -> torch.Tensor:
     """Write decode's one new position of K/V into ``cache`` (quantized
     for the int8 cache), each row at its position; returns the positions
-    each row may attend, (B|1, S_max) bool."""
+    each row may attend, (B|1, S_max) bool.  ``rows``: the batch rows
+    ``cache`` holds (a rank's block on a mesh)."""
     B = k.shape[0]
     S_max = cache["k"].shape[2]
     ci = scalar_index(cache_index)
@@ -292,7 +395,7 @@ def _decode_write(cfg: ModelConfig, cache, k, v, cache_index,
     else:
         # (B,) positions: row b writes at ci_b[b] (serving slots whose
         # lengths diverge).
-        ci_b = torch.as_tensor(cache_index, device=k.device).long()
+        ci_b = torch.as_tensor(cache_index, device=k.device).long()[rows]
         b_idx = torch.arange(B, device=k.device)
 
         def write(buf, val):
@@ -313,6 +416,33 @@ def _decode_write(cfg: ModelConfig, cache, k, v, cache_index,
     return valid
 
 
+def _decode_core(cfg: ModelConfig, cache, q, k, v, *, rows, cache_index,
+                 window: Optional[int]) -> torch.Tensor:
+    """One query position (B, H, 1, hd) against the cache, after writing
+    its K/V (``k`` None: cross-attention over the encoder's cached K/V,
+    every position valid)."""
+    valid = None
+    if k is not None:
+        valid = _decode_write(cfg, cache, k, v, cache_index, window, rows)
+    kk, vv = cache["k"], cache["v"]
+    B, H, _, hd = q.shape
+    K = kk.shape[1]
+    qg = q.reshape(B, K, H // K, 1, hd)
+    # int8 cache: the per-(b,k,s) scale is constant over hd, so it folds
+    # outside the dots (exact algebra).
+    s = _dot_f32(qg, kk.to(q.dtype)[:, :, None].transpose(-1, -2)) \
+        * (1.0 / math.sqrt(hd))      # "/ sqrt(hd)", compiled as XLA does
+    if cfg.kv_quant:
+        s = s * cache["k_scale"][:, :, None, None, :]
+    if valid is not None:
+        s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    if cfg.kv_quant:
+        pr = pr * cache["v_scale"][:, :, None, None, :]
+    out = _dot_f32(pr.to(COMPUTE_DTYPE), vv.to(COMPUTE_DTYPE)[:, :, None])
+    return out.reshape(B, H, 1, hd).to(q.dtype)
+
+
 def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
                     mode: str, cache: Optional[Dict] = None,
                     cache_index=None, local: bool = False,
@@ -329,8 +459,6 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
     RoPE, its K/V cached from position 0 in full mode; decode reads that
     cache with every position valid.
     """
-    B = x.shape[0]
-    H, K, hd = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim
     q = torch.einsum("bsd,dhk->bhsk", x, weight(p["wq"], x))
     if "bq" in p:
         q = q + weight(p["bq"], x)[None, :, None, :]
@@ -352,85 +480,37 @@ def attention_apply(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
         if offset is None:
             raise ValueError("full mode writes the cache at one offset for "
                              "all rows; got a per-row cache_index")
-        if cache is not None and xa is None:
-            # lax.dynamic_update_slice clamps the start into range.
-            S, S_max = k.shape[2], cache["k"].shape[2]
-            start = min(max(offset, 0), S_max - S)
-            if cfg.kv_quant:
-                kq, ks = _kv_quantize(k)
-                vq, vs = _kv_quantize(v)
-                cache["k"][:, :, start:start + S] = kq
-                cache["v"][:, :, start:start + S] = vq
-                cache["k_scale"][:, :, start:start + S] = ks
-                cache["v_scale"][:, :, start:start + S] = vs
-            else:
-                cache["k"][:, :, start:start + S] = k.to(cache["k"].dtype)
-                cache["v"][:, :, start:start + S] = v.to(cache["v"].dtype)
-        elif cache is not None:
-            # Cross-attention: the encoder's K/V, cast to the cache's dtype
-            # as the reference casts them, from position 0.
-            Sx = k.shape[2]
-            cache["k"][:, :, :Sx] = k.to(cache["k"].dtype)
-            cache["v"][:, :, :Sx] = v.to(cache["v"].dtype)
-        # Chunked continuation (speculative verify, prefill into a cache):
-        # queries attend the cached context too, so the KV source becomes
-        # the updated cache; the causal mask (q_pos = offset + i) hides
-        # stale higher positions.
-        continuation = (cache is not None and cache_index is not None
-                        and xa is None)
-        if xa is not None or bidir:
-            # Every query sees every key of k, v (not of the cache).
+        if cache is not None and xa is not None:
+            out = _cache_call(partial(_cross_core, cfg), cache, q, k, v)
+        elif cache is not None and cache_index is not None:
+            out = _cache_call(partial(_prefill_core, cfg), cache, q, k, v,
+                              offset=offset, window=window)
+        elif xa is not None or bidir:
+            # Every query sees every key of k, v.
             out = _on_shards(
                 _online_softmax_scan, q, k, v, q_offset=0, bidir=True,
                 block_kv=_pick_block(k.shape[2], cfg.attn_block_kv))
-        elif continuation:
-            if cfg.kv_quant:
-                kk = (cache["k"].to(COMPUTE_DTYPE)
-                      * cache["k_scale"][..., None].to(COMPUTE_DTYPE))
-                vv = (cache["v"].to(COMPUTE_DTYPE)
-                      * cache["v_scale"][..., None].to(COMPUTE_DTYPE))
-            else:
-                kk, vv = cache["k"], cache["v"]
-            out = _on_shards(
-                _online_softmax_scan, q, kk.to(q.dtype), vv.to(q.dtype),
-                q_offset=offset,
-                window=window,
-                block_kv=_pick_block(kk.shape[2], cfg.attn_block_kv))
-        elif local and k.shape[2] % window == 0:
-            out = _on_shards(_local_block_attention, q, k, v, window=window)
         else:
-            out = _on_shards(
-                _online_softmax_scan, q, k, v, q_offset=0, window=window,
-                block_kv=_pick_block(k.shape[2], cfg.attn_block_kv))
+            if cache is not None:
+                # A cache without an index: written at 0, attended as a
+                # cacheless forward.
+                _cache_call(partial(_write_at_0, cfg), cache, q, k, v)
+            if local and k.shape[2] % window == 0:
+                out = _on_shards(_local_block_attention, q, k, v,
+                                 window=window)
+            else:
+                out = _on_shards(
+                    _online_softmax_scan, q, k, v, q_offset=0,
+                    window=window,
+                    block_kv=_pick_block(k.shape[2], cfg.attn_block_kv))
     elif mode == "decode":
         assert cache is not None
-        k_scale = v_scale = valid = None
-        if xa is None:
-            valid = _decode_write(cfg, cache, k, v, cache_index, window)
-        if cfg.kv_quant:
-            k_scale, v_scale = cache["k_scale"], cache["v_scale"]
-        kk, vv = cache["k"], cache["v"]
-        G = H // K
-        qg = q.reshape(B, K, G, 1, hd)
-        # int8 cache: the per-(b,k,s) scale is constant over hd, so it
-        # folds outside the dots (exact algebra).
-        s = _dot_f32(qg, kk.to(q.dtype)[:, :, None].transpose(-1, -2)) \
-            * (1.0 / math.sqrt(hd))      # "/ sqrt(hd)", compiled as XLA does
-        if k_scale is not None:
-            s = s * k_scale[:, :, None, None, :]
-        if valid is not None:
-            s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-        pr = torch.softmax(s, dim=-1)
-        if v_scale is not None:
-            pr = pr * v_scale[:, :, None, None, :]
-        out = _dot_f32(pr.to(COMPUTE_DTYPE),
-                       vv.to(COMPUTE_DTYPE)[:, :, None])
-        out = out.reshape(B, H, 1, hd).to(x.dtype)
+        out = _cache_call(partial(_decode_core, cfg), cache, q, k, v,
+                          cache_index=cache_index, window=window)
     else:
         raise ValueError(mode)
 
-    y = torch.einsum("bhsk,hkd->bsd", out.to(x.dtype), weight(p["wo"], x))
-    return y, cache
+    return project(out.to(x.dtype), p["wo"], "bhsk,hkd->bsd"), cache
 
 
 def attn_cache_specs(cfg: ModelConfig, batch: int,
@@ -504,9 +584,9 @@ def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
         h = x @ weight(p["wg"], x)
         g = h * _logistic(h)
         u = x @ weight(p["wu"], x)
-        return (g * u) @ weight(p["wd"], x)
+        return project(g * u, p["wd"])
     h = _gelu_tanh(x @ weight(p["wi"], x) + weight(p["bi"], x))
-    return h @ weight(p["wo"], x) + weight(p["bo"], x)
+    return project(h, p["wo"]) + weight(p["bo"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -657,17 +737,29 @@ def _whole_leaves(p, rows):
         Partial() if r.is_shard(0) else Replicate() for r in rows])
 
 
-def on_batch_rows(fn, p, x: torch.Tensor) -> torch.Tensor:
-    """``fn(p, x)`` -> y of x's shape, each row of y from the same row of
-    x (a recurrent or SSD block over its sequence).  On a mesh each rank
-    runs ``fn`` on its own batch rows with the weights whole, and y is
-    placed as those rows are."""
+def on_batch_rows(fn, p, x: torch.Tensor, cache=None) -> torch.Tensor:
+    """``fn(p, x, cache)`` -> y of x's shape, each row of y from the same
+    row of x (a recurrent or SSD block over its sequence), ``cache`` (a
+    dict of leaves with a leading batch dim, or None) updated in place.
+    On a mesh each rank runs ``fn`` on its own batch rows with the weights
+    whole, and y is placed as those rows are.  A cache leaf is read as
+    those rows with every other dim whole (its ``heads`` or ``ff`` shards
+    gathered) and written back into its own placements, so the stored
+    cache keeps the layout its specs give it."""
     if not is_dtensor(x):
-        return fn(p, x)
+        return fn(p, x, cache)
     from torch.distributed.tensor import Replicate
     mesh = x.device_mesh
     placements = [xp if xp.is_shard(0) else Replicate()
                   for xp in x.placements]
+    cache = cache or {}
+    moved = {n for n, t in cache.items() if list(t.placements) != placements}
+    rows = {n: (t.redistribute(mesh, placements) if n in moved else t
+                ).to_local() for n, t in cache.items()}
     y = fn(_whole_leaves(p, placements),
-           x.redistribute(mesh, placements).to_local())
+           x.redistribute(mesh, placements).to_local(), rows or None)
+    for n in moved:
+        t = cache[n]
+        back = from_local(rows[n], mesh, placements, t.shape)
+        t.to_local().copy_(back.redistribute(mesh, t.placements).to_local())
     return from_local(y, mesh, placements, x.shape)

@@ -51,13 +51,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.distributed.context import (constrain, is_dtensor,
                                              replicating, whole_dim)
 
 from . import layers, rglru, ssm
 from .config import InputShape, ModelConfig
 from .layers import COMPUTE_DTYPE
-from .spec import P, abstract, initialize, leaves, stack, tree_axes, tree_map
+from .spec import (P, abstract, initialize, leaves, map_tree, stack,
+                   tree_axes, tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -114,15 +116,16 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions, mode: str,
     h = layers.apply_norm(cfg, p["ln1"], x)
     if kind == "ssd":
         s = layers.on_batch_rows(
-            lambda pp, hh: ssm.ssd_apply(
-                cfg, pp, hh, mode=mode, cache=cache["ssd"] if cache else None,
-                state_bf16=state_bf16)[0], p["ssd"], h)
+            lambda pp, hh, cc: ssm.ssd_apply(
+                cfg, pp, hh, mode=mode, cache=cc,
+                state_bf16=state_bf16)[0], p["ssd"], h,
+            cache["ssd"] if cache else None)
         return x + s, None
     if kind == "rglru":
         r = layers.on_batch_rows(
-            lambda pp, hh: rglru.rglru_apply(
-                cfg, pp, hh, mode=mode,
-                cache=cache["rglru"] if cache else None)[0], p["rglru"], h)
+            lambda pp, hh, cc: rglru.rglru_apply(
+                cfg, pp, hh, mode=mode, cache=cc)[0], p["rglru"], h,
+            cache["rglru"] if cache else None)
         x = x + r
     elif kind in ("attn", "local_attn", "moe"):
         a, _ = layers.attention_apply(
@@ -341,6 +344,12 @@ class CausalLM(nn.Module):
                            enc_out)
 
     def init_cache(self, batch: int, seq_len: int):
+        """A zeroed cache on the parameters' device, or, for sharded
+        parameters, placed on their mesh."""
+        embed = self.params["embed"]
+        if is_dtensor(embed):
+            return init_cache(self.cfg, batch, seq_len,
+                              mesh=embed.device_mesh)
         return init_cache(self.cfg, batch, seq_len, device=self.device)
 
 
@@ -463,10 +472,6 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
 
 def _forward(cfg: ModelConfig, p, batch, mode, caches, cache_index):
     embed = p["embed"]
-    if caches is not None and is_dtensor(embed):
-        raise NotImplementedError("prefill and decode on a mesh (caches "
-                                  "sharded by cache_specs' axes) are not "
-                                  "ported; serve from one device")
     dev = embed.device
     xa = None
     if cfg.is_encdec:
@@ -484,6 +489,8 @@ def _forward(cfg: ModelConfig, p, batch, mode, caches, cache_index):
         x = torch.nn.functional.embedding(
             tokens, whole_dim(embed, 0)).to(COMPUTE_DTYPE)
     x = constrain(x, ("batch", None, None))
+    if is_dtensor(cache_index):
+        cache_index = cache_index.full_tensor()
     if cache_index is not None and layers.scalar_index(cache_index) is None:
         s_max = _written_positions(caches, cross=xa is None)
         if s_max is not None and not isinstance(cache_index, torch.Tensor):
@@ -508,10 +515,19 @@ def _forward(cfg: ModelConfig, p, batch, mode, caches, cache_index):
         # bf16.
         flag.fill_(mode != "decode")
     x = layers.apply_norm(cfg, stack_p["ln_f"], x)
+    # Serving on a mesh (no graph) gathers the table over the dims that
+    # shard the batch (``layers.weight``), so no rank sums partial logits
+    # in bf16.  A training step keeps DTensor's own placement of the
+    # product, which forms the table's gradient in one product a rank
+    # where the gathered table's would be bf16 partials reduced over the
+    # batch axes (a loss ~1.8e-3 off one device's after three steps).
+    table = embed if cfg.tie_embeddings else p["unembed"]
+    table = (table.to(x.dtype) if torch.is_grad_enabled()
+             else layers.weight(table, x))
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, embed.to(x.dtype))
+        logits = torch.einsum("bsd,vd->bsv", x, table)
     else:
-        logits = x @ p["unembed"].to(x.dtype)
+        logits = x @ table
     logits = constrain(logits, ("batch", None, "vocab"))
     return logits.float(), caches, aux
 
@@ -547,14 +563,43 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
     return _stack_cache_specs(cfg, cfg.n_layers, batch, seq_len, cross_len)
 
 
+def cache_shardings(cfg: ModelConfig, caches, mesh):
+    """The ``NamedSharding`` of every leaf of a cache tree (plain, meta or
+    DTensor leaves; the host flag ``ssm.STATE_BF16`` left out) on
+    ``mesh``: its ``cache_specs`` axes resolved by the rules of
+    ``cfg.sharding_profile``, the counterpart of the reference's
+    ``shardings_for(tree_axes(cache_specs(...)))``."""
+    tree = {k: v for k, v in caches.items() if k != ssm.STATE_BF16}
+    return sharding.shardings_for(
+        tree_axes(cache_specs(cfg, 1, 1)), tree, mesh,
+        sharding.RULE_PROFILES[cfg.sharding_profile])
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device: DeviceLike = None) -> Dict[str, Any]:
+               device: DeviceLike = None, *, mesh=None) -> Dict[str, Any]:
     """Zeroed cache tree on ``device`` (``None``: the card).  A model with
     SSD layers also gets the host flag ``ssm.STATE_BF16``, True: a fresh
-    state is bf16 in the reference."""
-    dev = resolve_device(device)
-    # Zeros draw nothing from the generator.
-    tree = initialize(cache_specs(cfg, batch, seq_len), None, dev)
+    state is bf16 in the reference.
+
+    With ``mesh`` every leaf is a DTensor placed by ``cache_shardings``
+    and each rank allocates only its own block, on the mesh's device (or
+    ``device="meta"``: an abstract tree, nothing allocated)."""
+    if mesh is None:
+        # Zeros draw nothing from the generator.
+        tree = initialize(cache_specs(cfg, batch, seq_len), None,
+                          resolve_device(device))
+    else:
+        dev = (torch.device("meta") if str(device) == "meta"
+               else sharding.mesh_device(mesh))
+        abstract_tree = abstract(cache_specs(cfg, batch, seq_len))
+
+        def zeros(t, sh):
+            block = t[sharding.local_slices(t.shape, sh)]
+            return sharding.from_local(
+                torch.zeros(block.shape, dtype=t.dtype, device=dev), mesh,
+                sh.placements, t.shape)
+        tree = map_tree(zeros, abstract_tree,
+                        cache_shardings(cfg, abstract_tree, mesh))
     if "ssd" in cfg.layer_pattern:
         tree[ssm.STATE_BF16] = torch.tensor(True)
     return tree

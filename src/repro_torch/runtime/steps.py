@@ -122,8 +122,38 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig
     return train_step
 
 
+def _place_serving(cfg: ModelConfig, params, batch: Dict[str, Any]
+                   ) -> Dict[str, Any]:
+    """A serving batch as the step takes it.  On a mesh (DTensor
+    parameters) its arrays are placed by ``batch_specs`` and its caches by
+    ``model.cache_shardings`` (the counterpart of the reference's
+    ``in_shardings`` over ``cache_specs``' axes); a DTensor is taken as
+    it is, and ``cache_index`` stays on the host, where the model checks
+    per-row positions against the cache.  Off a mesh the batch is passed
+    as it is."""
+    embed = model.param_tree(params)["embed"]
+    if not is_dtensor(embed):
+        return batch
+    mesh = embed.device_mesh
+    out = dict(batch)
+    arrays = {k: v for k, v in batch.items()
+              if k not in ("caches", "cache_index") and v is not None}
+    out.update(_place_batch(arrays, mesh, None))
+    caches = batch.get("caches")
+    if caches is not None:
+        placed = model.cache_shardings(cfg, caches, mesh)
+        out["caches"] = {k: (v if k not in placed else map_tree(
+            lambda t, sh: t if is_dtensor(t) else sharding.distribute(t, sh),
+            v, placed[k])) for k, v in caches.items()}
+    return out
+
+
 def make_prefill_step(cfg: ModelConfig):
+    """Returns prefill_step(params, batch) -> (last logits (B, V),
+    caches): ``batch`` holds the inputs and ``caches``; on a mesh a plain
+    batch and cache tree are placed first (``_place_serving``)."""
     def prefill_step(params, batch):
+        batch = _place_serving(cfg, params, batch)
         caches = batch["caches"]
         inputs = {k: v for k, v in batch.items() if k != "caches"}
         return model.prefill(cfg, params, inputs, caches)
@@ -131,7 +161,11 @@ def make_prefill_step(cfg: ModelConfig):
 
 
 def make_decode_step(cfg: ModelConfig):
+    """Returns decode_step(params, batch) -> (logits (B, V), caches):
+    ``batch`` holds ``caches``, ``tokens`` (B, 1), ``cache_index`` and an
+    encoder-decoder's ``enc_out``; placed on a mesh as the prefill's."""
     def decode_step(params, batch):
+        batch = _place_serving(cfg, params, batch)
         return model.decode_step(
             cfg, params, batch["caches"], batch["tokens"],
             batch["cache_index"], enc_out=batch.get("enc_out"))

@@ -63,7 +63,8 @@ def test_imports_with_jax_blocked():
     "repro_torch.data.pipeline", "repro_torch.launch.train",
     "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
     "repro_torch.launch.cluster", "repro_torch.distributed.context",
-    "repro_torch.convert"])
+    "repro_torch.convert", "repro_torch.distributed.op_analysis",
+    "repro_torch.launch.dryrun"])
 def test_slice_modules_import_with_jax_blocked(module):
     code = (
         "import sys, importlib\n"

@@ -545,22 +545,6 @@ def test_forward_without_mesh_is_unchanged():
     assert torch.equal(inside, tm.loss_fn(cfg, lm, batch))
 
 
-def test_serving_on_a_mesh_is_refused():
-    """Prefill and decode take plain caches: on a mesh they raise rather
-    than mix sharded weights with unsharded caches."""
-    cfg = smoke("llama3.2-1b")
-
-    def rank(r):
-        mesh = tmesh.make_debug_mesh(1, 1, device_type="cpu")
-        lm = convert.shard_params(tm.init_params(cfg, 0, device="cpu"),
-                                  mesh)
-        caches = tm.init_cache(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="on a mesh"):
-            lm.prefill({"tokens": np.zeros((1, 4), np.int32)}, caches)
-        return True
-    assert tmesh.run_threaded(1, rank) == [True]
-
-
 # -- (e) the sharded train step on 4 gloo ranks -------------------------------
 
 def _record_constrain(log):
@@ -900,9 +884,11 @@ def load_chip_smoke():
 def test_chip_smoke_phase14_rehearsal(tmp_path):
     """The phase on threaded CPU ranks at smoke size, its "2d" profile (the
     "fsdp" run is the same code on other rules; the gloo ranks above
-    hold both): its checks pass and it reports its numbers."""
+    hold both), (z3)'s prompts cut to 32 tokens: its checks pass and it
+    reports its numbers."""
     cs = load_chip_smoke()
     cs.ROOT = tmp_path
+    cs.SERVE_S, cs.SERVE_MAX = 32, 64
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         out = cs.lm_sharding_phase(device="cpu", smoke=True,
@@ -912,6 +898,10 @@ def test_chip_smoke_phase14_rehearsal(tmp_path):
     assert "fsdp" not in out["z1"]
     assert out["z2"]["leaves"] > 0
     assert not (tmp_path / "build" / "sharded_ckpt").exists()
+    # (z3) and (z4), the dry run of (z1)'s step and (z3)'s decode step
+    # holding its collectives to CommDebugMode's.
+    assert out["z3"]["llama"]["worst_rel"] <= cs.SERVE_RTOL
+    assert set(out["z4"]) == {"z1 2d train", "z3 decode", "wall_s"}
 
 
 if __name__ == "__main__":
