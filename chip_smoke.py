@@ -244,8 +244,33 @@ printing its wall time beside the card's name and power limit:
    2x2 mesh under a ``fake`` group, in a subprocess (``chip_smoke.py
    --dryrun-worker IN OUT``): its collectives by kind equal those
    ``CommDebugMode`` counted on the card, its ``argument_bytes`` rank
-   0's local shards.  (z3)-(z4) fail past 120 s.
-15. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
+   0's local shards.  (z3)-(z4) fail past 120 s.  (z5) expert
+   parallelism and query-head sharding on the same mesh: olmoe-1b-7b at
+   full width and 2 layers (depth cut for time), batch 8 x seq 128 (whole
+   256-token MoE groups a rank under both profiles), one "2d" and one
+   "fsdp" train step against one device's under (z1)'s gates, every
+   rank's expert leaves local blocks of 32 of the 64 experts and every
+   expert call of the step on such a block ("fsdp" dispatches by
+   all-to-all); recurrentgemma-9b at full width and 3 layers (one
+   ``(rglru, rglru, local_attn)`` unit) served on the mesh, one prefill
+   and one decode against one device under (z3)'s rule, each rank's
+   attention core on 8 of the 16 query heads and the one KV head; ms a
+   step or a call, the collectives by kind, peak memory; the dry run of
+   the two train steps and the decode under (z4)'s check.  (z5) fails
+   past 120 s.
+15. Examples: each ``examples/*_torch.py``'s ``main`` in this process on
+   the card (loaded by path, its standard output captured), train_lm for
+   100 steps into a checkpoint directory under ``build/`` (removed
+   after): the examples' own asserts hold; quickstart, dna_alignment,
+   match_service, dedup_pipeline and crypto_rc4 also run on the CPU
+   (``main(device="cpu")``) and every printed line equals the card's once
+   times, backends, the planner's reasons and device names are masked;
+   dna_alignment recovers 64/64 reads and the primer site [31337];
+   serve_lm completes its streams and prints its acceptance; train_lm's
+   mean loss over its last 10 steps is below its first 10's and its
+   checkpoints end at step 100.  Each example's wall time and the kernels
+   it launched are printed.  The phase fails past 60 s.
+16. Summary: a ``kernels`` line, the ``{"kernels": [...]}`` JSON line
    (``match_swar``'s launches count phase 10's; each row also carries
    phase 12's launches, ``launches_sharded``, and phase 13's over both
    ranks, ``launches_procs``), the script's wall time, the card's name
@@ -447,6 +472,36 @@ SHARDED_NORM_RTOL, SHARDED_CKPT_LAYERS, SHARDED_LIMIT_S = 1e-2, 2, 150.0
 # shards.  (z3) and (z4) together fail past SERVE_LIMIT_S.
 SERVE_B, SERVE_S, SERVE_MAX, SERVE_DECODES = 4, 128, 256, 2
 SERVE_RTOL, SERVE_FLOOR_X, SERVE_LIMIT_S = 2e-3, 2.0, 120.0
+# (z5) expert parallelism and query-head sharding on that mesh: olmoe-1b-7b
+# at full width and Z5_MOE_LAYERS layers (depth cut for time), batch
+# SHARDED_B x seq SHARDED_S (whole 256-token groups a rank under both
+# profiles), one "2d" and one "fsdp" step against one device's, under
+# (z1)'s gates, each rank holding and running its E/m experts; then
+# recurrentgemma-9b at full width and Z5_HYBRID_LAYERS layers (one
+# (rglru, rglru, local_attn) unit, so its MQA local attention runs with
+# query heads sharded over model) served on the mesh, one prefill and one
+# decode, under (z3)'s rule; the dry run of these steps under (z4)'s
+# check.  (z5) fails past Z5_LIMIT_S.
+Z5_MOE_LAYERS, Z5_HYBRID_LAYERS, Z5_LIMIT_S = 2, 3, 120.0
+# Examples (phase 15): each ``examples/*_torch.py`` run by its ``main`` in
+# this process on the card, train_lm for EXAMPLE_TRAIN_STEPS steps into a
+# checkpoint directory under ``build/``; the five match/CRAM examples
+# also on the CPU, their lines equal once EXAMPLE_MASKS has masked times,
+# backends, the planner's reasons and device names.  The phase fails past
+# EXAMPLES_LIMIT_S.
+EXAMPLES = ("quickstart", "dna_alignment", "match_service", "dedup_pipeline",
+            "crypto_rc4", "serve_lm", "train_lm")
+EXAMPLES_HELD = EXAMPLES[:5]
+EXAMPLE_TRAIN_STEPS, EXAMPLES_LIMIT_S = 100, 60.0
+# (what is masked, pattern): a wall time or rate, the planner's choice and
+# its reason (a plan is priced for the device it runs on), the device.
+EXAMPLE_MASKS = (
+    ("reason", r"(?<=planner chose )'\w+' \(.*\)"),
+    ("backend", r"(?<=backend=)'\w+'|(?<=backend for queries: )\w+"
+                r"|(?<=compiled once \()\w+"),
+    ("time", r"\d+(\.\d+)?\s?(ms|s)\b|\(\d[\d,]* tok/s[^)]*\)"),
+    ("device", r"\b(cuda(:\d+)?|cpu)\b"),
+)
 # Row shards (phase 12): the sharded engine's shard count on one card, the
 # second count held for (a) and (c), the seeded rows appended before the
 # tombstones (1 in TOMBSTONE_EVERY live rows) and the compaction.
@@ -2829,6 +2884,9 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
                              1e3 * (time.perf_counter() - t)))
         out = {"hist": hist, "comm": comm, "arg_bytes": arg_bytes,
                "leaves": sharded_leaf_counts(lm),
+               "experts": {p: tuple(t.to_local().shape)
+                           for p, t in leaves(lm.params)
+                           if "/moe/w" in p},
                "devices": sorted({str(t.to_local().device)
                                   for _, t in leaves(lm.params)})}
         errs = {}
@@ -2847,7 +2905,7 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
     return lmesh.run_threaded(MESH_DATA * MESH_MODEL, rank)
 
 
-def sharded_hold(label, ranks, want_hist) -> dict:
+def sharded_hold(label, ranks, want_hist, tag="(z1)") -> dict:
     """Every rank's losses and norms against the one-device run's, rank
     0's leaf errors; the worst of each."""
     worst = {"loss": 0.0, "norm": 0.0}
@@ -2855,12 +2913,12 @@ def sharded_hold(label, ranks, want_hist) -> dict:
         for (gl, gn, _), (wl, wn) in zip(res["hist"], want_hist):
             worst["loss"] = max(worst["loss"], abs(gl - wl) / abs(wl))
             worst["norm"] = max(worst["norm"], abs(gn - wn) / abs(wn))
-    check(worst["loss"] < TRAIN_LOSS_RTOL, f"(z1) {label} losses "
+    check(worst["loss"] < TRAIN_LOSS_RTOL, f"{tag} {label} losses "
           f"{[r['hist'] for r in ranks]} vs {want_hist}")
-    check(worst["norm"] < SHARDED_NORM_RTOL, f"(z1) {label} gradient "
+    check(worst["norm"] < SHARDED_NORM_RTOL, f"{tag} {label} gradient "
           f"norms {[r['hist'] for r in ranks]} vs {want_hist}")
     leaf = max(ranks[0]["leaf_errs"].items(), key=lambda kv: kv[1])
-    check(leaf[1] < TRAIN_LEAF_RTOL, f"(z1) {label} worst leaf {leaf}")
+    check(leaf[1] < TRAIN_LEAF_RTOL, f"{tag} {label} worst leaf {leaf}")
     worst["leaf"] = leaf
     return worst
 
@@ -3392,6 +3450,296 @@ def sharded_z2(*, device, smoke) -> dict:
           f"onto the mesh with shardings=: every rank's block of each of "
           f"{out['leaves']} leaves equal to its slice of the saved array; "
           f"{out['wall_s']:.1f} s; card: {Phase.card}")
+    return out
+
+
+def sharded_z5(*, device, sync, smoke) -> dict:
+    """(z5) expert parallelism (olmoe-1b-7b's train steps under both
+    profiles) and query-head sharding (recurrentgemma-9b served) on the
+    MESH_DATA x MESH_MODEL mesh against one device, then the dry run of
+    those steps under (z4)'s check."""
+    import torch
+    t = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    out = {"moe": z5_moe(device=device, sync=sync, smoke=smoke)}
+    train_free(cuda)
+    out["hybrid"] = z5_hybrid(device=device, sync=sync, smoke=smoke)
+    train_free(cuda)
+    moe = {"arch": LM_MOE_ARCH, "smoke": smoke,
+           "fields": {"n_layers": out["moe"]["n_layers"]}}
+    cells = [dryrun_cell(f"z5 {label} train", dict(
+        moe, fields=dict(moe["fields"], sharding_profile=label)), "train",
+        SHARDED_S, SHARDED_B, out["moe"][label]["comm"],
+        out["moe"][label]["arg_bytes"]) for label in ("2d", "fsdp")]
+    hyb = out["hybrid"]
+    cells.append(dryrun_cell("z5 hybrid decode", {
+        "arch": LM_HYBRID_ARCH, "smoke": smoke,
+        "fields": {"n_layers": hyb["n_layers"]}}, "decode", SERVE_MAX,
+        SERVE_B, hyb["comm"], hyb["arg_bytes"]))
+    out["z4"] = sharded_z4(cells, device=device)
+    out["wall_s"] = time.perf_counter() - t
+    check(smoke or out["wall_s"] < Z5_LIMIT_S,
+          f"phase 14 (z5) within {Z5_LIMIT_S} s: {out['wall_s']:.1f} s")
+    return out
+
+
+def z5_moe(*, device, sync, smoke) -> dict:
+    """olmoe-1b-7b at Z5_MOE_LAYERS layers: one train step on one device,
+    then the same weights and batch on the mesh under "2d" and "fsdp":
+    (z1)'s gates; every rank's expert leaves local blocks of E/m experts,
+    and every expert call of the step on such a block."""
+    import threading
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models import model as lmm
+    from repro_torch.models.spec import leaves, map_tree
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rsteps
+    cuda = torch.device(device).type == "cuda"
+    cfg = get_config(LM_MOE_ARCH, smoke=smoke)
+    cfg = dataclasses.replace(cfg, n_layers=min(Z5_MOE_LAYERS, cfg.n_layers))
+    lm = lmm.init_params(cfg, SEED, device, trainable=True)
+    with torch.no_grad():
+        init = lmm.CausalLM(cfg, map_tree(torch.clone, lm.params),
+                            trainable=True)
+    step = rsteps.make_train_step(cfg, sharded_opt())
+    st = adamw.init(lm)
+    batch = train_batch(cfg, SHARDED_B, SHARDED_S, 0, device)
+    sync()
+    t = time.perf_counter()
+    lm, st, m = step(lm, st, batch)
+    sync()
+    one = (m["loss"].item(), m["grad_norm"].item(),
+           1e3 * (time.perf_counter() - t))
+    want = {p: x.detach().clone() for p, x in leaves(lm.params)}
+    del lm, st, m
+    train_free(cuda)
+    E, per_rank = cfg.n_experts, cfg.n_experts // MESH_MODEL
+    out = {"n_layers": cfg.n_layers, "n_params": cfg.n_params(),
+           "one_device": {"hist": [one]}}
+    inner = layers._experts
+    for label in ("2d", "fsdp"):
+        c = dataclasses.replace(cfg, sharding_profile=label)
+        calls = []
+
+        def experts(p, ein, _calls=calls):
+            if threading.current_thread() is not threading.main_thread():
+                _calls.append(int(p["wg"].shape[0]))
+            return inner(p, ein)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        t = time.perf_counter()
+        layers._experts = experts
+        try:
+            ranks = sharded_steps(init, c, 1, want, device=device, sync=sync)
+        finally:
+            layers._experts = inner
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        worst = sharded_hold(f"{c.name} {label}", ranks, [one[:2]],
+                             tag="(z5)")
+        blocks = {p: shp for r in ranks for p, shp in r["experts"].items()}
+        # Each leaf stacks the layers' (E, ., .) weights on a leading dim.
+        check(len(blocks) == 3 and all(
+            shp[-3] == per_rank for r in ranks
+            for shp in r["experts"].values()),
+              f"(z5) {label}: every rank's expert leaves are blocks of "
+              f"{per_rank} of {E} experts: {[r['experts'] for r in ranks]}")
+        check(len(calls) > 0 and set(calls) == {per_rank},
+              f"(z5) {label}: each rank ran its {per_rank} experts only: "
+              f"{sorted(set(calls))}")
+        comm = ranks[0]["comm"]
+        res = {"hist": [r["hist"] for r in ranks],
+               "ms_first": ranks[0]["hist"][0][2], "comm": comm,
+               "arg_bytes": ranks[0]["arg_bytes"],
+               "expert_block": list(blocks[next(iter(blocks))]),
+               "expert_calls": len(calls),
+               "peak_gb": (peak - base) / 1e9, "wall_s": wall,
+               "worst_loss": worst["loss"], "worst_norm": worst["norm"],
+               "worst_leaf": worst["leaf"]}
+        out[label] = res
+        del ranks
+        train_free(cuda)
+        print(f"  (z5) {c.name} at {cfg.n_layers} layers (full width, "
+              f"{out['n_params']:,} params f32) {label} on the "
+              f"{MESH_DATA}x{MESH_MODEL} mesh, batch {SHARDED_B} x seq "
+              f"{SHARDED_S}: loss {res['hist'][0][0][0]:.6f} vs one device "
+              f"{one[0]:.6f} (worst relative {res['worst_loss']:.2e}; grad "
+              f"norm {res['worst_norm']:.2e}); worst leaf "
+              f"{res['worst_leaf'][0]} {res['worst_leaf'][1]:.2e} (relative "
+              f"L2); each rank's expert leaves {per_rank} of {E} experts "
+              f"(a local block {tuple(res['expert_block'])}), {len(calls)} "
+              f"expert calls on such blocks; its first step "
+              f"{res['ms_first']:.1f} ms against one device {one[2]:.1f}; "
+              "collectives: " + ", ".join(
+                  f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.1f} MB)"
+                  for k, v in sorted(comm["counts"].items()))
+              + f"; peak {res['peak_gb']:.2f} GB on the card (every "
+              f"rank's); {wall:.1f} s; card: {Phase.card}")
+    return out
+
+
+def z5_hybrid(*, device, sync, smoke) -> dict:
+    """recurrentgemma-9b at Z5_HYBRID_LAYERS layers served on the mesh
+    against one device (one prefill, one decode) under (z3)'s rule; each
+    rank's attention core on H/m query heads and one KV head."""
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    cfg = get_config(LM_HYBRID_ARCH, smoke=smoke)
+    cfg = dataclasses.replace(cfg, n_layers=Z5_HYBRID_LAYERS)
+    t = time.perf_counter()
+    seen = []
+    inner = {n: getattr(layers, n) for n in ("_prefill_core", "_decode_core")}
+
+    def probe(fn):
+        def core(cfg_, cache, q, *kv, **kw):
+            if threading.current_thread() is not threading.main_thread():
+                seen.append((q.shape[1], cache["k"][:, kw["heads"]].shape[1]))
+            return fn(cfg_, cache, q, *kv, **kw)
+        return core
+    for n, fn in inner.items():
+        setattr(layers, n, probe(fn))
+    try:
+        one, one_ms, ranks, floor = sharded_serve(
+            cfg, 1, device=device, sync=sync, comm_call=1)
+    finally:
+        for n, fn in inner.items():
+            setattr(layers, n, fn)
+    H = cfg.padded_heads
+    check(len(seen) > 0 and set(seen) == {(H // MESH_MODEL, 1)},
+          f"(z5) {cfg.name}: each rank's attention core on "
+          f"{H // MESH_MODEL} query heads and one KV head: {sorted(set(seen))}")
+    res = serve_hold(cfg.name, one, ranks[0]["logits"], floor)
+    ms = ranks[0]["ms"]
+    comm = ranks[0]["comm"]
+    res.update({"n_layers": cfg.n_layers, "n_params": cfg.n_params(),
+                "ms_prefill": ms[0], "ms_decode": ms[1],
+                "one_ms_prefill": one_ms[0], "one_ms_decode": one_ms[1],
+                "comm": {"counts": comm["counts"], "bytes": comm["bytes"]},
+                "arg_bytes": comm["arg_bytes"],
+                "core_heads": sorted(set(seen)),
+                "wall_s": time.perf_counter() - t})
+    print(f"  (z5) {cfg.name} at {cfg.n_layers} layers (full width, "
+          f"{res['n_params']:,} params f32, {H} query heads over "
+          f"{cfg.n_kv_heads} KV head) served on the {MESH_DATA}x{MESH_MODEL}"
+          f" mesh, {SERVE_B} prompts of {SERVE_S} into {SERVE_MAX} "
+          f"positions, 1 decode: each rank's attention core on "
+          f"{H // MESH_MODEL} query heads and 1 KV head ({len(seen)} calls);"
+          f" worst logit row {res['worst_rel']:.2e} relative L2 against one "
+          f"device (gate {res['gate']:.2e}, floor {res['floor_rel']:.2e}); "
+          f"greedy tokens equal in {res['rows'] - res['near_ties']} of "
+          f"{res['rows']} rows (the rest near-ties); prefill "
+          f"{res['ms_prefill']:.1f} ms (first call) against one device "
+          f"{res['one_ms_prefill']:.1f}; a decode step {res['ms_decode']:.1f}"
+          f" ms (its first) against {res['one_ms_decode']:.1f}; the "
+          "decode's collectives: " + ", ".join(
+              f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.3f} MB)"
+              for k, v in sorted(comm["counts"].items()))
+          + f"; {res['wall_s']:.1f} s; card: {Phase.card}")
+    return res
+
+
+def example_lines(text: str) -> list:
+    """An example's printed lines with EXAMPLE_MASKS applied."""
+    import re
+    lines = []
+    for line in text.splitlines():
+        for name, pattern in EXAMPLE_MASKS:
+            line = re.sub(pattern, f"<{name}>", line)
+        lines.append(line)
+    return lines
+
+
+def run_example(name: str, device, argv=None):
+    """``examples/{name}_torch.py``'s ``main`` in this process on
+    ``device``: (its standard output, seconds)."""
+    import contextlib
+    import io
+    import runpy
+    mod = runpy.run_path(str(ROOT / "examples" / f"{name}_torch.py"),
+                         run_name=f"{name}_torch")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        if argv is None:
+            mod["main"](device=device)
+        else:
+            mod["main"](device=device, argv=argv)
+    return buf.getvalue(), time.perf_counter() - t
+
+
+def examples_phase(*, device="cuda", sync, zero_counts, read_counts,
+                   names=EXAMPLES) -> dict:
+    """Phase 15: the ``names`` of ``examples/*_torch.py`` on ``device``,
+    the match/CRAM ones also on the CPU, their masked lines equal; each
+    example's own asserts; dna_alignment's recovered reads and primer
+    site, serve_lm's streams and acceptance, train_lm's falling loss and
+    checkpoints."""
+    import re
+    import shutil
+    t_phase = time.perf_counter()
+    out = {}
+    train_steps = EXAMPLE_TRAIN_STEPS
+    for name in names:
+        argv = None
+        ckpt = ROOT / "build" / "example_train_ckpt"
+        if name == "train_lm":
+            shutil.rmtree(ckpt, ignore_errors=True)
+            argv = ["--steps", str(train_steps), "--ckpt-dir", str(ckpt)]
+        zero_counts()
+        sync()
+        try:
+            text, sec = run_example(name, device, argv)
+            sync()
+        finally:
+            if name == "train_lm":
+                shutil.rmtree(ckpt, ignore_errors=True)
+        launched = {k: n for k, n in read_counts().items() if n}
+        res = {"s": sec, "launches": launched, "lines": len(
+            text.splitlines())}
+        if name in EXAMPLES_HELD:
+            cpu, cpu_s = run_example(name, "cpu")
+            got, want = example_lines(text), example_lines(cpu)
+            check(got == want, f"phase 15 {name}: the card's lines "
+                  f"{got} vs the CPU's {want}")
+            res["cpu_s"] = cpu_s
+        if name == "dna_alignment":
+            check("recovered 64/64" in text and "[31337]" in text,
+                  f"phase 15 dna_alignment: {text}")
+        if name == "serve_lm":
+            acc = re.search(r"acceptance on replayed streams: (\d+)/(\d+)",
+                            text)
+            check("6 requests through 3 slots: 96 tokens" in text
+                  and acc is not None,
+                  f"phase 15 serve_lm completes its streams: {text}")
+            res["acceptance"] = [int(acc.group(1)), int(acc.group(2))]
+        if name == "train_lm":
+            loss = re.search(r"loss ([\d.]+) -> ([\d.]+) over (\d+) steps",
+                             text)
+            ckpts = re.search(r"checkpoints: \[(.*)\]", text)
+            check(loss is not None and float(loss.group(2))
+                  < float(loss.group(1)) and int(loss.group(3))
+                  == train_steps, f"phase 15 train_lm's loss falls: {text}")
+            check(ckpts is not None and ckpts.group(1).split(", ")[-1]
+                  == str(train_steps), f"phase 15 train_lm's checkpoints "
+                  f"end at {train_steps}: {text}")
+            res["loss"] = [float(loss.group(1)), float(loss.group(2))]
+        out[name] = res
+        print(f"  {name}_torch: {sec:.2f} s on {device}"
+              + (f" (CPU {res['cpu_s']:.2f} s, {res['lines']} lines equal "
+                 "once masked)" if "cpu_s" in res else "")
+              + f"; kernels launched {launched}; card: {Phase.card}")
+        for line in text.splitlines():
+            print(f"    | {line}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    check(device != "cuda" or out["wall_s"] < EXAMPLES_LIMIT_S,
+          f"phase 15 within {EXAMPLES_LIMIT_S} s: {out['wall_s']:.1f} s")
     return out
 
 
@@ -4885,11 +5233,23 @@ def main() -> int:
     # -- 14. the LM's sharding ------------------------------------------------
     with Phase(f"phase 14: the LM's sharding on the card: {LM_ARCH} on a "
                f"{MESH_DATA}x{MESH_MODEL} (data, model) mesh, both rule "
-               "profiles, restore onto the mesh"):
+               "profiles, restore onto the mesh, expert parallelism and "
+               "query-head sharding"):
         sharding_info = lm_sharding_phase()
+        sharding_info["z5"] = sharded_z5(device="cuda",
+                                         sync=torch.cuda.synchronize,
+                                         smoke=False)
         print("lm_sharding " + json.dumps(sharding_info))
 
-    # -- 15. summary ---------------------------------------------------------
+    # -- 15. the examples -----------------------------------------------------
+    with Phase("phase 15: examples, each examples/*_torch.py's main on the "
+               "card, the match/CRAM ones against the CPU"):
+        examples_info = examples_phase(sync=torch.cuda.synchronize,
+                                       zero_counts=zero_counts,
+                                       read_counts=read_counts)
+        print("examples " + json.dumps(examples_info))
+
+    # -- 16. summary ---------------------------------------------------------
     # Each kernel's launches come from its own path's run; match_swar's
     # path is (e)-(f)'s verify and phase 10's speculators.  Phases 12 and
     # 13's launches of the same kernels on the sharded paths stand beside

@@ -38,11 +38,18 @@ reference's other branch: causal self-attention over its own cross cache
 
 On a mesh (DTensor parameters and activations) a weight is gathered
 over the mesh dims that shard the batch at each use and keeps its other
-shards (``weight``), the attention core runs on each rank's batch rows
-and heads (``_on_shards``), and the MoE, SSD and RG-LRU blocks run on
-each rank's batch rows with whole weights (``moe_apply``,
-``on_batch_rows``): the same per-row arithmetic as one device's, with
-the collectives at the edges.
+shards (``weight``).  The attention core runs on each rank's batch rows
+and heads (``_on_shards``, ``_cache_call``): where the KV heads replicate
+over the dim that shards the query heads, each rank keeps its query
+heads and reads only the KV head they share (``_query_heads``).  The
+MoE routes each rank's batch rows; where the experts shard over a mesh
+dim each rank holds and runs only its block of experts, summing the
+combine's f32 partials across the dim ("2d") or exchanging its buffers
+with the experts' owners by all-to-all ("fsdp"), else it runs every
+expert with whole weights (``moe_apply``).  The SSD and RG-LRU blocks
+run on each rank's batch rows with whole weights (``on_batch_rows``).
+Each is the same per-row arithmetic as one device's, with the
+collectives at the edges.
 """
 
 from __future__ import annotations
@@ -224,8 +231,10 @@ def _on_shards(core, q, k, v, **kw):
     """``core(q, k, v, **kw)`` (an attention core); on a mesh each rank
     runs it on its own batch rows and heads.  The batch dim keeps its
     shards, the heads dim keeps them where the KV heads divide over them
-    (a query head's KV head is on the same rank), every other mesh dim
-    replicates; the output is placed as the inputs were brought."""
+    (a query head's KV head is on the same rank) or where each rank's
+    query heads read one KV head of replicated k/v (``_query_heads``);
+    every other mesh dim replicates.  The output is placed as q was
+    brought."""
     if not is_dtensor(q):
         return core(q, k, v, **kw)
     from torch.distributed.tensor import Replicate
@@ -240,9 +249,50 @@ def _on_shards(core, q, k, v, **kw):
             split *= n
         else:
             placements.append(Replicate())
-    q, k, v = (t.redistribute(mesh, placements) for t in (q, k, v))
-    out = core(q.to_local(), k.to_local(), v.to_local(), **kw)
-    return from_local(out, mesh, placements, q.shape)
+    q_pl, heads = _query_heads(q, K, placements)
+    k, v = (_kv_local(t, placements, q_pl)[:, heads] for t in (k, v))
+    out = core(q.redistribute(mesh, q_pl).to_local(), k, v, **kw)
+    return from_local(out, mesh, q_pl, q.shape)
+
+
+def _query_heads(q, K: int, kv_placements) -> Tuple[list, slice]:
+    """Query-head sharding over replicated KV heads: (q's placements,
+    the KV heads this rank's query heads read).  Where q shards its
+    heads over mesh dims on which the ``K`` KV heads replicate
+    (``kv_placements``: the KV heads shard over no mesh dim) and each
+    rank's H/m query heads lie within one KV group (query head h reads KV
+    head h // (H/K)), q keeps those shards and the rank reads one KV
+    head; otherwise q is placed as the KV heads are and reads all of
+    them."""
+    keep = slice(None)
+    dims = [i for i, (qp, kp) in enumerate(zip(q.placements, kv_placements))
+            if qp.is_shard(1) and not kp.is_shard(1)]
+    if not dims or any(kp.is_shard(1) for kp in kv_placements):
+        return list(kv_placements), keep
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    H = q.shape[1]
+    m = math.prod(q.device_mesh.shape[i] for i in dims)
+    if H % m or H % K or (H // K) % (H // m):
+        return list(kv_placements), keep
+    q_pl = [q.placements[i] if i in dims else p
+            for i, p in enumerate(kv_placements)]
+    _, offset = compute_local_shape_and_global_offset(
+        tuple(q.shape), q.device_mesh, q_pl)
+    kv = offset[1] // (H // K)
+    return q_pl, slice(kv, kv + 1)
+
+
+def _kv_local(t, placements, q_pl) -> torch.Tensor:
+    """K or V placed by ``placements``, as this rank's local tensor.
+    Where q keeps a heads shard that ``placements`` replicates, each
+    rank reads only its query heads' KV heads, so the gradient of the
+    replicated block is a partial sum over those mesh dims."""
+    from torch.distributed.tensor import Partial
+    grads = [Partial() if qp.is_shard(1) and not p.is_shard(1) else p
+             for p, qp in zip(placements, q_pl)]
+    return t.redistribute(t.device_mesh, placements).to_local(
+        grad_placements=grads)
 
 
 def _local_block_attention(q, k, v, *, window: int):
@@ -295,25 +345,29 @@ def scalar_index(cache_index) -> Optional[int]:
 
 
 def _cache_call(fn, cache, q, *kv, **kw):
-    """``fn(cache, q, *kv, rows=..., **kw)``: an attention core that
-    reads and writes ``cache`` in place; returns its output (B, H, Sq,
-    D).  On a mesh (DTensor cache leaves, every leaf of one layer placed
-    alike by ``attn_cache_specs``' axes) each rank runs ``fn`` on its own
-    block: ``q`` and ``kv`` are brought to the cache's placements (rows
-    on the batch axes, heads where the cache shards its KV heads), the
-    cache's leaves are the rank's local tensors, written in place, and
-    ``rows`` is the slice of the batch the rank holds (for per-row write
-    positions).  The output is placed as the cache is."""
+    """``fn(cache, q, *kv, rows=..., heads=..., **kw)``: an attention
+    core that reads and writes ``cache`` in place; returns its output (B,
+    H, Sq, D).  On a mesh (DTensor cache leaves, every leaf of one layer
+    placed alike by ``attn_cache_specs``' axes) each rank runs ``fn`` on
+    its own block: ``kv`` are brought to the cache's placements (rows on
+    the batch axes, heads where the cache shards its KV heads), ``q`` too
+    but where it keeps its heads shard over a replicated cache
+    (``_query_heads``), the cache's leaves are the rank's local tensors,
+    written in place (a replicated cache whole on every rank), ``rows``
+    is the slice of the batch the rank holds (for per-row write
+    positions) and ``heads`` the KV heads of the local cache the rank's
+    query heads read.  The output is placed as q was brought."""
     ref = cache["k"]
     if not is_dtensor(ref):
-        return fn(cache, q, *kv, rows=slice(None), **kw)
+        return fn(cache, q, *kv, rows=slice(None), heads=slice(None), **kw)
     mesh, placements = ref.device_mesh, ref.placements
+    q_pl, heads = _query_heads(q, ref.shape[1], placements)
     local = {n: t.to_local() for n, t in cache.items()}
-    q_l, *kv_l = (None if t is None
-                  else t.redistribute(mesh, placements).to_local()
-                  for t in (q, *kv))
-    out = fn(local, q_l, *kv_l, rows=local_rows(ref), **kw)
-    return from_local(out, mesh, placements, q.shape)
+    kv_l = (None if t is None
+            else t.redistribute(mesh, placements).to_local() for t in kv)
+    out = fn(local, q.redistribute(mesh, q_pl).to_local(), *kv_l,
+             rows=local_rows(ref), heads=heads, **kw)
+    return from_local(out, mesh, q_pl, q.shape)
 
 
 def _write_span(cfg: ModelConfig, cache, k, v, start: int) -> None:
@@ -332,7 +386,8 @@ def _write_span(cfg: ModelConfig, cache, k, v, start: int) -> None:
         cache["v"][:, :, start:start + S] = v.to(cache["v"].dtype)
 
 
-def _write_at_0(cfg: ModelConfig, cache, q, k, v, *, rows) -> torch.Tensor:
+def _write_at_0(cfg: ModelConfig, cache, q, k, v, *, rows,
+                heads) -> torch.Tensor:
     """A full-mode write without a cache index: K/V at position 0
     (clamped as ``_prefill_core`` clamps); returns ``q`` (the attention
     runs over k, v, not the cache)."""
@@ -340,36 +395,38 @@ def _write_at_0(cfg: ModelConfig, cache, q, k, v, *, rows) -> torch.Tensor:
     return q
 
 
-def _prefill_core(cfg: ModelConfig, cache, q, k, v, *, rows, offset: int,
-                  window: Optional[int]) -> torch.Tensor:
+def _prefill_core(cfg: ModelConfig, cache, q, k, v, *, rows, heads,
+                  offset: int, window: Optional[int]) -> torch.Tensor:
     """Full mode into a cache: K/V written at ``offset`` (clamped into
     range, as ``lax.dynamic_update_slice`` clamps the start), then the
-    queries attend the updated cache (the chunked continuation: the
-    speculative verify, a prefill into a cache); the causal mask (q_pos =
-    offset + i) hides stale higher positions."""
+    queries attend the updated cache's KV ``heads`` (the chunked
+    continuation: the speculative verify, a prefill into a cache); the
+    causal mask (q_pos = offset + i) hides stale higher positions."""
     S, S_max = k.shape[2], cache["k"].shape[2]
     _write_span(cfg, cache, k, v, min(max(offset, 0), S_max - S))
+    read = {n: t[:, heads] for n, t in cache.items()}
     if cfg.kv_quant:
-        kk = (cache["k"].to(COMPUTE_DTYPE)
-              * cache["k_scale"][..., None].to(COMPUTE_DTYPE))
-        vv = (cache["v"].to(COMPUTE_DTYPE)
-              * cache["v_scale"][..., None].to(COMPUTE_DTYPE))
+        kk = (read["k"].to(COMPUTE_DTYPE)
+              * read["k_scale"][..., None].to(COMPUTE_DTYPE))
+        vv = (read["v"].to(COMPUTE_DTYPE)
+              * read["v_scale"][..., None].to(COMPUTE_DTYPE))
     else:
-        kk, vv = cache["k"], cache["v"]
+        kk, vv = read["k"], read["v"]
     return _online_softmax_scan(
         q, kk.to(q.dtype), vv.to(q.dtype), q_offset=offset, window=window,
         block_kv=_pick_block(kk.shape[2], cfg.attn_block_kv))
 
 
-def _cross_core(cfg: ModelConfig, cache, q, k, v, *, rows) -> torch.Tensor:
+def _cross_core(cfg: ModelConfig, cache, q, k, v, *, rows,
+                heads) -> torch.Tensor:
     """Cross-attention in full mode: the encoder's K/V cached from
     position 0, cast to the cache's dtype as the reference casts them;
-    every query sees every key of k, v (not of the cache)."""
+    every query sees every key of k, v's ``heads`` (not of the cache)."""
     Sx = k.shape[2]
     cache["k"][:, :, :Sx] = k.to(cache["k"].dtype)
     cache["v"][:, :, :Sx] = v.to(cache["v"].dtype)
     return _online_softmax_scan(
-        q, k, v, q_offset=0, bidir=True,
+        q, k[:, heads], v[:, heads], q_offset=0, bidir=True,
         block_kv=_pick_block(Sx, cfg.attn_block_kv))
 
 
@@ -416,15 +473,16 @@ def _decode_write(cfg: ModelConfig, cache, k, v, cache_index,
     return valid
 
 
-def _decode_core(cfg: ModelConfig, cache, q, k, v, *, rows, cache_index,
-                 window: Optional[int]) -> torch.Tensor:
-    """One query position (B, H, 1, hd) against the cache, after writing
-    its K/V (``k`` None: cross-attention over the encoder's cached K/V,
-    every position valid)."""
+def _decode_core(cfg: ModelConfig, cache, q, k, v, *, rows, heads,
+                 cache_index, window: Optional[int]) -> torch.Tensor:
+    """One query position (B, H, 1, hd) against the cache's KV ``heads``,
+    after writing its K/V (``k`` None: cross-attention over the encoder's
+    cached K/V, every position valid)."""
     valid = None
     if k is not None:
         valid = _decode_write(cfg, cache, k, v, cache_index, window, rows)
-    kk, vv = cache["k"], cache["v"]
+    read = {n: t[:, heads] for n, t in cache.items()}
+    kk, vv = read["k"], read["v"]
     B, H, _, hd = q.shape
     K = kk.shape[1]
     qg = q.reshape(B, K, H // K, 1, hd)
@@ -433,12 +491,12 @@ def _decode_core(cfg: ModelConfig, cache, q, k, v, *, rows, cache_index,
     s = _dot_f32(qg, kk.to(q.dtype)[:, :, None].transpose(-1, -2)) \
         * (1.0 / math.sqrt(hd))      # "/ sqrt(hd)", compiled as XLA does
     if cfg.kv_quant:
-        s = s * cache["k_scale"][:, :, None, None, :]
+        s = s * read["k_scale"][:, :, None, None, :]
     if valid is not None:
         s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     pr = torch.softmax(s, dim=-1)
     if cfg.kv_quant:
-        pr = pr * cache["v_scale"][:, :, None, None, :]
+        pr = pr * read["v_scale"][:, :, None, None, :]
     out = _dot_f32(pr.to(COMPUTE_DTYPE), vv.to(COMPUTE_DTYPE)[:, :, None])
     return out.reshape(B, H, 1, hd).to(q.dtype)
 
@@ -651,11 +709,26 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
     holds at most one token.  Every expert runs on its whole buffer,
     empty slots too, as the reference's do.
 
-    On a mesh each rank routes its own batch rows through whole expert
-    weights (the groups are runs of tokens, so a rank whose rows hold
-    whole groups routes them as one device does; otherwise every rank
-    takes the whole batch), and the load-balance statistics are averaged
-    over the ranks' groups before the aux loss is formed."""
+    On a mesh each rank routes its own batch rows (the groups are runs of
+    tokens, so a rank whose rows hold whole groups routes them as one
+    device does), and the load-balance statistics are averaged over the
+    ranks' groups before the aux loss is formed.  Where the expert
+    weights shard their experts over a mesh dim (``_expert_dim``), each
+    rank holds and runs only its block of E/m experts:
+
+    * the batch replicated over that dim (the "2d" rules): the ranks of
+      the dim hold the same tokens; each fills only its experts' buffer
+      slots and forms each token's combine over them as an f32 partial,
+      and the partials are summed across the dim in f32 and rounded once,
+      as ``project`` sums a row-parallel product;
+    * the batch sharded over it ("fsdp"): each rank routes its own rows,
+      its (G, E, C, d) buffer goes to the experts' owners by an
+      all-to-all over the dim and the expert outputs come back by the
+      reverse all-to-all before the combine (``_exchange``), the
+      reference's dispatch under pjit.
+
+    Where the experts do not divide the dim, or a rank's rows do not hold
+    whole groups, every rank runs every expert with whole weights."""
     B, S, d = x.shape
     T = B * S
     Sg = min(cfg.moe_group_size, T)
@@ -664,18 +737,45 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
     if not is_dtensor(x):
         out, f_e, p_e = _moe_core(cfg, p, x, Sg)
         return out, cfg.n_experts * torch.sum(f_e * p_e)
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Partial, Replicate
     mesh = x.device_mesh
     placements = [xp if xp.is_shard(0) else Replicate()
                   for xp in x.placements]
     split = math.prod(n for pl, n in zip(placements, mesh.shape)
                       if pl.is_shard(0))
+    ep = _expert_dim(p)
     if B % split or (T // split) % Sg:
-        placements, split = [Replicate()] * mesh.ndim, 1
-    out, f_e, p_e = _moe_core(cfg, _whole_leaves(p, placements),
-                              x.redistribute(mesh, placements).to_local(),
-                              Sg)
-    out = from_local(out, mesh, placements, x.shape)
+        placements, split, ep = [Replicate()] * mesh.ndim, 1, None
+    if ep is None:
+        out, f_e, p_e = _moe_core(cfg, _whole_leaves(p, placements),
+                                  x.redistribute(mesh, placements).to_local(),
+                                  Sg)
+        out = from_local(out, mesh, placements, x.shape)
+    else:
+        m = mesh.shape[ep]
+        tokens_split = placements[ep].is_shard(0)
+        # Under "2d" every rank of the experts' dim holds the same tokens
+        # and adds only its experts' share to their gradient: partial sums
+        # over the dim, as the combine's partials are.
+        shared = [Partial() if i == ep and not tokens_split else pl
+                  for i, pl in enumerate(placements)]
+        pe = {n: _expert_block(p[n], placements, ep)
+              for n in ("wg", "wu", "wd")}
+        pe["router"] = _whole_leaves(p["router"], shared)
+        x_l = x.redistribute(mesh, placements).to_local(
+            grad_placements=shared)
+        if tokens_split:
+            out, f_e, p_e = _moe_core(
+                cfg, pe, x_l, Sg,
+                run=partial(_exchange, group=mesh.get_group(ep)))
+            out = from_local(out, mesh, placements, x.shape)
+        else:
+            n_own = cfg.n_experts // m
+            out, f_e, p_e = _moe_core(
+                cfg, pe, x_l, Sg, block=(mesh.get_local_rank(ep) * n_own,
+                                         n_own))
+            out = from_local(out, mesh, shared, x.shape).redistribute(
+                mesh, placements).to(x.dtype)
     # Each rank's means over its groups, one row a batch shard: their mean
     # is the mean over every group.
     f_e, p_e = (from_local(t[None], mesh, placements,
@@ -684,9 +784,97 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
     return out, cfg.n_experts * torch.sum(f_e * p_e)
 
 
-def _moe_core(cfg: ModelConfig, p, x: torch.Tensor, Sg: int):
+def _expert_dim(p) -> Optional[int]:
+    """The mesh dim over which the expert weights (``wg``, ``wu``,
+    ``wd``) shard their experts in whole blocks, or None (plain weights,
+    experts replicated or split over several dims)."""
+    dims = set()
+    for n in ("wg", "wu", "wd"):
+        if not is_dtensor(p[n]):
+            return None
+        dims.add(tuple(i for i, pl in enumerate(p[n].placements)
+                       if pl.is_shard(0)))
+    if len(dims) != 1 or len(next(iter(dims))) != 1:
+        return None
+    ep = next(iter(dims))[0]
+    w = p["wg"]
+    return None if w.shape[0] % w.device_mesh.shape[ep] else ep
+
+
+def _expert_block(w: torch.Tensor, rows, ep: int) -> torch.Tensor:
+    """This rank's block of an expert weight (its E/m experts over mesh
+    dim ``ep``), every other dim gathered (the ``embed`` dim's FSDP
+    shards, as ``weight`` gathers them), as a plain tensor.  Its gradient
+    covers the tokens of this rank's batch rows (``rows``: their
+    placements), so it is a partial sum over the mesh dims that split the
+    batch, other than ``ep``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    target = [Shard(0) if i == ep else Replicate() for i in range(len(rows))]
+    grads = [Shard(0) if i == ep else Partial() if r.is_shard(0)
+             else Replicate() for i, r in enumerate(rows)]
+    return w.redistribute(w.device_mesh, target).to_local(
+        grad_placements=grads)
+
+
+def _experts(p, ein: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts on their buffers: ein (G, E, C, d) -> (G, E, C,
+    d), expert e of ``p``'s leaves on ``ein[:, e]``."""
+    h = torch.einsum("gecd,edf->gecf", ein, p["wg"].to(ein.dtype))
+    h = h * _logistic(h)
+    u = torch.einsum("gecd,edf->gecf", ein, p["wu"].to(ein.dtype))
+    return torch.einsum("gecf,efd->gecd", h * u, p["wd"].to(ein.dtype))
+
+
+def _exchange(p, ein: torch.Tensor, *, group) -> torch.Tensor:
+    """The experts on this rank's buffers (G, E, C, d) when each of the m
+    ranks of ``group`` holds E/m of them (``p``'s blocks): each block of
+    experts' buffers goes to its owner by an all-to-all, the owner runs
+    its experts on the buffers of every rank, and the outputs come back
+    by the reverse all-to-all."""
+    G, E, C, d = ein.shape
+    m = group.size()
+    send = ein.view(G, m, E // m, C, d).transpose(0, 1)
+    got = _all_to_all(send, group)                 # (m sources, G, E/m, ...)
+    eo = _experts(p, got.reshape(m * G, E // m, C, d))
+    back = _all_to_all(eo.view(m, G, E // m, C, d), group)
+    return back.transpose(0, 1).reshape(G, E, C, d)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """t (m, ...) over the m ranks of ``group``: block i goes to rank i,
+    block j of the result came from rank j; the gradient goes back the
+    same way.  A functional collective, so ``CommDebugMode`` and
+    ``op_analysis`` count it as an all-to-all."""
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd)
+    splits = [1] * t.shape[0]
+    return all_to_all_single_autograd(t.contiguous(), splits, splits, group)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient scaled by ``s``."""
+
+    @staticmethod
+    def forward(ctx, t, s):
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.s, None
+
+
+def _moe_core(cfg: ModelConfig, p, x: torch.Tensor, Sg: int, *,
+              block: Optional[Tuple[int, int]] = None, run=None):
     """(out, f_e, p_e): the MoE over x's tokens in groups of ``Sg``, with
-    the top-1 share ``f_e`` and mean gate ``p_e`` of each expert."""
+    the top-1 share ``f_e`` and mean gate ``p_e`` of each expert.
+    ``run(p, ein)`` runs the experts on their buffers (``_experts`` by
+    default).  ``block`` (first
+    expert, count): only those experts (``p``'s leaves hold them) fill
+    buffer slots and enter the combine, and ``out`` is the f32 partial
+    over them, not rounded, and ``p_e``'s gradient is scaled by the
+    block's share n/E of the experts: each of the E/n ranks that hold the
+    same tokens forms the same statistic, and adds its share."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     G = B * S // Sg
@@ -695,24 +883,28 @@ def _moe_core(cfg: ModelConfig, p, x: torch.Tensor, Sg: int):
     gates = torch.softmax(logits.float(), -1)
     r = moe_route(cfg, gates)
     C = r.C
+    lo, n = block or (0, E)
+    keep = r.keep
+    if block is not None:
+        keep = keep & (r.idx >= lo) & (r.idx < lo + n)
     # Buffer slot of each assignment; a dropped one goes to a spare row.
-    g_base = torch.arange(G, device=x.device)[:, None, None] * (E * C)
-    slot = torch.where(r.keep, g_base + r.idx * C + r.pos, G * E * C)
-    ein = x.new_zeros((G * E * C + 1, d))
+    g_base = torch.arange(G, device=x.device)[:, None, None] * (n * C)
+    slot = torch.where(keep, g_base + (r.idx - lo) * C + r.pos, G * n * C)
+    ein = x.new_zeros((G * n * C + 1, d))
     ein[slot.reshape(-1)] = xt[:, :, None].expand(G, Sg, k, d).reshape(-1, d)
-    ein = ein[:-1].view(G, E, C, d)
-    h = torch.einsum("gecd,edf->gecf", ein, p["wg"].to(ein.dtype))
-    h = h * _logistic(h)
-    u = torch.einsum("gecd,edf->gecf", ein, p["wu"].to(ein.dtype))
-    eo = torch.einsum("gecf,efd->gecd", h * u, p["wd"].to(ein.dtype))
+    eo = (run or _experts)(p, ein[:-1].view(G, n, C, d))
     # combine.astype(eo.dtype): the gate weights round to bf16; the sum of
     # a token's k products runs in f32 and rounds once, as the einsum's.
-    w = torch.where(r.keep, r.probs, 0.0).to(eo.dtype)
-    picked = eo.reshape(G * E * C, d)[torch.where(r.keep, slot, 0)]
-    out = _dot_f32(w[..., None, :], picked).to(eo.dtype)   # (G,Sg,1,d)
+    w = torch.where(keep, r.probs, 0.0).to(eo.dtype)
+    picked = eo.reshape(G * n * C, d)[torch.where(keep, slot, 0)]
+    out = _dot_f32(w[..., None, :], picked)             # (G,Sg,1,d) f32
+    if block is None:
+        out = out.to(eo.dtype)
     # Load-balance aux loss (Switch): E * sum_e f_e * P_e.
     f_e = (r.idx[..., 0, None] == torch.arange(E, device=x.device)
            ).float().mean((0, 1))
+    if block is not None:
+        gates = _ScaleGrad.apply(gates, n / E)
     p_e = gates.mean((0, 1))
     return out.reshape(B, S, d), f_e, p_e
 
@@ -724,9 +916,11 @@ def _moe_core(cfg: ModelConfig, p, x: torch.Tensor, Sg: int):
 def _whole_leaves(p, rows):
     """A parameter tree with every DTensor leaf gathered whole, as plain
     tensors for a computation on this rank's batch rows (``rows``: the
-    placements of those rows).  Each rank's gradient of a leaf covers its
-    own rows, so it is a partial sum over the mesh dims that split the
-    batch, reduced on its way back to the shards."""
+    placements of those rows; a ``Partial`` among them marks a mesh dim
+    whose ranks hold the same rows but each add only a share).  Each
+    rank's gradient of a leaf covers its own rows, so it is a partial sum
+    over the mesh dims that split the batch, reduced on its way back to
+    the shards."""
     if hasattr(p, "keys"):
         return {k: _whole_leaves(p[k], rows) for k in p.keys()}
     if not is_dtensor(p):
@@ -734,7 +928,8 @@ def _whole_leaves(p, rows):
     from torch.distributed.tensor import Partial, Replicate
     whole = p.redistribute(p.device_mesh, [Replicate()] * len(rows))
     return whole.to_local(grad_placements=[
-        Partial() if r.is_shard(0) else Replicate() for r in rows])
+        Partial() if r.is_shard(0) or r.is_partial() else Replicate()
+        for r in rows])
 
 
 def on_batch_rows(fn, p, x: torch.Tensor, cache=None) -> torch.Tensor:

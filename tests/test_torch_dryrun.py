@@ -27,6 +27,7 @@ Every fake group is destroyed after its test.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -44,6 +45,7 @@ from repro_torch.distributed import op_analysis as oa
 from repro_torch.distributed import sharding as ts
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
+from repro_torch.models import layers
 from repro_torch.models.config import SHAPES, InputShape
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -271,6 +273,44 @@ def test_local_ops_only_under_a_four_way_dtensor_matmul(fake_world):
     assert split.cost.flops == whole.cost.flops / 4
     assert split.cost.coll_counts["all-reduce"] == 2
     assert split.cost.coll_bytes["all-reduce"] == 2 * 64 * 48 * 4
+
+
+@pytest.mark.parametrize("profile", ["2d", "fsdp"])
+def test_expert_flops_a_device_are_a_quarter_on_four_model_ranks(
+        fake_world, monkeypatch, profile):
+    """olmoe smoke's prefill on a (1, 4) mesh under a fake group: each rank
+    holds and runs 2 of the 8 experts (under "fsdp" on every rank's
+    buffers, exchanged by all-to-all), so the expert einsums' flops a
+    device are a quarter of one device's (a 1x1 mesh) on the same
+    batch."""
+    cfg = dataclasses.replace(tget("olmoe-1b-7b", smoke=True),
+                              sharding_profile=profile)
+    shape = InputShape("tiny_prefill", "prefill", 64, 8)
+    inner = layers._experts
+
+    def expert_flops(n_model):
+        counted = []
+
+        def experts(p, ein):
+            with oa.OpCounter() as c:
+                out = inner(p, ein)
+            counted.append(c.cost.flops)
+            return out
+        fake_world(n_model)
+        monkeypatch.setattr(layers, "_experts", experts)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rec = dryrun.lower_cell("olmoe-1b-7b", shape, cfg=cfg,
+                                    mesh=tmesh.make_debug_mesh(1, n_model))
+        monkeypatch.setattr(layers, "_experts", inner)
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert len(counted) == cfg.n_layers
+        return sum(counted), rec
+    one, _ = expert_flops(1)
+    four, rec = expert_flops(4)
+    assert one > 0 and four == one / 4
+    a2a = rec["collective_counts"]["all-to-all"]
+    assert a2a == (2 * cfg.n_layers if profile == "fsdp" else 0)
 
 
 # -- full-size cells under a fake group --------------------------------------

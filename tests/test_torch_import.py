@@ -1,14 +1,17 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
 * A subprocess with ``jax`` blocked imports ``repro_torch`` and every
-  submodule.
+  submodule, and the seven ``examples/*_torch.py`` (whose ``main`` runs
+  only under ``__main__``).
 * An AST scan finds no import of ``jax`` or ``repro`` in the port's
-  sources or in ``chip_smoke.py``.
-* Entry points called without ``device=`` raise when CUDA is absent.
+  sources, the ``_torch`` examples or ``chip_smoke.py``.
+* Entry points called without ``device=`` raise when CUDA is absent, the
+  examples' ``main`` among them.
 """
 
 import ast
 import os
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -19,10 +22,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + EXAMPLES
+            + [ROOT / "chip_smoke.py"])
 
 
 def test_imports_with_jax_blocked():
@@ -34,15 +39,20 @@ def test_imports_with_jax_blocked():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'repro' or\n"
         "       m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(len(names), len(sys.argv) - 1)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, *map(str, EXAMPLES)],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    n_modules, n_examples = map(int, out.stdout.split())
+    assert n_modules >= 15 and n_examples == 7
 
 
 @pytest.mark.parametrize("module", [
@@ -235,3 +245,13 @@ def test_unsupported_device_is_rejected():
     from repro_torch import resolve_device
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_examples_need_a_device_without_cuda(no_cuda, path):
+    """An example's ``main()`` runs on the card: without one it raises
+    before it computes anything."""
+    main = runpy.run_path(str(path), run_name=path.stem)["main"]
+    kw = {"argv": []} if path.stem == "train_lm_torch" else {}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(**kw)
