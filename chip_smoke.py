@@ -75,12 +75,13 @@ printing its wall time beside the card's name and power limit:
    ``n_live`` held at the window, one compaction (timed alone).  Then
    the newest row is found, an evicted row is not, and one traced tick
    shows the service spans.
-8. Calibration: ``autotune`` on the full grid (every curve, its
+8. Calibration: ``autotune`` on the full grid, the min of
+   CALIB_REPEATS readings a point (every curve, its
    samples, the autotune's wall time; every key the planner prices
    fitted, every measured kernel launched), the table saved and loaded
    back with an equal digest and equal golden decisions, a second
-   autotune whose decisions must be stable (scan backends, filter-then-
-   verify and the bank's prefilter-or-scan); then a ``MatchEngine`` under
+   autotune (the same readings) whose decisions must be stable (scan
+   backends, filter-then-verify and the bank's prefilter-or-scan); then a ``MatchEngine`` under
    the fitted table over phase 4's corpus runs (a)-(f) and (c') three
    times each, run by run its plan, price, wall time and feedback state
    beside the static planner's choice, every answer equal to the static
@@ -121,12 +122,13 @@ printing its wall time beside the card's name and power limit:
    full width: llama3.2-1b, (l1) f32 weights and (l2) its serving
    deployment (bf16 weights, int8 KV cache, 16 KV heads); (m)
    olmoe-1b-7b's serving deployment (64 experts top-8, bf16 weights,
-   int8 KV cache) and (r) recurrentgemma-9b's (RG-LRU and local
-   attention, block-diagonal gates, f32 weights); (s) mamba2-130m (24 SSD
-   layers, f32) and (w) whisper-tiny (4 encoder and 4 decoder layers,
-   f32) as the registry holds them, and (p) pixtral-12b's serving
-   deployment (40 layers, bf16 weights, int8 KV cache, 16 KV heads;
-   prefill from seeded embeddings).  For each: the card
+   int8 KV cache) at 4 of its 16 layers and (r) recurrentgemma-9b's
+   (RG-LRU and local attention, block-diagonal gates, f32 weights) at 11
+   of its 38; (s) mamba2-130m (f32) at 12 of its 24 SSD layers and (w)
+   whisper-tiny (4 encoder and 4 decoder layers, f32) as the registry
+   holds them, and (p) pixtral-12b's serving deployment at 10 of its 40
+   layers (bf16 weights, int8 KV cache, 16 KV heads; prefill from seeded
+   embeddings); the four depths cut for the script's time.  For each: the card
    against the CPU at the config's width and reduced depth,
    ``generate_greedy`` over 4 prompts of 128 tokens, the slot ``Engine``
    and the ``SpeculativeDecoder`` on a motif prompt, ``match_swar``
@@ -174,7 +176,8 @@ printing its wall time beside the card's name and power limit:
    microbatch 4, 3 steps each at full width: every loss and gradient
    norm finite, ms a step and peak memory; (t3) one ``train_step`` a
    family (dense, MoE, hybrid, SSM, encoder-decoder, embeddings) at full
-   width, 1-2 layers, batch 2 x seq 64, on the card and on the CPU from
+   width, 1-2 layers (recurrentgemma 1), batch 2 x seq 64, on the card
+   and on the CPU from
    the same weights: the loss within 1e-3 relative, every gradient leaf
    and updated parameter within 3e-2 relative L2, the worst printed;
    (t4) llama3.2-1b at full width and 2 layers, 8 steps checkpointed
@@ -215,9 +218,10 @@ printing its wall time beside the card's name and power limit:
    this process under torch's ``"threaded"`` process group (one card:
    every rank's shards on ``cuda:0``; four or more: rank ``r`` on
    ``cuda:r``; the layout is printed), whose collectives are device
-   copies.  (z1) llama3.2-1b at full width and depth, batch 8 x seq 128,
-   (t1)'s optimizer: 3 one-device steps, then the same weights through
-   ``convert.shard_params`` for the same 3 steps on the mesh under
+   copies.  (z1) llama3.2-1b at full width and 8 of its 16 layers
+   (depth cut for time), batch 8 x seq 128,
+   (t1)'s optimizer: 2 one-device steps, then the same weights through
+   ``convert.shard_params`` for the same 2 steps on the mesh under
    ``activation_sharding`` with the "2d" rules, then the optimized
    config's "fsdp" rules for 1 step: every loss within 1e-3 relative of
    the one-device loss, the gradient norm within 1e-2, every updated
@@ -257,7 +261,16 @@ printing its wall time beside the card's name and power limit:
    attention core on 8 of the 16 query heads and the one KV head; ms a
    step or a call, the collectives by kind, peak memory; the dry run of
    the two train steps and the decode under (z4)'s check.  (z5) fails
-   past 120 s.
+   past 120 s.  (z6) the SSD and RG-LRU blocks on each rank's channels
+   (``layers.on_channel_block``): recurrentgemma-9b at full width, 3
+   layers and one microbatch, one "2d" train step (dense gates, 2,048 of
+   the 4,096 RG-LRU channels a rank), and its serving deployment (16 gate
+   blocks, 8 a rank) served for one prefill and one decode; mamba2-130m
+   at full width and 4 layers, one "2d" train step (12 of the 24 SSD
+   heads a rank); each against one device under (z1)'s or (z3)'s gates,
+   no SSD or RG-LRU leaf gathered over ``model`` and no RG-LRU state
+   block sent over it; the dry run of the three steps under (z4)'s
+   check.  (z6) fails past 120 s.
 15. Examples: each ``examples/*_torch.py``'s ``main`` in this process on
    the card (loaded by path, its standard output captured), train_lm for
    100 steps into a checkpoint directory under ``build/`` (removed
@@ -391,9 +404,15 @@ EXTRA_MS = ("bound_ms_first_build", "ms_a_chunk", "ms_unpadded",
 # slot Engine over LM_REQUESTS requests of LM_MIN_PROMPT..LM_PROMPT_LEN
 # tokens in LM_SLOTS slots; the speculative decoder (k = LM_SPEC_K) on a
 # prompt of an LM_MOTIF-token motif repeated to LM_PROMPT_LEN tokens.
+# Phase 8's readings a grid point (the min is kept), for both autotunes:
+# at the library's 30, two back-to-back autotunes after phases 1-7 fitted
+# swar slopes a quantization bin or two apart and flipped a golden
+# decision in 2 of 5 runs of this script on an H100; more readings pull
+# each min nearer the kernel's own time.
+CALIB_REPEATS = 90
 LM_ARCH = "llama3.2-1b"
 LM_PROMPTS, LM_PROMPT_LEN, LM_MAX_NEW, LM_MAX_SEQ = 4, 128, 32, 512
-LM_REQUESTS, LM_SLOTS, LM_MIN_PROMPT = 8, 4, 16
+LM_REQUESTS, LM_SLOTS, LM_MIN_PROMPT = 4, 4, 16
 LM_MOTIF, LM_SPEC_NEW, LM_SPEC_K = 16, 128, 4
 LM_CHECK_STEPS = 4           # decode steps held against the full forward
 LM_TIMED_STEPS = 16          # decode steps timed at LM_SLOTS slots
@@ -411,6 +430,10 @@ LM_RTOL = LM_ATOL = 3e-2     # the reference's bf16 logit tolerance
 # slots, so that one is admitted beside a running one (a CPU decode call
 # at that width takes ~1-2 s: most of it the 256,000-id tied embedding).
 LM_MOE_ARCH, LM_HYBRID_ARCH = "olmoe-1b-7b", "recurrentgemma-9b"
+# Depth cut for the script's time: (m), (r), (s) and (p) serve at these
+# many layers of their published widths (olmoe 16, recurrentgemma 38,
+# mamba2 24, pixtral 40 at full depth).
+LM_CUT_LAYERS = {"m": 4, "r": 11, "s": 12, "p": 10}
 LM_MR_REQUESTS, LM_MR_NEW = 6, 16
 LM_LONG, LM_LONG_TAIL = 4096, 4
 LM_CPU_REQUESTS, LM_CPU_PROMPT, LM_CPU_NEW, LM_CPU_SLOTS = 3, (2, 4), 3, 2
@@ -442,9 +465,9 @@ TRAIN_B2, TRAIN_S2, TRAIN_B3, TRAIN_S3 = 4, 128, 2, 64
 TRAIN_T4_LAYERS, TRAIN_T4_STEPS, TRAIN_T4_EVERY = 2, 8, 4
 TRAIN_LOSS_RTOL, TRAIN_LEAF_RTOL, TRAIN_FLIP_SHARE = 1e-3, 3e-2, 1e-2
 TRAIN_OPT_BYTES = 32
-# The LM's sharding (phase 14): llama3.2-1b at full width and depth on a
-# MESH_DATA x MESH_MODEL (data, model) mesh of threaded ranks, batch
-# SHARDED_B x seq SHARDED_S and (t1)'s optimizer; SHARDED_STEPS steps under
+# The LM's sharding (phase 14): llama3.2-1b at full width and Z1_LAYERS
+# layers on a MESH_DATA x MESH_MODEL (data, model) mesh of threaded
+# ranks, batch SHARDED_B x seq SHARDED_S and (t1)'s optimizer; SHARDED_STEPS steps under
 # the "2d" profile, ms a step the median after one warm-up, then
 # SHARDED_FSDP_STEPS under the optimized config's "fsdp" profile, each
 # against the one-device run of the same weights and batches: the loss
@@ -453,7 +476,8 @@ TRAIN_OPT_BYTES = 32
 # restores a mesh-less checkpoint at SHARDED_CKPT_LAYERS layers onto the
 # mesh.  The phase must end within SHARDED_LIMIT_S.
 MESH_DATA, MESH_MODEL = 2, 2
-SHARDED_B, SHARDED_S, SHARDED_STEPS, SHARDED_FSDP_STEPS = 8, 128, 3, 1
+SHARDED_B, SHARDED_S, SHARDED_STEPS, SHARDED_FSDP_STEPS = 8, 128, 2, 1
+Z1_LAYERS = 8       # (z1)'s depth, cut for time (llama3.2-1b has 16)
 SHARDED_NORM_RTOL, SHARDED_CKPT_LAYERS, SHARDED_LIMIT_S = 1e-2, 2, 150.0
 # (z3) serving on that mesh: llama3.2-1b's serving config at full width
 # and depth, SERVE_B prompts of SERVE_S tokens prefilled into a
@@ -483,6 +507,20 @@ SERVE_RTOL, SERVE_FLOOR_X, SERVE_LIMIT_S = 2e-3, 2.0, 120.0
 # decode, under (z3)'s rule; the dry run of these steps under (z4)'s
 # check.  (z5) fails past Z5_LIMIT_S.
 Z5_MOE_LAYERS, Z5_HYBRID_LAYERS, Z5_LIMIT_S = 2, 3, 120.0
+# (z6) the SSD and RG-LRU blocks tensor-parallel on that mesh: each rank
+# runs its block of their channels.  recurrentgemma-9b at full width and
+# Z5_HYBRID_LAYERS layers: one "2d" train step of its plain config (dense
+# gates; one microbatch, its config's 4 cut for time) against one device
+# under (z1)'s gates, and its serving deployment (block-diagonal gates,
+# whole blocks a rank) served for one prefill and one decode under (z3)'s
+# rule; mamba2-130m at full width and Z6_SSM_LAYERS layers (depth cut for
+# time), one "2d" train step; both at batch SHARDED_B x seq SHARDED_S.
+# Each rank's RG-LRU core on r/m channels and SSD core on H/m heads; no
+# all-gather over ``model`` takes an RG-LRU or SSD leaf's block and no
+# collective of the serving calls takes a block of the RG-LRU state; the
+# dry run of the steps under (z4)'s check.  The one-device copies wait on
+# the host.  (z6) fails past Z6_LIMIT_S.
+Z6_SSM_LAYERS, Z6_LIMIT_S = 4, 120.0
 # Examples (phase 15): each ``examples/*_torch.py`` run by its ``main`` in
 # this process on the card, train_lm for EXAMPLE_TRAIN_STEPS steps into a
 # checkpoint directory under ``build/``; the five match/CRAM examples
@@ -2379,7 +2417,7 @@ def train_configs(smoke: bool):
           ("pixtral", cut(LM_EMBEDS_ARCH, n_layers=2), TRAIN_B2, TRAIN_S2)]
     t3 = [("dense", cut(LM_ARCH, n_layers=1)),
           ("moe", cut(LM_MOE_ARCH, n_layers=1)),
-          ("hybrid", cut(LM_HYBRID_ARCH, optimized=True, n_layers=2)),
+          ("hybrid", cut(LM_HYBRID_ARCH, optimized=True, n_layers=1)),
           ("ssm", cut(LM_SSD_ARCH, optimized=True, n_layers=2)),
           ("encdec", cut(LM_ENCDEC_ARCH, n_layers=1, n_enc_layers=1)),
           ("embeds", cut(LM_EMBEDS_ARCH, n_layers=1, microbatch=2))]
@@ -2811,6 +2849,7 @@ class CommBytes:
             def __init__(self):
                 super().__init__()
                 self.nbytes = {}
+                self.calls = []
 
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 import torch
@@ -2819,9 +2858,50 @@ class CommBytes:
                     n = sum(t.numel() * t.element_size()
                             for t in args if isinstance(t, torch.Tensor))
                     self.nbytes[name] = self.nbytes.get(name, 0) + n
+                    group = [a for a in args if isinstance(a, str)]
+                    self.calls.append((name, group[-1] if group else None,
+                                       tuple(args[0].shape)))
                 return super().__torch_dispatch__(func, types, args,
                                                   kwargs)
         return Mode()
+
+
+def model_calls(mode, mesh) -> list:
+    """(op, input shape) of each collective ``mode`` (a ``CommBytes``)
+    saw over the mesh's ``model`` dim."""
+    name = mesh.get_group("model").group_name
+    return [(op, list(shape)) for op, g, shape in mode.calls if g == name]
+
+
+def block_shapes(lm, mesh, caches=None) -> dict:
+    """The shapes this rank's blocks of the SSD and RG-LRU leaves take, one
+    layer's (the stacked dim dropped), as held and with their ``data``
+    shards gathered; with ``caches``, also those of the RG-LRU state
+    leaves (``h``, ``conv``) and of an SSD ``state`` that shards its
+    heads."""
+    from repro_torch.models.spec import leaves
+
+    def one_layer(path, t):
+        local = list(t.to_local().shape)
+        return local[1:] if "units/" in path else local
+    data = mesh.mesh_dim_names.index("data")
+    out = {"leaves": set(), "state": set()}
+    for path, t in leaves(lm.params):
+        if "/rglru/" not in path and "/ssd/" not in path:
+            continue
+        local = one_layer(path, t)
+        out["leaves"].add(tuple(local))
+        if t.placements[data].is_shard():
+            grown = list(local)
+            grown[t.placements[data].dim - (t.ndim - len(local))] *= \
+                mesh.shape[data]
+            out["leaves"].add(tuple(grown))
+    for path, t in leaves(caches or {}):
+        rows = 1 if "units/" in path else 0       # the batch dim
+        if ("/rglru/" in path or path.endswith("/state")) and any(
+                p.is_shard() and p.dim != rows for p in t.placements):
+            out["state"].add(tuple(one_layer(path, t)))
+    return {k: sorted(v) for k, v in out.items()}
 
 
 def sharded_leaf_counts(lm) -> dict:
@@ -2854,6 +2934,7 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
     from repro_torch.runtime import steps as rsteps
     kind = torch.device(device).type
     rules = sharding.RULE_PROFILES[cfg.sharding_profile]
+    zero = {p for p, t in leaves(init.params) if not bool(t.any())}
 
     def rank(r):
         mesh = lmesh.make_debug_mesh(MESH_DATA, MESH_MODEL,
@@ -2864,19 +2945,25 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
         hist, comm, arg_bytes = [], None, None
         with activation_sharding(mesh, rules):
             for i in range(n_steps):
-                batch = train_batch(cfg, SHARDED_B, SHARDED_S, i, "cpu")
+                # Placed as the dry run lowers the step (a microbatched
+                # step gathers a placed batch to split it).
+                batch = rsteps._place_batch(
+                    train_batch(cfg, SHARDED_B, SHARDED_S, i, "cpu"), mesh,
+                    None)
                 mode = CommBytes() if i == 0 and r == 0 else None
                 if mode is not None:
-                    arg_bytes = dryrun.argument_bytes(
-                        (lm, st, rsteps._place_batch(batch, mesh, None)))
+                    arg_bytes = dryrun.argument_bytes((lm, st, batch))
                 sync()
                 t = time.perf_counter()
                 if mode is not None:
+                    shapes = block_shapes(lm, mesh)
                     with mode:
                         lm, st, m = step(lm, st, batch)
                     comm = {"counts": {str(k).split(".")[-1]: v for k, v in
                                        mode.get_comm_counts().items()},
-                            "bytes": mode.nbytes}
+                            "bytes": mode.nbytes,
+                            "model_calls": model_calls(mode, mesh),
+                            "block_shapes": shapes}
                 else:
                     lm, st, m = step(lm, st, batch)
                 sync()
@@ -2889,17 +2976,23 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
                            if "/moe/w" in p},
                "devices": sorted({str(t.to_local().device)
                                   for _, t in leaves(lm.params)})}
-        errs = {}
+        errs, flips = {}, {}
         with torch.no_grad():
             for path, t in leaves(lm.params):
                 whole = t.full_tensor()
-                if r == 0:
+                if r == 0 and path in zero:
+                    # AdamW's first step from 0 is -lr x the gradient's
+                    # sign: held by the entries whose sign flipped.
+                    w = want[path]
+                    flips[path] = (int((torch.sign(whole.to(w.device))
+                                        != torch.sign(w)).sum()), w.numel())
+                elif r == 0:
                     w = want[path]
                     errs[path] = float(torch.linalg.norm(whole.to(w.device)
                                                          - w)
                                        / torch.linalg.norm(w))
                 del whole
-        out["leaf_errs"] = errs
+        out["leaf_errs"], out["leaf_flips"] = errs, flips
         del lm, st
         return out
     return lmesh.run_threaded(MESH_DATA * MESH_MODEL, rank)
@@ -2907,7 +3000,8 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
 
 def sharded_hold(label, ranks, want_hist, tag="(z1)") -> dict:
     """Every rank's losses and norms against the one-device run's, rank
-    0's leaf errors; the worst of each."""
+    0's leaf errors and, for the leaves that start at 0, their flipped
+    signs; the worst of each."""
     worst = {"loss": 0.0, "norm": 0.0}
     for res in ranks:
         for (gl, gn, _), (wl, wn) in zip(res["hist"], want_hist):
@@ -2920,6 +3014,15 @@ def sharded_hold(label, ranks, want_hist, tag="(z1)") -> dict:
     leaf = max(ranks[0]["leaf_errs"].items(), key=lambda kv: kv[1])
     check(leaf[1] < TRAIN_LEAF_RTOL, f"{tag} {label} worst leaf {leaf}")
     worst["leaf"] = leaf
+    # A leaf that starts at 0 (a bias, ``A_log``): under TRAIN_FLIP_SHARE
+    # of its entries (one, in a leaf under 1 / TRAIN_FLIP_SHARE entries)
+    # stepped the other way, as (t3) holds it.
+    flips = ranks[0]["leaf_flips"]
+    over = {p: f for p, f in flips.items()
+            if f[0] > max(1, TRAIN_FLIP_SHARE * f[1])}
+    check(not over, f"{tag} {label} first-step signs flipped {over}")
+    worst["flips"] = max(flips.items(), key=lambda kv: kv[1][0] / kv[1][1],
+                         default=None)
     return worst
 
 
@@ -2952,7 +3055,8 @@ def lm_sharding_phase(*, device="cuda", smoke=False,
                          info["z3"]["llama"]["arg_bytes"])]
     if "2d" in info["z1"]:
         cells.insert(0, dryrun_cell(
-            "z1 2d train", {"arch": LM_ARCH, "smoke": smoke}, "train",
+            "z1 2d train", {"arch": LM_ARCH, "smoke": smoke, "fields": {
+                "n_layers": info["z1"]["n_layers"]}}, "train",
             SHARDED_S, SHARDED_B, info["z1"]["2d"]["comm"],
             info["z1"]["2d"]["arg_bytes"]))
     info["z4"] = sharded_z4(cells, device=device)
@@ -3012,7 +3116,7 @@ def sharded_serve(cfg, n_decodes: int, *, device, sync, comm_call=None):
     prompt, decodes = serve_inputs(cfg, n_decodes)
     lm = lmm.init_params(cfg, SEED, device)
 
-    def calls(lm_, caches, comm=None):
+    def calls(lm_, caches, comm=None, mesh=None):
         """The prefill and the decodes through the steps; ([logits on the
         host], [ms]), ``comm`` filled at call ``comm_call``."""
         prefill = rsteps.make_prefill_step(cfg)
@@ -3034,6 +3138,8 @@ def sharded_serve(cfg, n_decodes: int, *, device, sync, comm_call=None):
                 comm["counts"] = {str(k).split(".")[-1]: v for k, v in
                                   mode.get_comm_counts().items()}
                 comm["bytes"] = mode.nbytes
+                comm["model_calls"] = model_calls(mode, mesh)
+                comm["block_shapes"] = block_shapes(lm_, mesh, caches)
             else:
                 lg, caches = step(lm_, b)
             sync()
@@ -3066,7 +3172,7 @@ def sharded_serve(cfg, n_decodes: int, *, device, sync, comm_call=None):
         caches = lmm.init_cache(cfg, SERVE_B, SERVE_MAX, mesh=mesh)
         comm = {} if r == 0 and comm_call is not None else None
         with activation_sharding(mesh, rules):
-            logits, ms = calls(sharded, caches, comm)
+            logits, ms = calls(sharded, caches, comm, mesh)
         return {"logits": logits if r == 0 else None, "ms": ms,
                 "comm": comm}
     ranks = lmesh.run_threaded(MESH_DATA * MESH_MODEL, rank)
@@ -3296,6 +3402,8 @@ def sharded_z1(*, device, sync, smoke, layout, profiles) -> dict:
     fsdp = get_config(LM_ARCH, smoke=smoke, optimized=True)
     if smoke:       # the registry's overrides apply at full width only
         fsdp = dataclasses.replace(fsdp, sharding_profile="fsdp")
+    cfg, fsdp = (dataclasses.replace(c, n_layers=min(Z1_LAYERS, c.n_layers))
+                 for c in (cfg, fsdp))
     check(cfg.sharding_profile == "2d" and fsdp.sharding_profile == "fsdp",
           "(z1) the default config shards 2d, the optimized one fsdp")
     # One device: the same weights and batches; copies (on the device)
@@ -3324,7 +3432,8 @@ def sharded_z1(*, device, sync, smoke, layout, profiles) -> dict:
     one_peak = torch.cuda.max_memory_allocated() if cuda else 0
     del lm, st, m
     train_free(cuda)
-    out = {"n_params": cfg.n_params(), "one_device": {
+    out = {"n_params": cfg.n_params(), "n_layers": cfg.n_layers,
+           "one_device": {
         "hist": one, "ms_step": statistics.median(h[2] for h in one[1:]),
         "peak_gb": one_peak / 1e9}}
     for label, c, n in (("2d", cfg, SHARDED_STEPS),
@@ -3362,7 +3471,8 @@ def sharded_z1(*, device, sync, smoke, layout, profiles) -> dict:
                   f"warm-up; slowest rank {res['ms_step_ranks_max']:.1f})"
                   if n > 1 else f"{res['ms_first']:.1f} ms (its first "
                   "step, with DTensor's sharding propagation)")
-        print(f"  (z1) {c.name} {label} on the {MESH_DATA}x{MESH_MODEL} "
+        print(f"  (z1) {c.name} at {c.n_layers} layers {label} on the "
+              f"{MESH_DATA}x{MESH_MODEL} "
               f"(data, model) mesh, {layout}, batch {SHARDED_B} x seq "
               f"{SHARDED_S}: losses "
               + ", ".join(f"{h[0]:.6f}" for h in res["hist"][0])
@@ -3643,6 +3753,200 @@ def z5_hybrid(*, device, sync, smoke) -> dict:
               for k, v in sorted(comm["counts"].items()))
           + f"; {res['wall_s']:.1f} s; card: {Phase.card}")
     return res
+
+
+class BlockProbe:
+    """While active, the channels each RG-LRU core and the heads each SSD
+    core (the chunked form) run on, as the ranks' threads call them."""
+
+    def __enter__(self):
+        import threading
+
+        from repro_torch.models import rglru, ssm
+        self.seen = []
+        self.inner = (rglru._rglru_core, ssm._ssd_chunked)
+        rg, sd = self.inner
+
+        def rglru_core(cfg, p, x, *a, **kw):
+            if threading.current_thread() is not threading.main_thread():
+                self.seen.append(("rglru", x.shape[-1]))
+            return rg(cfg, p, x, *a, **kw)
+
+        def ssd_core(cfg, xs, *a):
+            if threading.current_thread() is not threading.main_thread():
+                self.seen.append(("ssd", xs.shape[2]))
+            return sd(cfg, xs, *a)
+        rglru._rglru_core, ssm._ssd_chunked = rglru_core, ssd_core
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import rglru, ssm
+        rglru._rglru_core, ssm._ssd_chunked = self.inner
+
+
+def hold_blocks(label, comm, want) -> dict:
+    """The cores' widths ``want`` (a set of (core, width)) against
+    ``comm``'s probe, and no all-gather over ``model`` of an SSD or RG-LRU
+    leaf's block, no collective over it of an RG-LRU or head-sharded SSD
+    state block (the probe's ``block_shapes``)."""
+    check(set(comm["cores"]) == want, f"(z6) {label}: each rank's cores on "
+          f"{sorted(want)}: {sorted(set(comm['cores']))}")
+    blocks = {tuple(b) for b in comm["block_shapes"]["leaves"]}
+    states = {tuple(b) for b in comm["block_shapes"]["state"]}
+    gathered = {tuple(s) for op, s in comm["model_calls"]
+                if op == "all_gather_into_tensor"}
+    taken = {tuple(s) for _, s in comm["model_calls"]}
+    check(not blocks & gathered, f"(z6) {label}: no block leaf gathered "
+          f"over model: {sorted(blocks & gathered)}")
+    check(not states & taken, f"(z6) {label}: no state block over model: "
+          f"{sorted(states & taken)}")
+    return {"cores": sorted(set(comm["cores"])),
+            "leaf_blocks": len(blocks), "state_blocks": len(states),
+            "model_collectives": len(comm["model_calls"])}
+
+
+def z6_step(arch, cfg, label, *, device, sync, want):
+    """One "2d" train step of ``cfg`` on one device, then on the mesh
+    from the same weights and batch, under (z1)'s gates and the block
+    probes (``hold_blocks``): (the result, the one-device step)."""
+    import torch
+
+    from repro_torch.models import model as lmm
+    from repro_torch.models.spec import leaves, map_tree
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as rsteps
+    cuda = torch.device(device).type == "cuda"
+    lm = lmm.init_params(cfg, SEED, device, trainable=True)
+    # The one-device copies wait on the host: the mesh's ranks need the
+    # card.
+    with torch.no_grad():
+        init = lmm.CausalLM(cfg, map_tree(
+            lambda x: x.to("cpu", copy=True), lm.params), trainable=True)
+    step = rsteps.make_train_step(cfg, sharded_opt())
+    st = adamw.init(lm)
+    batch = train_batch(cfg, SHARDED_B, SHARDED_S, 0, device)
+    sync()
+    t = time.perf_counter()
+    lm, st, m = step(lm, st, batch)
+    sync()
+    one = (m["loss"].item(), m["grad_norm"].item(),
+           1e3 * (time.perf_counter() - t))
+    want_leaves = {p: x.detach().to("cpu", copy=True)
+                   for p, x in leaves(lm.params)}
+    del lm, st, m
+    train_free(cuda)
+    with BlockProbe() as probe:
+        ranks = sharded_steps(init, cfg, 1, want_leaves, device=device,
+                              sync=sync)
+    del init, want_leaves
+    train_free(cuda)
+    worst = sharded_hold(label, ranks, [one[:2]], tag="(z6)")
+    comm = dict(ranks[0]["comm"], cores=probe.seen)
+    res = {"arch": arch, "n_layers": cfg.n_layers,
+           "n_params": cfg.n_params(), "one_ms": one[2],
+           "ms_first": ranks[0]["hist"][0][2], "hist": ranks[0]["hist"],
+           "comm": {k: comm[k] for k in ("counts", "bytes")},
+           "arg_bytes": ranks[0]["arg_bytes"],
+           "worst_loss": worst["loss"], "worst_norm": worst["norm"],
+           "worst_leaf": worst["leaf"],
+           **hold_blocks(label, comm, want)}
+    print(f"  (z6) {cfg.name} {label} at {cfg.n_layers} layers (full width,"
+          f" {res['n_params']:,} params f32), one \"2d\" step on the "
+          f"{MESH_DATA}x{MESH_MODEL} mesh, batch {SHARDED_B} x seq "
+          f"{SHARDED_S}: loss {res['hist'][0][0]:.6f} vs one device "
+          f"{one[0]:.6f} (relative {res['worst_loss']:.2e}; grad norm "
+          f"{res['worst_norm']:.2e}); worst leaf {res['worst_leaf'][0]} "
+          f"{res['worst_leaf'][1]:.2e}; cores {res['cores']}; no block leaf"
+          f" gathered over model ({res['model_collectives']} collectives "
+          f"over it); its first step {res['ms_first']:.1f} ms against one "
+          f"device {one[2]:.1f}; collectives: " + ", ".join(
+              f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.1f} MB)"
+              for k, v in sorted(comm["counts"].items()))
+          + f"; card: {Phase.card}")
+    return res
+
+
+def sharded_z6(*, device, sync, smoke) -> dict:
+    """(z6) the SSD and RG-LRU blocks on each rank's channels: the train
+    steps and the serving deployment against one device, their probes,
+    then the dry run of those steps under (z4)'s check."""
+    import torch
+
+    from repro_torch.configs import get_config
+    t = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    out = {"kept_gb": torch.cuda.memory_allocated() / 1e9 if cuda else 0.0}
+    rg = dataclasses.replace(get_config(LM_HYBRID_ARCH, smoke=smoke),
+                             n_layers=Z5_HYBRID_LAYERS, microbatch=1)
+    ssm_cfg = get_config("mamba2-130m", smoke=smoke)
+    ssm_cfg = dataclasses.replace(
+        ssm_cfg, n_layers=min(Z6_SSM_LAYERS, ssm_cfg.n_layers))
+    r, m = rg.rnn_width, MESH_MODEL
+    out["hybrid"] = z6_step(LM_HYBRID_ARCH, rg, "hybrid train",
+                            device=device, sync=sync,
+                            want={("rglru", r // m)})
+    out["ssm"] = z6_step("mamba2-130m", ssm_cfg, "ssm train", device=device,
+                         sync=sync, want={("ssd", ssm_cfg.ssd_heads // m)})
+    # The serving deployment: block-diagonal gates (at smoke size, where
+    # the registry's overrides do not apply, the same field set).
+    serve = dataclasses.replace(
+        get_config(LM_HYBRID_ARCH, smoke=smoke, optimized=True, kind="serve"),
+        n_layers=Z5_HYBRID_LAYERS)
+    if smoke:
+        serve = dataclasses.replace(serve, rglru_block_diag=16)
+    t_s = time.perf_counter()
+    with BlockProbe() as probe:
+        one, one_ms, ranks, floor = sharded_serve(
+            serve, 1, device=device, sync=sync, comm_call=1)
+    res = serve_hold(f"{serve.name} blocks", one, ranks[0]["logits"], floor)
+    comm = dict(ranks[0]["comm"], cores=probe.seen)
+    ms = ranks[0]["ms"]
+    res.update({"n_layers": serve.n_layers,
+                "rglru_block_diag": serve.rglru_block_diag,
+                "ms_prefill": ms[0], "ms_decode": ms[1],
+                "one_ms_prefill": one_ms[0], "one_ms_decode": one_ms[1],
+                "comm": {k: comm[k] for k in ("counts", "bytes")},
+                "arg_bytes": comm["arg_bytes"],
+                "wall_s": time.perf_counter() - t_s,
+                **hold_blocks("hybrid serve", comm, {("rglru", r // m)})})
+    out["serve"] = res
+    train_free(cuda)
+    print(f"  (z6) {serve.name} serving deployment ({serve.rglru_block_diag} "
+          f"gate blocks, {serve.rglru_block_diag // m} a rank) at "
+          f"{serve.n_layers} layers served on the {MESH_DATA}x{MESH_MODEL} "
+          f"mesh, {SERVE_B} prompts of {SERVE_S} into {SERVE_MAX}, 1 decode:"
+          f" worst logit row {res['worst_rel']:.2e} relative L2 against one "
+          f"device (gate {res['gate']:.2e}, floor {res['floor_rel']:.2e}); "
+          f"greedy tokens equal in {res['rows'] - res['near_ties']} of "
+          f"{res['rows']} rows (the rest near-ties); cores {res['cores']}; "
+          f"no block leaf or RG-LRU state block over model; prefill "
+          f"{res['ms_prefill']:.1f} ms (first call) against one device "
+          f"{res['one_ms_prefill']:.1f}; the decode {res['ms_decode']:.1f} ms "
+          f"against {res['one_ms_decode']:.1f}; its collectives: " + ", ".join(
+              f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.3f} MB)"
+              for k, v in sorted(comm["counts"].items()))
+          + f"; {res['wall_s']:.1f} s; card: {Phase.card}")
+    print(f"  (z6) {out['kept_gb']:.2f} GB on the card at its start")
+    layers = {"n_layers": Z5_HYBRID_LAYERS}
+    cells = [
+        dryrun_cell("z6 hybrid train", {
+            "arch": LM_HYBRID_ARCH, "smoke": smoke,
+            "fields": dict(layers, microbatch=1)}, "train", SHARDED_S,
+            SHARDED_B, out["hybrid"]["comm"], out["hybrid"]["arg_bytes"]),
+        dryrun_cell("z6 ssm train", {
+            "arch": "mamba2-130m", "smoke": smoke,
+            "fields": {"n_layers": ssm_cfg.n_layers}}, "train", SHARDED_S,
+            SHARDED_B, out["ssm"]["comm"], out["ssm"]["arg_bytes"]),
+        dryrun_cell("z6 hybrid serve decode", {
+            "arch": LM_HYBRID_ARCH, "smoke": smoke, "optimized": True,
+            "kind": "serve", "fields": dict(layers, **(
+                {"rglru_block_diag": 16} if smoke else {}))},
+            "decode", SERVE_MAX, SERVE_B, res["comm"], res["arg_bytes"])]
+    out["z4"] = sharded_z4(cells, device=device)
+    out["wall_s"] = time.perf_counter() - t
+    check(smoke or out["wall_s"] < Z6_LIMIT_S,
+          f"phase 14 (z6) within {Z6_LIMIT_S} s: {out['wall_s']:.1f} s")
+    return out
 
 
 def example_lines(text: str) -> list:
@@ -5170,7 +5474,8 @@ def main() -> int:
             engine, bank, {"a": qa, "b": qb, "c": qc, "d": qd, "c2": qc2,
                            "e": qe, "f": qf},
             zero_counts=zero_counts, read_counts=read_counts,
-            sync=torch.cuda.synchronize)
+            sync=torch.cuda.synchronize,
+            autotune_kw={"repeats": CALIB_REPEATS})
         print(f"  card: {smi}")
         print("calibration " + json.dumps(calibration))
 
@@ -5189,14 +5494,17 @@ def main() -> int:
                "pixtral-12b"):
         from repro_torch.configs import get_config
         serve = dict(optimized=True, kind="serve")
+
+        def cut(label, cfg):
+            return dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS[label])
         lm_launches, lm_info = lm_phase(
             [("l1", get_config(LM_ARCH)),
              ("l2", get_config(LM_ARCH, **serve)),
-             ("m", get_config(LM_MOE_ARCH, **serve)),
-             ("r", get_config(LM_HYBRID_ARCH, **serve)),
-             ("s", get_config(LM_SSD_ARCH)),
+             ("m", cut("m", get_config(LM_MOE_ARCH, **serve))),
+             ("r", cut("r", get_config(LM_HYBRID_ARCH, **serve))),
+             ("s", cut("s", get_config(LM_SSD_ARCH))),
              ("w", get_config(LM_ENCDEC_ARCH)),
-             ("p", get_config(LM_EMBEDS_ARCH, **serve))],
+             ("p", cut("p", get_config(LM_EMBEDS_ARCH, **serve)))],
             zero_counts=zero_counts, read_counts=read_counts,
             sync=torch.cuda.synchronize)
         print("lm " + json.dumps(lm_info))
@@ -5233,10 +5541,14 @@ def main() -> int:
     # -- 14. the LM's sharding ------------------------------------------------
     with Phase(f"phase 14: the LM's sharding on the card: {LM_ARCH} on a "
                f"{MESH_DATA}x{MESH_MODEL} (data, model) mesh, both rule "
-               "profiles, restore onto the mesh, expert parallelism and "
-               "query-head sharding"):
+               "profiles, restore onto the mesh, expert parallelism, "
+               "query-head sharding, the SSD and RG-LRU blocks on each "
+               "rank's channels"):
         sharding_info = lm_sharding_phase()
         sharding_info["z5"] = sharded_z5(device="cuda",
+                                         sync=torch.cuda.synchronize,
+                                         smoke=False)
+        sharding_info["z6"] = sharded_z6(device="cuda",
                                          sync=torch.cuda.synchronize,
                                          smoke=False)
         print("lm_sharding " + json.dumps(sharding_info))

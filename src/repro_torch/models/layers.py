@@ -47,9 +47,15 @@ dim each rank holds and runs only its block of experts, summing the
 combine's f32 partials across the dim ("2d") or exchanging its buffers
 with the experts' owners by all-to-all ("fsdp"), else it runs every
 expert with whole weights (``moe_apply``).  The SSD and RG-LRU blocks
-run on each rank's batch rows with whole weights (``on_batch_rows``).
-Each is the same per-row arithmetic as one device's, with the
-collectives at the edges.
+run on each rank's batch rows and its block of their channels where the
+rules shard those over a mesh dim (``on_channel_block``): the rank reads
+its shards of the channel leaves and whole copies of the leaves the rules
+replicate, keeps its cache blocks where the cache specs put them, and
+crosses the dim only where the block mixes channels (a dense gate, the
+gated norm's mean, the output projection); elsewhere (the ``"fsdp"``
+profile) they run on the rank's batch rows with whole weights
+(``on_batch_rows``).  Each is the same per-row arithmetic as one
+device's, with the collectives at the edges.
 """
 
 from __future__ import annotations
@@ -759,7 +765,7 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
         # over the dim, as the combine's partials are.
         shared = [Partial() if i == ep and not tokens_split else pl
                   for i, pl in enumerate(placements)]
-        pe = {n: _expert_block(p[n], placements, ep)
+        pe = {n: _local_block(p[n], placements, ep)
               for n in ("wg", "wu", "wd")}
         pe["router"] = _whole_leaves(p["router"], shared)
         x_l = x.redistribute(mesh, placements).to_local(
@@ -801,16 +807,18 @@ def _expert_dim(p) -> Optional[int]:
     return None if w.shape[0] % w.device_mesh.shape[ep] else ep
 
 
-def _expert_block(w: torch.Tensor, rows, ep: int) -> torch.Tensor:
-    """This rank's block of an expert weight (its E/m experts over mesh
-    dim ``ep``), every other dim gathered (the ``embed`` dim's FSDP
-    shards, as ``weight`` gathers them), as a plain tensor.  Its gradient
-    covers the tokens of this rank's batch rows (``rows``: their
-    placements), so it is a partial sum over the mesh dims that split the
-    batch, other than ``ep``."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    target = [Shard(0) if i == ep else Replicate() for i in range(len(rows))]
-    grads = [Shard(0) if i == ep else Partial() if r.is_shard(0)
+def _local_block(w: torch.Tensor, rows, dim: int) -> torch.Tensor:
+    """This rank's block of ``w`` over mesh dim ``dim`` (an expert
+    weight's E/m experts, a channel leaf's block of channels), every other
+    mesh dim gathered (the ``embed`` dim's FSDP shards, as ``weight``
+    gathers them), as a plain tensor.  Its gradient covers the tokens of
+    this rank's batch rows (``rows``: their placements), so it is a
+    partial sum over the mesh dims that split the batch, other than
+    ``dim``."""
+    from torch.distributed.tensor import Partial, Replicate
+    keep = w.placements[dim]
+    target = [keep if i == dim else Replicate() for i in range(len(rows))]
+    grads = [keep if i == dim else Partial() if r.is_shard(0)
              else Replicate() for i, r in enumerate(rows)]
     return w.redistribute(w.device_mesh, target).to_local(
         grad_placements=grads)
@@ -932,6 +940,27 @@ def _whole_leaves(p, rows):
         for r in rows])
 
 
+def _cache_blocks(cache, mesh, target):
+    """Each leaf of ``cache`` (a dict of DTensors, or None) as this rank's
+    local tensor under the placements ``target(leaf)`` gives it, and a
+    function that writes the leaves that had to move back into their own
+    placements; a leaf already so placed is its local tensor, updated in
+    place."""
+    cache = cache or {}
+    want = {n: target(t) for n, t in cache.items()}
+    moved = {n for n, t in cache.items() if list(t.placements) != want[n]}
+    local = {n: (t.redistribute(mesh, want[n]) if n in moved else t
+                 ).to_local() for n, t in cache.items()}
+
+    def write_back():
+        for n in moved:
+            t = cache[n]
+            back = from_local(local[n], mesh, want[n], t.shape)
+            t.to_local().copy_(back.redistribute(mesh, t.placements)
+                               .to_local())
+    return local or None, write_back
+
+
 def on_batch_rows(fn, p, x: torch.Tensor, cache=None) -> torch.Tensor:
     """``fn(p, x, cache)`` -> y of x's shape, each row of y from the same
     row of x (a recurrent or SSD block over its sequence), ``cache`` (a
@@ -947,14 +976,194 @@ def on_batch_rows(fn, p, x: torch.Tensor, cache=None) -> torch.Tensor:
     mesh = x.device_mesh
     placements = [xp if xp.is_shard(0) else Replicate()
                   for xp in x.placements]
-    cache = cache or {}
-    moved = {n for n, t in cache.items() if list(t.placements) != placements}
-    rows = {n: (t.redistribute(mesh, placements) if n in moved else t
-                ).to_local() for n, t in cache.items()}
+    rows, write_back = _cache_blocks(cache, mesh, lambda t: placements)
     y = fn(_whole_leaves(p, placements),
-           x.redistribute(mesh, placements).to_local(), rows or None)
-    for n in moved:
-        t = cache[n]
-        back = from_local(rows[n], mesh, placements, t.shape)
-        t.to_local().copy_(back.redistribute(mesh, t.placements).to_local())
+           x.redistribute(mesh, placements).to_local(), rows)
+    write_back()
     return from_local(y, mesh, placements, x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Blocks run on each rank's batch rows and block of channels
+# ---------------------------------------------------------------------------
+
+def _c10d(op: str, *args) -> torch.Tensor:
+    """The functional collective ``op`` (``CommDebugMode`` and
+    ``op_analysis`` count it), waited for."""
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(getattr(ops, op)(*args))
+
+
+def _gather(t: torch.Tensor, dim: int, m: int, name: str) -> torch.Tensor:
+    """Every rank's ``t`` of group ``name`` (m ranks) joined along
+    ``dim`` in rank order."""
+    got = _c10d("all_gather_into_tensor", t.contiguous(), m, name)
+    return got.reshape(m, *t.shape).movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _scatter_sum(t: torch.Tensor, dim: int, m: int,
+                 name: str) -> torch.Tensor:
+    """This rank's block of ``dim`` of every rank's ``t`` summed."""
+    blocks = t.unflatten(dim, (m, -1)).movedim(dim, 0).contiguous()
+    out = _c10d("reduce_scatter_tensor", blocks.flatten(0, 1), "sum", m,
+                name)
+    return out.reshape(blocks.shape[1:])
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum of every rank's tensor; each rank's gradient of it is a
+    share, so the gradient is summed the same way."""
+
+    @staticmethod
+    def forward(ctx, t, name):
+        ctx.name = name
+        return _c10d("all_reduce", t.contiguous(), "sum", name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _c10d("all_reduce", grad.contiguous(), "sum", ctx.name), None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity, its gradient summed over a group's ranks: the entry
+    of a block whose ranks each add their channels' share of the
+    gradient of the input they share."""
+
+    @staticmethod
+    def forward(ctx, t, name):
+        ctx.name = name
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _c10d("all_reduce", grad.contiguous(), "sum", ctx.name), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's tensor joined along a dim; each rank's gradient of
+    the whole is a share, so each rank's block of it is summed back."""
+
+    @staticmethod
+    def forward(ctx, t, dim, m, name):
+        ctx.dim, ctx.m, ctx.name = dim, m, name
+        return _gather(t, dim, m, name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_scatter_sum(grad, ctx.dim, ctx.m, ctx.name), None, None,
+                None)
+
+
+class _Join(torch.autograd.Function):
+    """Every rank's block joined along a dim into a tensor each rank then
+    uses whole; its gradient is whole on every rank, so each block's is
+    its slice."""
+
+    @staticmethod
+    def forward(ctx, t, dim, m, name, rank):
+        ctx.dim, ctx.rank, ctx.n = dim, rank, t.shape[dim]
+        return _gather(t, dim, m, name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None,
+                None, None)
+
+
+class ChannelGroup:
+    """The ranks of one mesh dim that hold the same batch rows and split a
+    block's channels into contiguous blocks, rank ``rank`` of ``size``
+    the ``rank``-th (``on_channel_block``), and the collectives the block
+    needs across them, each with its gradient."""
+
+    def __init__(self, mesh, dim: int):
+        self.group = mesh.get_group(dim)
+        self.name = self.group.group_name
+        self.rank = mesh.get_local_rank(dim)
+        self.size = mesh.shape[dim]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` summed."""
+        return _AllReduce.apply(t, self.name)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` joined along ``dim`` in rank order, each
+        rank's use of it adding a share of its gradient."""
+        return _AllGather.apply(t, dim, self.size, self.name)
+
+    def join(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` joined along ``dim`` in rank order, used
+        alike on every rank (its gradient whole on each)."""
+        return _Join.apply(t, dim, self.size, self.name, self.rank)
+
+    def columns(self, w: torch.Tensor) -> torch.Tensor:
+        """This rank's block of columns (m c, n / m) of a matrix whose
+        block of rows (c, n) each of the m ranks holds, by one
+        all-to-all."""
+        c, n = w.shape
+        m = self.size
+        send = w.reshape(c, m, n // m).transpose(0, 1)
+        return _all_to_all(send, self.group).reshape(m * c, n // m)
+
+
+def _channel_dim(w, rows) -> Optional[int]:
+    """The mesh dim over which channel leaf ``w`` shards its last dim,
+    where that is one dim and the batch rows (``rows``: their placements)
+    replicate over it; else None."""
+    if not is_dtensor(w):
+        return None
+    dims = [i for i, pl in enumerate(w.placements) if pl.is_shard(w.ndim - 1)]
+    if len(dims) != 1 or rows[dims[0]].is_shard(0):
+        return None
+    return dims[0]
+
+
+def on_channel_block(fn, p, x: torch.Tensor, cache=None, *,
+                     channels: str = "wx", out: str = "wo") -> torch.Tensor:
+    """``fn(p, x, cache, group) @ p[out]``: a block over x (B, S, d) whose
+    channels (the last dim of ``p[channels]``) mix only within a batch
+    row, then its output projection ``p[out]`` (channels, d); ``cache``
+    (a dict of leaves with a leading batch dim, or None) is updated in
+    place.
+
+    Where the rules shard the channels over one mesh dim that does not
+    split the batch, each rank runs ``fn`` on its own batch rows and its
+    block of the channels, ``group`` the ``ChannelGroup`` of that dim:
+    a leaf the rules shard over the dim is read as this rank's block
+    (gathered over the other dims, ``_local_block``: its gradient partial
+    over the batch dims only), a leaf they replicate whole (its gradient
+    partial over the dim too, as each rank adds its channels' share), and
+    a cache leaf as this rank's rows with its own placement over the dim
+    (a block, or whole where the specs replicate it), written in place.
+    ``fn`` returns this rank's channels (B_r, S, c).  The projection
+    forms each rank's block of output columns from every rank's channels
+    (gathered) and its columns of ``p[out]`` (an all-to-all of its
+    rows), so each output is one device's sum, and the blocks are joined
+    on every rank.  The gradient of x is summed over the dim where the
+    block starts, so it leaves the block whole on every rank, as x came.
+    Elsewhere (no mesh: ``group`` None; the batch over every dim, or the
+    channels replicated: ``on_batch_rows``) ``fn`` sees whole weights and
+    the projection is ``project``'s."""
+    if not is_dtensor(x):
+        return project(fn(p, x, cache, None), p[out])
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = x.device_mesh
+    rows = [xp if xp.is_shard(0) else Replicate() for xp in x.placements]
+    tp = _channel_dim(p[channels], rows)
+    if tp is None:
+        return on_batch_rows(
+            lambda pp, xx, cc: project(fn(pp, xx, cc, None), pp[out]),
+            p, x, cache)
+    shared = [Partial() if i == tp else r for i, r in enumerate(rows)]
+    local = {n: (_local_block(t, rows, tp) if t.placements[tp].is_shard()
+                 else _whole_leaves(t, shared))
+             for n, t in p.items() if n != out}
+    cache_l, write_back = _cache_blocks(cache, mesh, lambda t: [
+        t.placements[tp] if i == tp else r for i, r in enumerate(rows)])
+    group = ChannelGroup(mesh, tp)
+    x_l = _SumGrad.apply(x.redistribute(mesh, rows).to_local(), group.name)
+    y = fn(local, x_l, cache_l, group)
+    write_back()
+    w = group.columns(_local_block(p[out], rows, tp).to(y.dtype))
+    out_cols = group.gather(y, 2) @ w
+    return from_local(group.join(out_cols, 2), mesh, rows, x.shape)

@@ -37,12 +37,15 @@ Tensors the model builds at the global shapes a DTensor reports
 parameter is a DTensor).  The embedding lookup takes whole rows of the
 table, and ``loss_fn`` takes the gold logit through a one-hot select,
 which is right on vocab-sharded logits (``layers`` says how the blocks
-run).  ``abstract_params``, ``param_axes`` and ``input_specs`` give the
-meta trees and logical axes the sharding rules read.
+run: the SSD and RG-LRU blocks on each rank's block of their channels
+under the ``"2d"`` rules, ``layers.on_channel_block``).
+``abstract_params``, ``param_axes`` and ``input_specs`` give the meta
+trees and logical axes the sharding rules read.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -115,16 +118,13 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions, mode: str,
     ``ssm.ssd_apply``."""
     h = layers.apply_norm(cfg, p["ln1"], x)
     if kind == "ssd":
-        s = layers.on_batch_rows(
-            lambda pp, hh, cc: ssm.ssd_apply(
-                cfg, pp, hh, mode=mode, cache=cc,
-                state_bf16=state_bf16)[0], p["ssd"], h,
-            cache["ssd"] if cache else None)
+        s = layers.on_channel_block(
+            partial(ssm.ssd_mix, cfg, mode=mode, state_bf16=state_bf16),
+            p["ssd"], h, cache["ssd"] if cache else None)
         return x + s, None
     if kind == "rglru":
-        r = layers.on_batch_rows(
-            lambda pp, hh, cc: rglru.rglru_apply(
-                cfg, pp, hh, mode=mode, cache=cc)[0], p["rglru"], h,
+        r = layers.on_channel_block(
+            partial(rglru.rglru_mix, cfg, mode=mode), p["rglru"], h,
             cache["rglru"] if cache else None)
         x = x + r
     elif kind in ("attn", "local_attn", "moe"):

@@ -21,6 +21,17 @@ order than the reference's scan, so the two agree within f32 rounding
 Caches are updated in place, like the attention caches: every call with
 a cache writes every row's ``conv`` and ``h``, as the reference returns
 them for every row.
+
+On a mesh whose rules shard ``ff`` (the ``"2d"`` rules) the block runs
+on each rank's block of r/m channels (``rglru_mix`` under
+``layers.on_channel_block``): the projections, the convolution, the
+recurrence and the cache are channel-local, and so are block-diagonal
+gates whose blocks lie whole on a rank.  A gate output whose inputs lie
+on other ranks (a dense gate, or a block that straddles ranks) is formed
+on the rank that holds it, from every rank's channels (one all-gather of
+the branch input for both gates) and its columns of the gate (a dense
+gate's rows, as the rules place them, brought to columns by an
+all-to-all): one device's products and sums for that output.
 """
 
 from __future__ import annotations
@@ -58,16 +69,58 @@ def rglru_specs(cfg: ModelConfig) -> Dict[str, P]:
     }
 
 
-def _gate_matmul(cfg: ModelConfig, x: torch.Tensor,
-                 w: torch.Tensor) -> torch.Tensor:
-    """x (B,S,r) @ w, dense or block-diagonal."""
-    if cfg.rglru_block_diag:
-        nb = cfg.rglru_block_diag
-        B, S, r = x.shape
-        xb = x.reshape(B, S, nb, r // nb)
-        out = torch.einsum("bsnk,nkj->bsnj", xb, w.to(x.dtype))
-        return out.reshape(B, S, r)
+def _gates(x: torch.Tensor, p, group=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The r and i gates' pre-activations, x @ w_a and x @ w_i (B,S,c) in
+    x's dtype (dense or block-diagonal), for x's c channels: all r off a
+    mesh, a rank's block on one (``group``, its ``layers.ChannelGroup``).
+    A rank holds a dense gate's rows (c, r) and the blocks that lie whole
+    on it, or every block where they straddle ranks.  Outputs whose
+    inputs are all the rank's are formed locally; the others from every
+    rank's channels and the gate's columns (``_columns``)."""
+    w_a, w_i = p["w_a"], p["w_i"]
+    if group is None or _local_gate(w_a, x.shape[-1]):
+        return _local_product(x, w_a), _local_product(x, w_i)
+    xf = group.gather(x, 2)                             # (B,S,r)
+    c0, c = group.rank * x.shape[-1], x.shape[-1]
+    return (_columns(xf, w_a, c0, c, group),
+            _columns(xf, w_i, c0, c, group))
+
+
+def _local_gate(w: torch.Tensor, c: int) -> bool:
+    """Gate ``w`` maps c channels to themselves: a square dense gate, or
+    whole blocks covering them."""
+    if w.ndim == 3:
+        return w.shape[0] * w.shape[1] == c
+    return w.shape[0] == w.shape[1] == c
+
+
+def _local_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,S,c) @ w for a gate local to x's channels."""
+    if w.ndim == 3:
+        B, S, c = x.shape
+        n, k = w.shape[0], w.shape[1]
+        out = torch.einsum("bsnk,nkj->bsnj", x.reshape(B, S, n, k),
+                           w.to(x.dtype))
+        return out.reshape(B, S, c)
     return x @ w.to(x.dtype)
+
+
+def _columns(xf: torch.Tensor, w: torch.Tensor, c0: int, c: int,
+             group) -> torch.Tensor:
+    """Outputs c0 .. c0 + c of xf (B,S,r) @ w: w a dense gate's rows
+    (c, r) this rank holds, brought to its columns (r, c) by an
+    all-to-all, or the whole block-diagonal gate (n, k, k), each block
+    the outputs reach on its own inputs."""
+    if w.ndim == 2:
+        return xf @ group.columns(w.to(xf.dtype))
+    k = w.shape[1]
+    outs = []
+    for b in range(c0 // k, (c0 + c - 1) // k + 1):
+        lo, hi = max(c0, b * k), min(c0 + c, (b + 1) * k)
+        outs.append(xf[..., b * k:(b + 1) * k]
+                    @ w[b, :, lo - b * k:hi - b * k].to(xf.dtype))
+    return torch.cat(outs, -1) if len(outs) > 1 else outs[0]
 
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -86,15 +139,15 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _rglru_core(cfg: ModelConfig, p, x: torch.Tensor,
-                h0: Optional[torch.Tensor], c: float, mode: str
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,r) branch input; returns (h (B,S,r) in x's dtype, h_last
-    (B,r) f32)."""
-    r_gate = torch.sigmoid(
-        _gate_matmul(cfg, x, p["w_a"]).float() + p["b_a"])
-    i_gate = torch.sigmoid(
-        _gate_matmul(cfg, x, p["w_i"]).float() + p["b_i"])
-    log_a = -c * _softplus(p["lam"]) * r_gate               # (B,S,r) f32
+                h0: Optional[torch.Tensor], c: float, mode: str,
+                group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,c) branch input, its c channels (all of them, or a rank's
+    block: ``group``); returns (h (B,S,c) in x's dtype, h_last (B,c)
+    f32)."""
+    g_a, g_i = _gates(x, p, group)
+    r_gate = torch.sigmoid(g_a.float() + p["b_a"])
+    i_gate = torch.sigmoid(g_i.float() + p["b_i"])
+    log_a = -c * _softplus(p["lam"]) * r_gate               # (B,S,c) f32
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
                                        1e-12)) * i_gate * x.float()
@@ -113,21 +166,30 @@ def _rglru_core(cfg: ModelConfig, p, x: torch.Tensor,
     return hh.to(x.dtype), hh[:, -1]
 
 
-def rglru_apply(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
-                cache: Optional[Dict] = None
-                ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Full recurrent block.  x (B,S,d) -> (y (B,S,d), cache): the cache
-    passed in, its ``conv`` and ``h`` overwritten (None without one)."""
+def rglru_mix(cfg: ModelConfig, p, x: torch.Tensor, cache=None, group=None,
+              *, mode: str) -> torch.Tensor:
+    """The recurrent block up to its output projection: x (B,S,d) -> the
+    gated branch (B,S,c) for the c channels ``p``'s channel leaves hold
+    (all r, or a rank's block: ``group``, ``layers.on_channel_block``);
+    ``cache``'s ``conv`` and ``h`` (those channels) overwritten."""
     xb = x @ p["wx"].to(x.dtype)
     yb = _gelu_tanh(x @ p["wy"].to(x.dtype))
     xb, new_conv = _causal_conv(xb, p["conv"],
                                 cache["conv"] if cache else None)
     h0 = cache["h"].float() if cache else None
-    hh, h_last = _rglru_core(cfg, p, xb, h0, cfg.rglru_c, mode)
-    out = (hh * yb) @ p["wo"].to(x.dtype)
+    hh, h_last = _rglru_core(cfg, p, xb, h0, cfg.rglru_c, mode, group)
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["h"].copy_(h_last)           # rounds to bf16, as astype does
+    return hh * yb
+
+
+def rglru_apply(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
+                cache: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full recurrent block.  x (B,S,d) -> (y (B,S,d), cache): the cache
+    passed in, its ``conv`` and ``h`` overwritten (None without one)."""
+    out = rglru_mix(cfg, p, x, cache, mode=mode) @ p["wo"].to(x.dtype)
     return out, cache
 
 

@@ -29,6 +29,20 @@ state the reference holds in bf16 also rounds its ``dBx`` update to bf16
 (``dBx.astype(h.dtype)``); the cache tree carries that fact in a host
 flag, ``STATE_BF16`` (``repro_torch.models.model.init_cache``), so every
 step's values are the reference's.
+
+On a mesh whose rules shard ``heads_inner`` (the ``"2d"`` rules) the
+block runs on each rank's block of the inner channels (``ssd_mix`` under
+``layers.on_channel_block``), as the heads those channels touch: every
+head's whole where ``heads`` shards over the same dim (its ``dt``, decay,
+``D`` and ``state`` local), else (mamba2's 24 heads over 16 ranks: 96
+channels, a head and a half) the per-head leaves and the ``state``
+replicate, and the rank runs the two heads its channels reach, the
+other channels of those heads zero and dropped.  B and C replicate
+(their specs say so), so every rank forms the same C.B product.  The
+gated RMSNorm's mean runs over all ``di`` channels: the f32 sums of
+squares are summed across the dim.  The ``conv`` cache (and a replicated
+``state``) is written whole on every rank: its B and C channels as every
+rank computed them, its inner channels gathered.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import COMPUTE_DTYPE, _logistic
@@ -126,6 +141,18 @@ def _chunk_states(w: torch.Tensor, Bc: torch.Tensor,
     return torch.einsum("bnchp,bncmh->bnhpm", xc, bw)
 
 
+def _head_shared(Cc: torch.Tensor, Bc: torch.Tensor):
+    """What every head of a chunked call shares: C.B within each chunk
+    (B,nc,c,c) f32, the causal mask within a chunk (c,c,1) and the one
+    across the nc + 1 chunk boundaries (nc+1,nc+1,1)."""
+    nc, c = Cc.shape[1], Cc.shape[2]
+    G = torch.matmul(Cc.float(), Bc.float().transpose(-1, -2))
+    ii = torch.arange(c, device=Cc.device)
+    jj = torch.arange(nc + 1, device=Cc.device)
+    return (G, (ii[:, None] >= ii[None, :])[:, :, None],
+            (jj[:, None] >= jj[None, :])[:, :, None])
+
+
 def _ssd_chunked(cfg: ModelConfig, xs, Bv, Cv, dt, log_a, D,
                  h0: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -138,7 +165,6 @@ def _ssd_chunked(cfg: ModelConfig, xs, Bv, Cv, dt, log_a, D,
     nc = S // c
     if nc * c != S:
         raise AssertionError("seq must divide ssm_chunk")
-    dev = xs.device
     xc = xs.reshape(B, nc, c, H, Pd)
     Bc = Bv.reshape(B, nc, c, N)
     Cc = Cv.reshape(B, nc, c, N)
@@ -147,9 +173,8 @@ def _ssd_chunked(cfg: ModelConfig, xs, Bv, Cv, dt, log_a, D,
 
     # Intra-chunk: the quadratic ("duality") form.
     intra = COMPUTE_DTYPE if cfg.ssd_bf16_intra else torch.float32
-    G = torch.matmul(Cc.float(), Bc.float().transpose(-1, -2)).to(intra)
-    ii = torch.arange(c, device=dev)
-    causal = (ii[:, None] >= ii[None, :])[:, :, None]           # (c,c,1)
+    G, causal, chunks = _head_shared(Cc, Bc)
+    G = G.to(intra)
     decay = _masked_exp(La[:, :, :, None, :] - La[:, :, None, :, :],
                         causal).to(intra)                       # (B,nc,c,c,H)
     M = G[..., None] * decay * dtc[:, :, None, :, :].to(intra)
@@ -169,14 +194,111 @@ def _ssd_chunked(cfg: ModelConfig, xs, Bv, Cv, dt, log_a, D,
     src = torch.cat([h0[:, None], states.float()], 1)           # (B,nc+1,..)
     Cx = torch.cat([La.new_zeros((B, 1, H)),
                     torch.cumsum(La[:, :, -1, :], 1)], 1)       # (B,nc+1,H)
-    jj = torch.arange(nc + 1, device=dev)
     W = _masked_exp(Cx[:, :, None, :] - Cx[:, None, :, :],
-                    (jj[:, None] >= jj[None, :])[:, :, None])   # (B,n,j,H)
+                    chunks)                                     # (B,n,j,H)
     hs = torch.einsum("bnjh,bjhpm->bnhpm", W, src)              # (B,nc+1,..)
     y_inter = torch.einsum("bncm,bnhpm->bnchp", Cc.float(), hs[:, :nc]) \
         * torch.exp(La)[..., None]
     y = y_intra.float() + y_inter + D[:, None] * xc.float()
     return y.reshape(B, S, H, Pd), hs[:, nc]
+
+
+def ssd_mix(cfg: ModelConfig, p, x: torch.Tensor, cache=None, group=None,
+            *, mode: str, state_bf16: bool = True) -> torch.Tensor:
+    """The SSD block up to its output projection: x (B,S,d) -> the normed
+    gated output (B,S,c) in x's dtype for the c inner channels ``p``'s
+    channel leaves hold (all di, or a rank's block: ``group``,
+    ``layers.on_channel_block``); ``cache``'s ``conv`` and ``state``
+    overwritten.  ``state_bf16``: see ``ssd_apply``.
+
+    Channels c0 .. c0 + c run as the heads they touch, zero-padded to
+    whole heads (each channel of a head is independent given the head's
+    ``dt``, B and C); the per-head leaves and the ``state`` hold every
+    head, or exactly those heads where they shard with the channels."""
+    B, S, _ = x.shape
+    N, Pd = cfg.ssm_state, cfg.ssm_head_dim
+    di = _d_inner(cfg)
+    c = p["wx"].shape[-1]
+    c0 = group.rank * c if group is not None else 0
+    held = 0 if p["A_log"].shape[0] * Pd == di else c0 // Pd
+    ha, hb = c0 // Pd, -(-(c0 + c) // Pd)          # the heads touched
+    lo, hi = c0 - ha * Pd, hb * Pd - c0 - c        # their other channels
+    heads, nh = slice(ha - held, hb - held), hb - ha
+    z = x @ p["wz"].to(x.dtype)
+    xs = x @ p["wx"].to(x.dtype)
+    Bv = x @ p["wB"].to(x.dtype)
+    Cv = x @ p["wC"].to(x.dtype)
+    dt = _softplus((x @ p["wdt"][:, heads].to(x.dtype)).float()
+                   + p["dt_bias"][heads])
+    conv = cache["conv"] if cache else None
+    if conv is not None and c < di:
+        conv = torch.cat([conv[..., c0:c0 + c], conv[..., di:]], -1)
+    packed = torch.cat([xs, Bv, Cv], -1)
+    wconv = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], -1)
+    packed, new_conv = _causal_conv(packed, wconv, conv)
+    packed = _silu(packed)
+    xs, Bv, Cv = torch.split(packed, [c, N, N], -1)
+    if lo or hi:
+        xs = F.pad(xs, (lo, hi))
+    A = -torch.exp(p["A_log"][heads])                           # (nh,)
+    log_a = dt * A                                              # (B,S,nh) <= 0
+    D = p["D"][heads]
+
+    if mode == "decode":
+        assert S == 1 and cache is not None
+        h = cache["state"][:, heads].float()                    # (B,nh,Pd,N)
+        a = torch.exp(log_a[:, 0])                              # (B,nh)
+        xh = xs[:, 0].reshape(B, nh, Pd)
+        dBx = (dt[:, 0, :, None] * xh.float())[..., None] \
+            * Bv[:, 0, None, None, :].float()
+        if state_bf16:
+            dBx = dBx.to(COMPUTE_DTYPE).float()
+        h = h * a[:, :, None, None] + dBx
+        y = torch.matmul(h, Cv[:, 0, None, :, None].float())[..., 0]
+        y = y + D[None, :, None] * xh.float()
+        y = y.reshape(B, 1, nh * Pd).to(x.dtype)
+    elif mode == "full":
+        h0 = cache["state"][:, heads].float() if cache else None
+        y, h = _ssd_chunked(cfg, xs.reshape(B, S, nh, Pd), Bv, Cv, dt,
+                            log_a, D, h0)
+        y = y.reshape(B, S, nh * Pd).to(x.dtype)
+        # Stored as the reference stores it: rounded to bf16.
+        h = h.to(COMPUTE_DTYPE)
+    else:
+        raise ValueError(mode)
+    if lo or hi:
+        y = y[..., lo:lo + c]
+    if cache is not None:
+        _write_cache(cache, h, new_conv, c, di, lo, group)
+
+    # Gated RMSNorm (the Mamba-2 block's epilogue) over all di channels.
+    y = y * _silu(z)
+    y32 = y.float()
+    if group is None:
+        ms = y32.square().mean(-1, keepdim=True)
+    else:
+        ms = group.sum(y32.square().sum(-1, keepdim=True)) / di
+    return (y32 * torch.rsqrt(ms + 1e-6) * p["norm"]).to(x.dtype)
+
+
+def _write_cache(cache, h: torch.Tensor, new_conv: torch.Tensor, c: int,
+                 di: int, lo: int, group) -> None:
+    """The state h (B,nh,Pd,N) of the heads a block's c channels touch
+    (channel 0 at ``lo``) and the conv context (B,k-1,c+2N) written:
+    where the cache holds more channels than the block ran (replicated
+    over the group), every rank's channels gathered into it."""
+    state = cache["state"]
+    B, nh, Pd, N = h.shape
+    if state.shape[1] * Pd == c:
+        state.copy_(h)
+    else:
+        mine = h.reshape(B, nh * Pd, N)[:, lo:lo + c]
+        state.copy_(group.gather(mine, 1).reshape(state.shape))
+    if c < di:
+        cache["conv"][..., :di].copy_(group.gather(new_conv[..., :c], 2))
+        cache["conv"][..., di:].copy_(new_conv[..., c:])
+    else:
+        cache["conv"].copy_(new_conv)
 
 
 def ssd_apply(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
@@ -186,56 +308,7 @@ def ssd_apply(cfg: ModelConfig, p, x: torch.Tensor, *, mode: str,
     and ``state`` overwritten (None without one).  ``state_bf16``: the
     reference would hold the cache's state in bf16 (``STATE_BF16``), so a
     decode step rounds its update to bf16 as the reference's does."""
-    B, S, _ = x.shape
-    H, N, Pd = cfg.ssd_heads, cfg.ssm_state, cfg.ssm_head_dim
-    di = _d_inner(cfg)
-    z = x @ p["wz"].to(x.dtype)
-    xs = x @ p["wx"].to(x.dtype)
-    Bv = x @ p["wB"].to(x.dtype)
-    Cv = x @ p["wC"].to(x.dtype)
-    dt = _softplus((x @ p["wdt"].to(x.dtype)).float() + p["dt_bias"])
-    packed = torch.cat([xs, Bv, Cv], -1)
-    wconv = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], -1)
-    packed, new_conv = _causal_conv(packed, wconv,
-                                    cache["conv"] if cache else None)
-    packed = _silu(packed)
-    xs, Bv, Cv = torch.split(packed, [di, N, N], -1)
-    A = -torch.exp(p["A_log"])                                  # (H,)
-    log_a = dt * A                                              # (B,S,H) <= 0
-    D = p["D"]
-
-    if mode == "decode":
-        assert S == 1 and cache is not None
-        h = cache["state"].float()                              # (B,H,Pd,N)
-        a = torch.exp(log_a[:, 0])                              # (B,H)
-        xh = xs[:, 0].reshape(B, H, Pd)
-        dBx = (dt[:, 0, :, None] * xh.float())[..., None] \
-            * Bv[:, 0, None, None, :].float()
-        if state_bf16:
-            dBx = dBx.to(COMPUTE_DTYPE).float()
-        h = h * a[:, :, None, None] + dBx
-        y = torch.matmul(h, Cv[:, 0, None, :, None].float())[..., 0]
-        y = y + D[None, :, None] * xh.float()
-        y = y.reshape(B, 1, di).to(x.dtype)
-        cache["state"].copy_(h)
-    elif mode == "full":
-        h0 = cache["state"].float() if cache else None
-        y, h_final = _ssd_chunked(cfg, xs.reshape(B, S, H, Pd), Bv, Cv, dt,
-                                  log_a, D, h0)
-        y = y.reshape(B, S, di).to(x.dtype)
-        if cache is not None:
-            # Stored as the reference stores it: rounded to bf16.
-            cache["state"].copy_(h_final.to(COMPUTE_DTYPE))
-    else:
-        raise ValueError(mode)
-    if cache is not None:
-        cache["conv"].copy_(new_conv)
-
-    # Gated RMSNorm + output projection (the Mamba-2 block's epilogue).
-    y = y * _silu(z)
-    y32 = y.float()
-    y = (y32 * torch.rsqrt(y32.square().mean(-1, keepdim=True) + 1e-6)
-         * p["norm"]).to(x.dtype)
+    y = ssd_mix(cfg, p, x, cache, mode=mode, state_bf16=state_bf16)
     return y @ p["wo"].to(x.dtype), cache
 
 

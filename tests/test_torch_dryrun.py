@@ -6,7 +6,9 @@ counterparts of ``tests/test_hlo_walker.py`` and ``tests/test_dryrun.py``.
   with a loop's count; elementwise ops charged to ``bytes_strict`` and
   not to ``bytes``; strict at least the proxy; the dominant term at the
   card's rates; one rank's local ops only under a DTensor matmul split
-  four ways (a quarter of the flops), with its collectives by kind.
+  four ways (a quarter of the flops), with its collectives by kind; a
+  quarter of the expert, RG-LRU core and SSD per-head flops a device on
+  four ``model`` ranks.
 * Full-size cells under a ``fake`` group: llama3.2-1b ``decode_32k`` on
   the 16x16 (256 ranks) and 2x16x16 (512) meshes and mamba2-130m
   ``long_500k`` are ``ok`` with flops; llama3.2-1b ``long_500k`` is
@@ -311,6 +313,51 @@ def test_expert_flops_a_device_are_a_quarter_on_four_model_ranks(
     assert one > 0 and four == one / 4
     a2a = rec["collective_counts"]["all-to-all"]
     assert a2a == (2 * cfg.n_layers if profile == "fsdp" else 0)
+
+
+@pytest.mark.parametrize("arch, fields", [
+    ("recurrentgemma-9b", {}), ("recurrentgemma-9b", {"rglru_block_diag": 4}),
+    ("mamba2-130m", {})], ids=["rglru-dense", "rglru-blocks", "ssd"])
+def test_block_flops_a_device_are_a_quarter_on_four_model_ranks(
+        fake_world, monkeypatch, arch, fields):
+    """Smoke prefills on a (1, 4) mesh under a fake group: each rank runs
+    the RG-LRU core (gates, decays, scan) on r/4 channels and the SSD's
+    per-head core (its chunked form less the C.B product and the masks,
+    which every rank forms alike) on H/4 heads, so their flops a device
+    are a quarter of one device's (a 1x1 mesh) on the same batch."""
+    from repro_torch.models import rglru, ssm
+    cfg = dataclasses.replace(tget(arch, smoke=True), **fields)
+    shape = InputShape("tiny_prefill", "prefill", 64, 8)
+    mod, name = ((rglru, "_rglru_core") if cfg.family == "hybrid"
+                 else (ssm, "_ssd_chunked"))
+    inner, shared = getattr(mod, name), ssm._head_shared
+
+    def block_flops(n_model):
+        counted = []
+
+        def counting(fn, sign):
+            def run(*a, **kw):
+                with oa.OpCounter() as c:
+                    out = fn(*a, **kw)
+                counted.append(sign * c.cost.flops)
+                return out
+            return run
+        fake_world(n_model)
+        monkeypatch.setattr(mod, name, counting(inner, 1))
+        monkeypatch.setattr(ssm, "_head_shared", counting(shared, -1))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rec = dryrun.lower_cell(arch, shape, cfg=cfg,
+                                    mesh=tmesh.make_debug_mesh(1, n_model))
+        monkeypatch.setattr(mod, name, inner)
+        monkeypatch.setattr(ssm, "_head_shared", shared)
+        assert rec["status"] == "ok", rec.get("traceback")
+        n_blocks = sum(k in ("rglru", "ssd") for k in cfg.layer_pattern)
+        assert sum(x > 0 for x in counted) == n_blocks
+        return sum(counted)
+    one = block_flops(1)
+    four = block_flops(4)
+    assert one > 0 and four == one / 4
 
 
 # -- full-size cells under a fake group --------------------------------------

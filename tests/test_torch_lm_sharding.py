@@ -893,7 +893,7 @@ def test_chip_smoke_phase14_rehearsal(tmp_path):
         warnings.simplefilter("ignore")
         out = cs.lm_sharding_phase(device="cpu", smoke=True,
                                    profiles=("2d",))
-    assert out["z1"]["2d"]["steps"] == 3
+    assert out["z1"]["2d"]["steps"] == 2
     assert out["z1"]["2d"]["comm"]["counts"]
     assert "fsdp" not in out["z1"]
     assert out["z2"]["leaves"] > 0
