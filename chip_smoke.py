@@ -270,7 +270,13 @@ printing its wall time beside the card's name and power limit:
    heads a rank); each against one device under (z1)'s or (z3)'s gates,
    no SSD or RG-LRU leaf gathered over ``model`` and no RG-LRU state
    block sent over it; the dry run of the three steps under (z4)'s
-   check.  (z6) fails past 120 s.
+   check.  (z6) fails past 120 s.  In (z1)'s steps, (z3)'s llama decode
+   and (z5)'s and (z6)'s steps and calls, the embedding lookup
+   (``layers.embed_lookup``: each rank looks up in its own block of the
+   table and the rows are summed over ``model``) gathers only the integer
+   tokens and none of its collectives takes the ``embed`` leaf's local
+   block; (z1) prints its "fsdp" step beside that step with the table
+   gathered whole on every rank.
 15. Examples: each ``examples/*_torch.py``'s ``main`` in this process on
    the card (loaded by path, its standard output captured), train_lm for
    100 steps into a checkpoint directory under ``build/`` (removed
@@ -521,6 +527,14 @@ Z5_MOE_LAYERS, Z5_HYBRID_LAYERS, Z5_LIMIT_S = 2, 3, 120.0
 # dry run of the steps under (z4)'s check.  The one-device copies wait on
 # the host.  (z6) fails past Z6_LIMIT_S.
 Z6_SSM_LAYERS, Z6_LIMIT_S = 4, 120.0
+# In (z1)'s steps, (z3)'s llama decode and (z5)'s and (z6)'s steps and
+# calls, the embedding lookup (``layers.embed_lookup``, its calls marked
+# while ``CommBytes`` records) gathers only the integer tokens and none of
+# its collectives takes the ``embed`` leaf's local block.  (z1)'s "fsdp"
+# step with the table gathered whole on every rank for the lookup (1.05 GB
+# f32 a rank for llama3.2-1b) took Z1_FSDP_WHOLE_TABLE: ms, and peak GB on
+# the card above the one-device copies (NVIDIA H100 80GB HBM3, 700 W).
+Z1_FSDP_WHOLE_TABLE = (18073.4, 30.91)
 # Examples (phase 15): each ``examples/*_torch.py`` run by its ``main`` in
 # this process on the card, train_lm for EXAMPLE_TRAIN_STEPS steps into a
 # checkpoint directory under ``build/``; the five match/CRAM examples
@@ -2840,9 +2854,14 @@ COLLECTIVES = ("all_gather_into_tensor", "all_reduce",
 
 
 class CommBytes:
-    """``CommDebugMode`` plus the bytes of each collective's input."""
+    """``CommDebugMode`` plus the bytes of each collective's input and each
+    collective's (op, group, input shape, float, inside the embedding
+    lookup): while the mode is active ``layers.embed_lookup`` marks its
+    calls on the thread that runs them."""
 
     def __new__(cls):
+        import threading
+
         from torch.distributed.tensor.debug import CommDebugMode
 
         class Mode(CommDebugMode):
@@ -2850,6 +2869,26 @@ class CommBytes:
                 super().__init__()
                 self.nbytes = {}
                 self.calls = []
+                # Set on a rank's thread while its lookup runs.
+                self.inside = threading.local()
+
+            def __enter__(self):
+                from repro_torch.models import layers
+                self.lookup = inner = layers.embed_lookup
+
+                def lookup(*args, **kwargs):
+                    self.inside.on = True
+                    try:
+                        return inner(*args, **kwargs)
+                    finally:
+                        self.inside.on = False
+                layers.embed_lookup = lookup
+                return super().__enter__()
+
+            def __exit__(self, *exc):
+                from repro_torch.models import layers
+                layers.embed_lookup = self.lookup
+                return super().__exit__(*exc)
 
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 import torch
@@ -2860,7 +2899,9 @@ class CommBytes:
                     self.nbytes[name] = self.nbytes.get(name, 0) + n
                     group = [a for a in args if isinstance(a, str)]
                     self.calls.append((name, group[-1] if group else None,
-                                       tuple(args[0].shape)))
+                                       tuple(args[0].shape),
+                                       args[0].dtype.is_floating_point,
+                                       getattr(self.inside, "on", False)))
                 return super().__torch_dispatch__(func, types, args,
                                                   kwargs)
         return Mode()
@@ -2870,7 +2911,45 @@ def model_calls(mode, mesh) -> list:
     """(op, input shape) of each collective ``mode`` (a ``CommBytes``)
     saw over the mesh's ``model`` dim."""
     name = mesh.get_group("model").group_name
-    return [(op, list(shape)) for op, g, shape in mode.calls if g == name]
+    return [(op, list(shape)) for op, g, shape, *_ in mode.calls
+            if g == name]
+
+
+def lookup_calls(mode, mesh, lm) -> dict:
+    """The collectives ``mode`` (a ``CommBytes``) saw inside the
+    embedding lookup, [op, mesh dim, input shape, float], and the shape of
+    the ``embed`` leaf's local block of ``lm``."""
+    from repro_torch.models import model as lmm
+    dims = {mesh.get_group(i).group_name: n
+            for i, n in enumerate(mesh.mesh_dim_names)}
+    return {"lookup": [[op, dims.get(g), list(shape), fl]
+                       for op, g, shape, fl, inside in mode.calls if inside],
+            "embed_block": list(lmm.param_tree(lm)["embed"].to_local()
+                                .shape)}
+
+
+def hold_lookup(tag, label, comm) -> dict:
+    """``comm``'s lookup collectives (``lookup_calls``): the tokens'
+    gather an integer one, no float all-gather, and none taking the
+    ``embed`` leaf's local block."""
+    calls, block = comm["lookup"], comm["embed_block"]
+    gathers = [c for c in calls if c[0] == "all_gather_into_tensor"]
+    check(gathers and not [c for c in gathers if c[3]],
+          f"{tag} {label}: the lookup's all-gathers are the integer "
+          f"tokens': {calls}")
+    check(not [c for c in calls if c[2] == block],
+          f"{tag} {label}: no lookup collective takes the embed block "
+          f"{block}: {calls}")
+    return {"lookup": [c[:2] + [("float" if c[3] else "int")]
+                       for c in calls]}
+
+
+def lookup_text(res) -> str:
+    """The lookup's collectives as a printed clause."""
+    return ("the lookup's collectives "
+            + ", ".join(f"{op} over {dim} ({kind})"
+                        for op, dim, kind in res["lookup"])
+            + ", no embed block among them")
 
 
 def block_shapes(lm, mesh, caches=None) -> dict:
@@ -2963,7 +3042,8 @@ def sharded_steps(init, cfg, n_steps, want, *, device, sync):
                                        mode.get_comm_counts().items()},
                             "bytes": mode.nbytes,
                             "model_calls": model_calls(mode, mesh),
-                            "block_shapes": shapes}
+                            "block_shapes": shapes,
+                            **lookup_calls(mode, mesh, lm)}
                 else:
                     lm, st, m = step(lm, st, batch)
                 sync()
@@ -3140,6 +3220,7 @@ def sharded_serve(cfg, n_decodes: int, *, device, sync, comm_call=None):
                 comm["bytes"] = mode.nbytes
                 comm["model_calls"] = model_calls(mode, mesh)
                 comm["block_shapes"] = block_shapes(lm_, mesh, caches)
+                comm.update(lookup_calls(mode, mesh, lm_))
             else:
                 lg, caches = step(lm_, b)
             sync()
@@ -3255,6 +3336,7 @@ def sharded_z3(*, device, sync, smoke) -> dict:
             "wall_s": time.perf_counter() - t})
         if label == "llama":
             comm = ranks[0]["comm"]
+            res.update(hold_lookup("(z3)", cfg.name, comm))
             res.update({"comm": {"counts": comm["counts"],
                                  "bytes": comm["bytes"]},
                         "arg_bytes": comm["arg_bytes"],
@@ -3286,6 +3368,7 @@ def sharded_z3(*, device, sync, smoke) -> dict:
                       f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.3f} MB)"
                       for k, v in sorted(comm["counts"].items()))
                   if comm["counts"] else "")
+              + (f"; {lookup_text(res)}" if "lookup" in res else "")
               + f"; {res['wall_s']:.1f} s; card: {Phase.card}")
     return out
 
@@ -3462,7 +3545,8 @@ def sharded_z1(*, device, sync, smoke, layout, profiles) -> dict:
                "peak_gb": (peak - base) / 1e9, "kept_gb": base / 1e9,
                "wall_s": wall,
                "worst_loss": worst["loss"], "worst_norm": worst["norm"],
-               "worst_leaf": worst["leaf"]}
+               "worst_leaf": worst["leaf"],
+               **hold_lookup("(z1)", label, ranks[0]["comm"])}
         del ranks
         train_free(cuda)
         out[label] = res
@@ -3489,11 +3573,16 @@ def sharded_z1(*, device, sync, smoke, layout, profiles) -> dict:
               "step: " + ", ".join(
                   f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.1f} MB)"
                   for k, v in sorted(comm["counts"].items()))
+              + f"; {lookup_text(res)}"
               + f"; peak {res['peak_gb']:.2f} GB on the card (every "
               f"rank's, above the {res['kept_gb']:.2f} GB of one-device "
               f"copies kept for the comparison), one device "
-              f"{out['one_device']['peak_gb']:.2f} GB;"
-              f" {wall:.1f} s; card: {Phase.card}")
+              f"{out['one_device']['peak_gb']:.2f} GB"
+              + ("; with the table gathered whole for the lookup, "
+                 f"{Z1_FSDP_WHOLE_TABLE[0]:,.1f} ms and a peak of "
+                 f"{Z1_FSDP_WHOLE_TABLE[1]:.2f} GB (H100 80GB HBM3, 700 W)"
+                 if label == "fsdp" and not smoke else "")
+              + f"; {wall:.1f} s; card: {Phase.card}")
     return out
 
 
@@ -3670,7 +3759,8 @@ def z5_moe(*, device, sync, smoke) -> dict:
                "expert_calls": len(calls),
                "peak_gb": (peak - base) / 1e9, "wall_s": wall,
                "worst_loss": worst["loss"], "worst_norm": worst["norm"],
-               "worst_leaf": worst["leaf"]}
+               "worst_leaf": worst["leaf"],
+               **hold_lookup("(z5)", f"{c.name} {label}", comm)}
         out[label] = res
         del ranks
         train_free(cuda)
@@ -3688,8 +3778,8 @@ def z5_moe(*, device, sync, smoke) -> dict:
               "collectives: " + ", ".join(
                   f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.1f} MB)"
                   for k, v in sorted(comm["counts"].items()))
-              + f"; peak {res['peak_gb']:.2f} GB on the card (every "
-              f"rank's); {wall:.1f} s; card: {Phase.card}")
+              + f"; {lookup_text(res)}; peak {res['peak_gb']:.2f} GB on "
+              f"the card (every rank's); {wall:.1f} s; card: {Phase.card}")
     return out
 
 
@@ -3734,7 +3824,8 @@ def z5_hybrid(*, device, sync, smoke) -> dict:
                 "comm": {"counts": comm["counts"], "bytes": comm["bytes"]},
                 "arg_bytes": comm["arg_bytes"],
                 "core_heads": sorted(set(seen)),
-                "wall_s": time.perf_counter() - t})
+                "wall_s": time.perf_counter() - t,
+                **hold_lookup("(z5)", f"{cfg.name} decode", comm)})
     print(f"  (z5) {cfg.name} at {cfg.n_layers} layers (full width, "
           f"{res['n_params']:,} params f32, {H} query heads over "
           f"{cfg.n_kv_heads} KV head) served on the {MESH_DATA}x{MESH_MODEL}"
@@ -3751,7 +3842,8 @@ def z5_hybrid(*, device, sync, smoke) -> dict:
           "decode's collectives: " + ", ".join(
               f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.3f} MB)"
               for k, v in sorted(comm["counts"].items()))
-          + f"; {res['wall_s']:.1f} s; card: {Phase.card}")
+          + f"; {lookup_text(res)}; {res['wall_s']:.1f} s; card: "
+          f"{Phase.card}")
     return res
 
 
@@ -3849,7 +3941,8 @@ def z6_step(arch, cfg, label, *, device, sync, want):
            "arg_bytes": ranks[0]["arg_bytes"],
            "worst_loss": worst["loss"], "worst_norm": worst["norm"],
            "worst_leaf": worst["leaf"],
-           **hold_blocks(label, comm, want)}
+           **hold_blocks(label, comm, want),
+           **hold_lookup("(z6)", label, comm)}
     print(f"  (z6) {cfg.name} {label} at {cfg.n_layers} layers (full width,"
           f" {res['n_params']:,} params f32), one \"2d\" step on the "
           f"{MESH_DATA}x{MESH_MODEL} mesh, batch {SHARDED_B} x seq "
@@ -3862,7 +3955,7 @@ def z6_step(arch, cfg, label, *, device, sync, want):
           f"device {one[2]:.1f}; collectives: " + ", ".join(
               f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.1f} MB)"
               for k, v in sorted(comm["counts"].items()))
-          + f"; card: {Phase.card}")
+          + f"; {lookup_text(res)}; card: {Phase.card}")
     return res
 
 
@@ -3908,7 +4001,8 @@ def sharded_z6(*, device, sync, smoke) -> dict:
                 "comm": {k: comm[k] for k in ("counts", "bytes")},
                 "arg_bytes": comm["arg_bytes"],
                 "wall_s": time.perf_counter() - t_s,
-                **hold_blocks("hybrid serve", comm, {("rglru", r // m)})})
+                **hold_blocks("hybrid serve", comm, {("rglru", r // m)}),
+                **hold_lookup("(z6)", "hybrid serve", comm)})
     out["serve"] = res
     train_free(cuda)
     print(f"  (z6) {serve.name} serving deployment ({serve.rglru_block_diag} "
@@ -3925,7 +4019,8 @@ def sharded_z6(*, device, sync, smoke) -> dict:
           f"against {res['one_ms_decode']:.1f}; its collectives: " + ", ".join(
               f"{k} {v} ({comm['bytes'].get(k, 0) / 1e6:.3f} MB)"
               for k, v in sorted(comm["counts"].items()))
-          + f"; {res['wall_s']:.1f} s; card: {Phase.card}")
+          + f"; {lookup_text(res)}; {res['wall_s']:.1f} s; card: "
+          f"{Phase.card}")
     print(f"  (z6) {out['kept_gb']:.2f} GB on the card at its start")
     layers = {"n_layers": Z5_HYBRID_LAYERS}
     cells = [

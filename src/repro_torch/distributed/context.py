@@ -87,15 +87,3 @@ def replicating(active: bool = True):
     finally:
         dispatcher._allow_implicit_replication = prev
 
-
-def whole_dim(t, dim: int):
-    """A DTensor ``t`` with tensor dim ``dim`` gathered (no mesh dim
-    shards it; the others keep their shards); anything else as it is."""
-    if not is_dtensor(t):
-        return t
-    from torch.distributed.tensor import Replicate
-    placements = [Replicate() if p.is_shard(dim) else p
-                  for p in t.placements]
-    if placements == list(t.placements):
-        return t
-    return t.redistribute(t.device_mesh, placements)

@@ -29,6 +29,11 @@ top of the arguments).  A decode cell's ``cache_index`` is a host int
 Usage (``--mesh pod``, the 16x16 mesh, by default):
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
   python -m repro_torch.launch.dryrun --all --mesh both --out dry.jsonl
+  python -m repro_torch.launch.dryrun --arch mamba2-130m --optimized
+
+``--optimized`` lowers each arch's training deployment
+(``get_config(arch, optimized=True)``: the "fsdp" rules); each record
+names its rule profile (``profile``).
 """
 
 from __future__ import annotations
@@ -243,6 +248,10 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", choices=["pod", "multipod", "both"],
                     default="pod")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--optimized", action="store_true",
+                    help="each arch's training deployment "
+                         "(get_config(arch, optimized=True): the fsdp "
+                         "profile)")
     ap.add_argument("--out", default=None,
                     help="append JSONL records to this file")
     args = ap.parse_args(argv)
@@ -263,11 +272,12 @@ def main(argv=None) -> None:
             fake_group(512 if multi_pod else 256)
             mesh = make_production_mesh(multi_pod=multi_pod)
             for arch in archs:
-                cfg = get_config(arch)
+                cfg = get_config(arch, optimized=args.optimized)
                 for shape_name in shapes:
                     rec = lower_cell(arch, shape_name, multi_pod, cfg=cfg,
                                      mesh=mesh)
                     rec["mesh"] = "2x16x16" if multi_pod else "16x16"
+                    rec["profile"] = cfg.sharding_profile
                     summary = {k: rec.get(k) for k in
                                ("arch", "shape", "mesh", "status",
                                 "dominant", "lower_s", "error")}

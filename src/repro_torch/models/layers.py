@@ -38,7 +38,9 @@ reference's other branch: causal self-attention over its own cross cache
 
 On a mesh (DTensor parameters and activations) a weight is gathered
 over the mesh dims that shard the batch at each use and keeps its other
-shards (``weight``).  The attention core runs on each rank's batch rows
+shards (``weight``); the embedding lookup runs on each rank's block of
+the table and sums the rows it looked up over the vocab's dims
+(``embed_lookup``).  The attention core runs on each rank's batch rows
 and heads (``_on_shards``, ``_cache_call``): where the KV heads replicate
 over the dim that shards the query heads, each rank keeps its query
 heads and reads only the KV head they share (``_query_heads``).  The
@@ -123,6 +125,90 @@ def project(a: torch.Tensor, w: torch.Tensor,
     y = y.redistribute(y.device_mesh, [Replicate() if p.is_partial() else p
                                        for p in y.placements])
     return y.to(a.dtype)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` (B, S) of the table ``embed`` (V, d): (B, S, d) in
+    COMPUTE_DTYPE.
+
+    On a mesh no rank gathers the table.  With Dv the mesh dims that shard
+    its vocab dim, De those that shard its embed dim and Db those that
+    shard the tokens' batch (placed as ``constrain`` places the batch),
+    the tokens are gathered over Db's dims in Dv or De (the integer ids
+    only); each rank looks them up in its own block of the table, an id
+    outside the block giving a zero row; the rows, a partial sum over Dv
+    with a single non-zero term an element, are summed over Dv (an
+    all-reduce: one device's values to the bit); the embed shard becomes
+    the batch shard over De (an all-to-all) and each rank keeps its rows.
+    So the output is placed as ``constrain(x, ("batch", None, None))``
+    places it, as the reference's compiled program lowers its
+    ``jnp.take``.  The payload is bf16: the sum of one value and zeros
+    is that value, so f32 would carry the same bits at twice the bytes.
+    The table's gradient lands in each rank's block, the moves run back
+    (the all-to-all back; where the rank kept rows of the sum, the rows'
+    gradients gathered), a partial sum over the batch dims that replicate
+    the table, reduced on its way to the shards."""
+    if not is_dtensor(embed):
+        return torch.nn.functional.embedding(tokens.long(), embed).to(
+            COMPUTE_DTYPE)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    from repro_torch.distributed.context import constrain
+    mesh = embed.device_mesh
+    n = mesh.ndim
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * n,
+                                    run_check=False)
+    tokens = constrain(tokens, ("batch", None))
+    tp = embed.placements
+    dv = [i for i in range(n) if tp[i].is_shard(0)]
+    de = [i for i in range(n) if tp[i].is_shard(1)]
+    db = [i for i in range(n) if tokens.placements[i].is_shard(0)]
+    moved = [i for i in db if i in dv or i in de]
+    kept = [i for i in db if i not in moved]
+    if kept and moved and max(kept) > min(moved):
+        raise NotImplementedError(
+            f"embed_lookup: the batch's mesh dims {kept} that keep their "
+            f"rows must precede those it gathers {moved}")
+    local = tokens.redistribute(mesh, [
+        Shard(0) if i in kept else Replicate() for i in range(n)]).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(embed.shape), mesh, tp)
+    table = embed.to_local(grad_placements=[
+        Partial() if i in kept else p for i, p in enumerate(tp)])
+    ids = local.long() - offset[0]
+    if shape[0] < embed.shape[0]:
+        hit = (ids >= 0) & (ids < shape[0])
+        x = torch.nn.functional.embedding(ids.clamp(0, shape[0] - 1), table)
+        x = torch.where(hit[..., None], x, 0)
+    else:
+        x = torch.nn.functional.embedding(ids, table)
+    # Rows (one axis a gathered batch dim, in mesh order), S, d block.
+    x = x.to(COMPUTE_DTYPE).unflatten(
+        0, [mesh.shape[i] for i in moved] + [-1])
+    for i in dv:
+        axis = moved.index(i) if i in moved else None
+        x = _SumRows.apply(x, mesh.get_group(i).group_name, axis,
+                           mesh.shape[i], mesh.get_local_rank(i))
+        if axis is not None:
+            moved.remove(i)
+    # Inner mesh dims first: each move joins embed blocks in rank order,
+    # so the blocks of nested shards come out in the table's order.
+    for i in reversed(de):
+        if i in moved:
+            x = _all_to_all(x.movedim(moved.index(i), 0), mesh.get_group(i))
+            x = x.movedim(0, -2).flatten(-2)
+            moved.remove(i)
+        else:
+            x = _Join.apply(x, x.ndim - 1, mesh.shape[i],
+                            mesh.get_group(i).group_name,
+                            mesh.get_local_rank(i))
+    B, S = tokens.shape
+    return from_local(x, mesh, [
+        Shard(0) if i in db else Replicate() for i in range(n)],
+        (B, S, embed.shape[1]))
 
 
 def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -1022,6 +1108,27 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _c10d("all_reduce", grad.contiguous(), "sum", ctx.name), None
+
+
+class _SumRows(torch.autograd.Function):
+    """Every rank's tensor summed, and, where ``axis`` is given, this
+    rank's index ``rank`` of the ``m`` along it (its rows of the sum).
+    Each rank uses what it keeps whole, so the gradient of the sum passes
+    unchanged, and the gradients of the kept rows are gathered back along
+    ``axis``."""
+
+    @staticmethod
+    def forward(ctx, t, name, axis, m, rank):
+        ctx.name, ctx.axis, ctx.m = name, axis, m
+        s = _c10d("all_reduce", t.contiguous(), "sum", name)
+        return s if axis is None else s.select(axis, rank).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.axis is not None:
+            grad = _gather(grad.unsqueeze(ctx.axis), ctx.axis, ctx.m,
+                           ctx.name)
+        return grad, None, None, None, None
 
 
 class _SumGrad(torch.autograd.Function):

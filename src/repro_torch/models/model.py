@@ -34,8 +34,9 @@ where ``distributed.context.activation_sharding`` installed a mesh.
 Tensors the model builds at the global shapes a DTensor reports
 (positions, RoPE tables, the loss's vocab ids) are taken as replicated
 (``replicating``: DTensor's implicit replication, entered only when a
-parameter is a DTensor).  The embedding lookup takes whole rows of the
-table, and ``loss_fn`` takes the gold logit through a one-hot select,
+parameter is a DTensor).  The embedding lookup runs on each rank's block
+of the table, no rank gathering it (``layers.embed_lookup``), and
+``loss_fn`` takes the gold logit through a one-hot select,
 which is right on vocab-sharded logits (``layers`` says how the blocks
 run: the SSD and RG-LRU blocks on each rank's block of their channels
 under the ``"2d"`` rules, ``layers.on_channel_block``).
@@ -56,7 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import sharding
 from repro_torch.distributed.context import (constrain, is_dtensor,
-                                             replicating, whole_dim)
+                                             replicating)
 
 from . import layers, rglru, ssm
 from .config import InputShape, ModelConfig
@@ -481,13 +482,13 @@ def _forward(cfg: ModelConfig, p, batch, mode, caches, cache_index):
         x = _on(batch["embeds"], dev).to(COMPUTE_DTYPE)
         B, S = x.shape[0], x.shape[1]
     else:
-        tokens = _on(batch["tokens"], dev).long()
+        tokens = _on(batch["tokens"], dev)
         B, S = tokens.shape
-        # On a mesh the lookup takes whole rows of the table: a lookup on
-        # vocab shards leaves a masked partial sum that DTensor cannot
-        # reduce once the batch is sharded too.
-        x = torch.nn.functional.embedding(
-            tokens, whole_dim(embed, 0)).to(COMPUTE_DTYPE)
+        # On a mesh each rank looks up in its own block of the table: a
+        # lookup on vocab shards leaves a masked partial sum that DTensor
+        # cannot reduce once the batch is sharded too, so ``embed_lookup``
+        # sums it with its own collectives.
+        x = layers.embed_lookup(embed, tokens)
     x = constrain(x, ("batch", None, None))
     if is_dtensor(cache_index):
         cache_index = cache_index.full_tensor()

@@ -230,7 +230,8 @@ def _worker(out_dir: str) -> None:
             "model_collectives": [[n, shp] for n, g, shp in mode.log
                                   if g == model_group],
             "n_all_to_all": sum(n == "all_to_all_single"
-                                for n, _, _ in mode.log)}
+                                for n, g, _ in mode.log
+                                if g == model_group)}
         if rank == 0:
             arrays = {"logits": res["logits"],
                       **{f"grad/{p}": g for p, g in res["grads"].items()},
@@ -408,10 +409,11 @@ def test_no_expert_leaf_is_gathered_over_model(ranks, name):
 
 @pytest.mark.parametrize("name", MOE)
 def test_all_to_all_dispatch_under_fsdp_only(ranks, name):
-    """"fsdp": two all-to-alls a MoE layer forward (the logits), four in
-    the gradient pass and four in the train step (two forward, two
-    back): ten a layer; "2d": none (the combine's partials are summed by
-    an all-reduce)."""
+    """"fsdp": two all-to-alls over ``model`` a MoE layer forward (the
+    logits), four in the gradient pass and four in the train step (two
+    forward, two back): ten a layer; "2d": none (the combine's partials
+    are summed by an all-reduce; the embedding lookup's all-to-alls run
+    over ``data``)."""
     cfg, _ = case(name)
     want = 10 * cfg.n_layers if cfg.sharding_profile == "fsdp" else 0
     for r in ranks["ranks"]:

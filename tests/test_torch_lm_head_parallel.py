@@ -184,9 +184,11 @@ def run_case(name, mesh=None, record=None):
 
 
 class Collectives(TorchDispatchMode):
-    """The functional collectives one rank issues: (op, group name, input
-    shape, ``phase``: "serve" in the serving calls), DTensor-level calls
-    left to DTensor."""
+    """The functional collectives of float tensors one rank issues: (op,
+    group name, input shape, ``phase``: "serve" in the serving calls),
+    DTensor-level calls left to DTensor.  The leaves and the states are
+    float; the embedding lookup's gather of the integer tokens is left
+    out."""
 
     def __init__(self):
         super().__init__()
@@ -198,11 +200,13 @@ class Collectives(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         name = func.__name__.split(".")[0]
-        if func.namespace == "_c10d_functional" and name != "wait_tensor":
+        tensor = isinstance(args[0], torch.Tensor)
+        integer = tensor and not args[0].is_floating_point()
+        if (func.namespace == "_c10d_functional" and name != "wait_tensor"
+                and not integer):
             names = [a for a in list(args) + list((kwargs or {}).values())
                      if isinstance(a, str)]
-            shape = list(args[0].shape) if isinstance(
-                args[0], torch.Tensor) else []
+            shape = list(args[0].shape) if tensor else []
             self.log.append((name, names[-1] if names else None, shape,
                              self.phase))
         return func(*args, **(kwargs or {}))
