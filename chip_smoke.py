@@ -33,7 +33,9 @@ printing its wall time beside the card's name and power limit:
    full-block ``match_swar``) and (f) the same with the planner's
    choice.  Launch counters are zeroed just before each query and read
    just after; (a) and (b) are held against the ``ref`` backend on the
-   full corpus, (e) against the same query scanned.
+   full corpus, (e) against the same query scanned.  The legacy shim
+   ``engine.match(read, reduction="threshold", threshold=99,
+   filter=True|False)`` must give (e)'s hits and its scan's.
 4b. Standing bank: ``PatternBank(500, 100)`` with 4,096 patterns drawn
    from the reference, scanned against 4 batches of 256 seeded 500-char
    docs (32 planted hits each) with the prefilter forced on and off;
@@ -78,7 +80,9 @@ printing its wall time beside the card's name and power limit:
 8. Calibration: ``autotune`` on the full grid, the min of
    CALIB_REPEATS readings a point (every curve, its
    samples, the autotune's wall time; every key the planner prices
-   fitted, every measured kernel launched), the table saved and loaded
+   fitted, every measured kernel launched), a fast autotune of
+   ``kernels=("filter",)`` that fits ``filter`` alone and launches
+   ``filter_qgram`` and no other kernel, the table saved and loaded
    back with an equal digest and equal golden decisions, a second
    autotune (the same readings) whose decisions must be stable (scan
    backends, filter-then-verify and the bank's prefilter-or-scan); then a ``MatchEngine`` under
@@ -962,6 +966,19 @@ def calibration_phase(engine, bank, queries, *, zero_counts, read_counts,
     src = table.cost_source()
     static = StaticCostSource()
 
+    # -- a subset of the kernels ----------------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    subset = cal.autotune(fast=True, kernels=("filter",), **kw)
+    subset_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"  autotune(fast=True, kernels=('filter',)) {subset_s:.3f} s; "
+          f"launches {counts}")
+    check(set(subset.curves) == set(subset.samples) == {"filter"},
+          f"the subset fits filter alone ({sorted(subset.curves)})")
+    check([k for k, n in counts.items() if n] == ["filter_qgram"],
+          "the subset launched filter_qgram and no other kernel")
+
     # -- round trip and stability -----------------------------------------
     with tempfile.TemporaryDirectory() as d:
         path = table.save(Path(d))
@@ -1088,6 +1105,7 @@ def calibration_phase(engine, bank, queries, *, zero_counts, read_counts,
     check(provenance["power_limit_w"] is not None,
           "the card's power limit read by its UUID")
     return {"autotune_s": autotune_s, "second_autotune_s": second_s,
+            "subset_autotune_s": subset_s,
             "table": table.to_json(), "second_table": second.to_json(),
             "stability": rows, "golden_static": golden_static,
             "golden_calibrated": golden_cal, "runs": runs,
@@ -5049,6 +5067,23 @@ def main() -> int:
               "filter_qgram launched on the (e)-(f) path")
         check(launches_ef["match_swar"] > 0,
               "match_swar launched on the (e)-(f) path (verify)")
+        # The legacy shim: match(codes, filter=) folds (e)'s query and its
+        # filter=False twin into MatchQuery objects.
+        t = time.perf_counter()
+        shim = {f: engine.match(read_a, reduction="threshold", threshold=99,
+                                filter=f) for f in (True, False)}
+        torch.cuda.synchronize()
+        shim_s = time.perf_counter() - t
+        check(shim[True].plan.strategy == "filter"
+              and shim[False].plan.strategy == "scan",
+              "match(filter=True|False) took the filter and the scan")
+        check(np.array_equal(shim[True].hits, re_.hits)
+              and np.array_equal(shim[True].survivor_rows,
+                                 re_.survivor_rows)
+              and np.array_equal(shim[False].hits, rs.hits),
+              "match(filter=True|False) hits equal (e)'s and its scan's")
+        print(f"  match(read, threshold=99, filter=True|False) through the "
+              f"shim: {shim_s:.3f} s, {shim[True].hits.shape[0]} hits")
         print(f"  (e) survivors {len(re_.survivor_rows)} rows "
               f"({re_.survivor_frac:.6f} of {n_rows}), "
               f"{re_.hits.shape[0]} hits; (f) planner chose "

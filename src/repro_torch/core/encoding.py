@@ -16,6 +16,14 @@ import numpy as np
 DNA_ALPHABET = "ACGT"
 DNA_CODE: Dict[str, int] = {c: i for i, c in enumerate(DNA_ALPHABET)}
 DNA_BITS = 2
+CHARS_PER_WORD_DNA = 32 // DNA_BITS            # 16
+BYTE_BITS = 8
+CHARS_PER_WORD_BYTE = 32 // BYTE_BITS          # 4
+
+# 0b01 repeated: mask of low bit of each 2-bit char lane.
+LOW_BIT_MASK_2 = np.uint32(0x55555555)
+# low bit of each byte lane.
+LOW_BIT_MASK_8 = np.uint32(0x01010101)
 
 # IUPAC ambiguity codes as 4-bit accept masks: bit c set <=> DNA code c
 # (A=0, C=1, G=2, T=3) is accepted at that position.  These are the

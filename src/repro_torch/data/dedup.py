@@ -18,6 +18,7 @@ while ingesting.  The store lives on the card unless the caller passes
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional, Union
 
 import numpy as np
@@ -52,7 +53,8 @@ class CRAMDedup:
     The store is the 'reference' (one fingerprint per row, all rows matched
     in lock step); the candidate is the 'pattern'.  A pattern shorter than
     the fragment slides, so prefix-shifted duplicates are caught too.
-    ``backend=None`` lets the planner pick the kernel per query size.
+    ``backend=None`` lets the planner pick the kernel per query size
+    (``method=`` is its deprecated spelling).
 
     Documents may be raw ``bytes`` (fingerprinted here) or precomputed
     uint8 fingerprint arrays (values 0..3); an array wider than ``fp_len``
@@ -62,14 +64,18 @@ class CRAMDedup:
 
     def __init__(self, fp_len: int = 128, pattern_len: int = 96,
                  threshold: float = 0.9, backend: Optional[str] = None,
+                 method: Optional[str] = None, *,
                  device: DeviceLike = None):
+        if method is not None:
+            warnings.warn("CRAMDedup(method=...) is deprecated; pass "
+                          "backend=...", DeprecationWarning, stacklevel=2)
         if pattern_len > fp_len:
             raise ValueError(f"pattern_len ({pattern_len}) cannot exceed "
                              f"fp_len ({fp_len})")
         self.fp_len = fp_len
         self.pattern_len = pattern_len
         self.threshold = threshold
-        self.backend = backend
+        self.backend = backend if backend is not None else method
         # One corpus and one engine for the store's whole lifetime: growth
         # happens *inside* the corpus (append_rows + capacity doubling),
         # never by rebuilding the engine -- the resident packed rows and

@@ -17,7 +17,8 @@ Results are int32 tensors on that device.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import warnings
+from typing import Literal, Optional, Union
 
 import numpy as np
 import torch
@@ -30,7 +31,8 @@ from . import popcount as _popcount
 Words = Union[np.ndarray, torch.Tensor]
 
 
-def match_scores(fragments: np.ndarray, patterns, *,
+def match_scores(fragments: np.ndarray, patterns,
+                 method: Optional[Literal["swar", "mxu", "ref"]] = None, *,
                  backend: Optional[str] = None,
                  device: DeviceLike = None) -> np.ndarray:
     """Similarity scores for all alignments (Algorithm 1 fast path).
@@ -38,9 +40,17 @@ def match_scores(fragments: np.ndarray, patterns, *,
     fragments: (R, F) uint8 codes.  patterns: (P,) shared, (R, P) per-row,
     or (Q, P) batched (-> (R, L, Q)) uint8 codes -- or a ``MatchQuery``
     (its reduction is forced to "full").  Returns (R, L) or (R, L, Q)
-    int32, L = F - P + 1.  ``backend=None`` lets the planner pick.
+    int32, L = F - P + 1.  ``backend=None`` lets the planner pick;
+    ``method=`` is the deprecated spelling of ``backend=``.
     """
     from repro_torch.match import MatchEngine
+
+    if method is not None:
+        warnings.warn("ops.match_scores(method=...) is deprecated; pass "
+                      "backend=... or compile a MatchQuery",
+                      DeprecationWarning, stacklevel=2)
+        if backend is None:
+            backend = method
 
     eng = MatchEngine(np.asarray(fragments, np.uint8), device=device)
     kw = {} if backend is None else {"backend": backend}

@@ -71,7 +71,7 @@ import torch
 
 from repro_torch.core import encoding
 from repro_torch.core.tech import (H100, CalibratedCostSource, CostSource,
-                                   KernelCurve)
+                                   GPURoofline, KernelCurve)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import filter_qgram as _fq
 from repro_torch.kernels import match_mxu as _mxu
@@ -290,11 +290,12 @@ def _words(a: np.ndarray, dev: torch.device) -> torch.Tensor:
         np.int32)).to(dev)
 
 
-def _build_call(kernel: str, shape: Mapping, dev: torch.device):
+def _build_call(kernel: str, shape: Mapping, dev: torch.device,
+                roofline: GPURoofline = H100):
     """(callable, analytic_s) for one (kernel, shape) point: the launch
     the engine makes for a plan priced under ``kernel``, on operands
     built once on ``dev``; the analytic seconds are the planner's, on
-    its H100 roofline."""
+    ``roofline``."""
     rng = np.random.default_rng(SEED)
 
     def u32(*s):
@@ -309,14 +310,14 @@ def _build_call(kernel: str, shape: Mapping, dev: torch.device):
         pats = _words(u32(Q, wb) & u32(Q, wb), dev)
         docs = _words(u32(D, wb) | u32(D, wb), dev)
         slacks = torch.full((Q, 1), 4, dtype=torch.int32, device=dev)
-        analytic = analytic_bank_prefilter_seconds(H100, Q, wb, D)
+        analytic = analytic_bank_prefilter_seconds(roofline, Q, wb, D)
         return (lambda: _fq.bank_prefilter(pats, docs, slacks)), analytic
 
     R = int(shape["R"])
     if kernel == "filter":
         wb = int(shape["sig_words"])
         rows, qsig = _words(u32(R, wb), dev), _words(u32(1, wb), dev)
-        analytic = analytic_filter_seconds(H100, R, wb, 1)
+        analytic = analytic_filter_seconds(roofline, R, wb, 1)
         return (lambda: _fq.filter_qgram(rows, qsig, slack=4)), analytic
 
     F, P = int(shape["F"]), int(shape["P"])
@@ -326,7 +327,7 @@ def _build_call(kernel: str, shape: Mapping, dev: torch.device):
             rng.integers(0, 4, (R, F), dtype=np.uint8)).to(dev)
         pat = torch.from_numpy(rng.integers(0, 4, (P,), dtype=np.uint8)).to(
             dev)
-        analytic = analytic_ref_seconds(H100, R, L, P, 1)
+        analytic = analytic_ref_seconds(roofline, R, L, P, 1)
         return (lambda: _kref.match_scores_ref(frags, pat)), analytic
 
     if kernel in ("mxu", "mxu_best"):
@@ -338,7 +339,7 @@ def _build_call(kernel: str, shape: Mapping, dev: torch.device):
         pat = rng.integers(0, 2, (p_chars * 4, q_pad)).astype(np.float32)
         pat[4 * P:] = 0                   # the engine's zero pattern pad
         pat_mat = torch.from_numpy(pat).to(dev, torch.bfloat16)
-        analytic = analytic_mxu_seconds(H100, R, L, P, Q)
+        analytic = analytic_mxu_seconds(roofline, R, L, P, Q)
         if kernel == "mxu_best":
             return (lambda: _mxu.match_mxu_best(
                 ref_flat, pat_mat, n_locs=L, n_k=4 * P)), analytic
@@ -354,11 +355,11 @@ def _build_call(kernel: str, shape: Mapping, dev: torch.device):
     valid = _words(encoding.pack_codes_u32(mask_codes[None, :]), dev)
     if kernel == "swar_masks":
         planes = _words(u32(1, 4 * wp), dev).expand(R, -1)
-        analytic = analytic_swar_seconds(H100, R, L, P, 1, "accept")
+        analytic = analytic_swar_seconds(roofline, R, L, P, 1, "accept")
         return (lambda: _swar.match_swar_masks(
             words, planes, valid, n_locs=L, pattern_chars=P)), analytic
     pats = _words(u32(1, wp), dev).expand(R, -1)
-    analytic = analytic_swar_seconds(H100, R, L, P, 1, "exact")
+    analytic = analytic_swar_seconds(roofline, R, L, P, 1, "exact")
     if kernel == "swar_best":
         return (lambda: _swar.match_swar_best(
             words, pats, valid, n_locs=L, pattern_chars=P)), analytic
@@ -373,11 +374,12 @@ def _sync_for(dev: torch.device) -> Callable[[], None]:
 
 
 def measure(kernel: str, shape: Mapping, *, device: DeviceLike = None,
-            repeats: int = 3) -> Tuple[float, float]:
+            repeats: int = 3,
+            roofline: GPURoofline = H100) -> Tuple[float, float]:
     """(analytic_s, measured_s) for one kernel (a key of ``KERNELS`` or
-    ``FUSED``) at one shape."""
+    ``FUSED``) at one shape, the analytic seconds on ``roofline``."""
     dev = resolve_device(device)
-    fn, analytic = _build_call(kernel, shape, dev)
+    fn, analytic = _build_call(kernel, shape, dev, roofline)
     return analytic, _time_rounds([fn], repeats, _sync_for(dev))[0]
 
 
@@ -617,8 +619,12 @@ def bench_provenance(cost_source: Optional[CostSource] = None, *,
 
 def autotune(*, fast: bool = False, device: DeviceLike = None,
              repeats: Optional[int] = None,
+             roofline: GPURoofline = H100,
+             kernels: Sequence[str] = KERNELS,
              verbose: bool = False) -> CalibrationTable:
-    """Measure the grid, fit per-kernel curves, return the table."""
+    """Measure the grid of ``kernels`` (keys of ``KERNELS``; another key
+    raises ``KeyError``), fit their curves over the analytic seconds on
+    ``roofline``, return the table."""
     dev = resolve_device(device)
     # Min of 30 readings a point: with 10, back-to-back autotunes on an
     # H100 moved the swar and mxu slopes across quantization bins.
@@ -626,11 +632,11 @@ def autotune(*, fast: bool = False, device: DeviceLike = None,
     grid = FAST_GRID if fast else FULL_GRID
     curves: Dict[str, KernelCurve] = {}
     samples: Dict[str, List[dict]] = {}
-    calls = [_build_call(kernel, shape, dev)
-             for kernel in KERNELS for shape in grid[kernel]]
+    calls = [_build_call(kernel, shape, dev, roofline)
+             for kernel in kernels for shape in grid[kernel]]
     measured = _time_rounds([fn for fn, _ in calls], repeats, _sync_for(dev))
     points = iter(zip(calls, measured))
-    for kernel in KERNELS:
+    for kernel in kernels:
         xs, ys, rows = [], [], []
         for shape in grid[kernel]:
             (_, analytic), m = next(points)
@@ -648,7 +654,7 @@ def autotune(*, fast: bool = False, device: DeviceLike = None,
         device_kind=device_kind(dev), backend=backend_name(dev),
         interpret=default_interpret(dev), curves=curves, samples=samples,
         meta={"grid": "fast" if fast else "full", "repeats": repeats,
-              "roofline": H100.name})
+              "roofline": roofline.name})
 
 
 # -- decision stability -------------------------------------------------------

@@ -1164,12 +1164,15 @@ class MatchEngine:
     # -- execution ------------------------------------------------------------
     def match(self, patterns, *, backend=_UNSET, mode=_UNSET, rows=_UNSET,
               reduction=_UNSET, k=_UNSET, threshold=_UNSET,
-              chunk_rows=_UNSET) -> MatchResult:
+              chunk_rows=_UNSET, filter=_UNSET) -> MatchResult:
         """Run one query (a ``MatchQuery``, or a uint8 code array with the
-        legacy kwargs, which this shim folds into a content-cached query)."""
+        legacy kwargs, which this shim folds into a content-cached query).
+        ``filter`` is ``MatchQuery.filter``: ``True`` forces the q-gram
+        filter stage (threshold queries only), ``False`` forbids it,
+        ``None`` leaves it to the planner."""
         query = as_query(patterns, backend=backend, mode=mode, rows=rows,
                          reduction=reduction, k=k, threshold=threshold,
-                         chunk_rows=chunk_rows)
+                         chunk_rows=chunk_rows, filter=filter)
         return self.compile(query).run()
 
     def scores(self, patterns, *, backend=_UNSET, mode=_UNSET, rows=_UNSET,

@@ -16,6 +16,8 @@ import dataclasses
 import math
 from typing import Literal, Tuple
 
+BlockKind = Literal["attn", "local_attn", "mlp", "moe", "ssd", "rglru"]
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:

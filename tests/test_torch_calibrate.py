@@ -446,7 +446,8 @@ def test_autotune_takes_its_readings_in_rounds_over_the_grid(monkeypatch):
     points = [(k, i) for k in tcal.KERNELS for i in range(2)]
     made, calls, now = [], [], [0.0]
 
-    def fake_call(kernel, shape, dev):
+    def fake_call(kernel, shape, dev, roofline):
+        assert roofline is ttech.H100
         key = points[len(made)]
         made.append(key)
 
