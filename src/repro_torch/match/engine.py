@@ -111,6 +111,14 @@ class MatchResult:
     timings: Optional[dict] = dataclasses.field(default=None, repr=False)
 
 
+def result_nbytes(res: MatchResult) -> int:
+    """Bytes of the per-row and per-hit arrays a result holds (the
+    ``bytes`` of the ``assemble`` and ``service.scatter`` spans)."""
+    return sum(a.nbytes for a in (res.best_locs, res.best_scores, res.scores,
+                                  res.topk_rows, res.topk_scores, res.hits)
+               if a is not None)
+
+
 def _valid_mask(P: int, wp: int) -> np.ndarray:
     """(1, Wp) low-bit-of-lane mask of the P valid pattern positions."""
     mask_codes = np.zeros(wp * 16, np.uint32)
@@ -528,17 +536,21 @@ class CompiledMatch:
                 pos_pad[:n_hot] = pos
                 sc = merger.pull(merger.gather_rows(scores, pos_pad),
                                  kind="block")[:n_hot]
-                if plan.mode == "batched":
-                    local = np.argwhere(sc >= thr_vec[None, None, :])
-                else:
-                    local = np.argwhere(sc >= float(thr_vec[0]))
-                if local.size:
-                    vals = sc[tuple(local.T)]
-                    rows_chunk = hot_rows[local[:, 0]]
-                    local[:, 0] = (sel[rows_chunk + c0] if sel is not None
-                                   else rows_chunk + c0)
-                    hit_rows.append(np.concatenate(
-                        [local, vals[:, None].astype(np.int64)], 1))
+                with tr.span("hits") as sp_hits:
+                    if plan.mode == "batched":
+                        local = np.argwhere(sc >= thr_vec[None, None, :])
+                    else:
+                        local = np.argwhere(sc >= float(thr_vec[0]))
+                    if local.size:
+                        vals = sc[tuple(local.T)]
+                        rows_chunk = hot_rows[local[:, 0]]
+                        local[:, 0] = (sel[rows_chunk + c0]
+                                       if sel is not None
+                                       else rows_chunk + c0)
+                        hit_rows.append(np.concatenate(
+                            [local, vals[:, None].astype(np.int64)], 1))
+                    if tr.enabled:
+                        sp_hits.set("n_hits", local.shape[0])
             elif reduction == "topk":
                 if topk_state is None:
                     topk_state = merger.topk_init(
@@ -581,26 +593,34 @@ class CompiledMatch:
             if engine.record_runtimes:
                 engine.planner.feedback.observe(s_key, base, t_scan)
 
+        # The per-chunk blocks joined into the result's arrays (top-k's
+        # finalize has merge and pull spans of its own).
+        with tr.span("assemble") as sp_asm:
+            if reduction == "full":
+                all_scores = np.concatenate(full, 0)
+                res = MatchResult(plan=plan, best_locs=all_scores.argmax(1),
+                                  best_scores=all_scores.max(1),
+                                  scores=all_scores, n_chunks=n_chunks,
+                                  n_shards=S, merge_path=merger.merge_path)
+            else:
+                res = MatchResult(plan=plan,
+                                  best_locs=np.concatenate(best_l, 0),
+                                  best_scores=np.concatenate(best_s, 0),
+                                  n_chunks=n_chunks, n_shards=S,
+                                  merge_path=merger.merge_path)
+            if reduction == "threshold":
+                width = 3 + (1 if plan.mode == "batched" else 0)
+                res.hits = (np.concatenate(hit_rows, 0) if hit_rows
+                            else np.zeros((0, width), np.int64))
+            if tr.enabled:
+                sp_asm.set("bytes", result_nbytes(res))
         if reduction == "full":
-            all_scores = np.concatenate(full, 0)
-            return MatchResult(plan=plan, best_locs=all_scores.argmax(1),
-                               best_scores=all_scores.max(1),
-                               scores=all_scores, n_chunks=n_chunks,
-                               n_shards=S, merge_path=merger.merge_path,
-                               collective_bytes=merger.collective_bytes
-                               - coll0)
-        res = MatchResult(plan=plan, best_locs=np.concatenate(best_l, 0),
-                          best_scores=np.concatenate(best_s, 0),
-                          n_chunks=n_chunks, n_shards=S,
-                          merge_path=merger.merge_path)
+            res.collective_bytes = merger.collective_bytes - coll0
+            return res
         if survivor_frac is not None:
             res.survivor_rows = sel
             res.survivor_frac = survivor_frac
-        if reduction == "threshold":
-            width = 3 + (1 if plan.mode == "batched" else 0)
-            res.hits = (np.concatenate(hit_rows, 0) if hit_rows
-                        else np.zeros((0, width), np.int64))
-        elif reduction == "topk":
+        if reduction == "topk":
             if topk_state is None or n_topk_alive == 0:
                 # Every scanned row was tombstoned: a well-formed empty
                 # top-k.

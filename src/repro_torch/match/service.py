@@ -58,7 +58,7 @@ import numpy as np
 
 from repro_torch.obs import LogHistogram
 
-from .engine import MatchEngine, MatchResult
+from .engine import MatchEngine, MatchResult, result_nbytes
 from .planner import BatchPlan
 from .query import _UNSET, MatchQuery, as_query
 
@@ -566,20 +566,27 @@ class MatchService:
         first = members[0][0].query
         n_rows = (len(first.rows) if first.rows is not None
                   else self.engine.corpus.n_rows)
+        tr = self.obs.tracer
         bp: Optional[BatchPlan] = None
         if n_q > 1 and n_rows > 0:
             # Empty subsets skip pricing: the engine answers them without
             # a launch, and the planner (rightly) rejects 0-row workloads.
-            bp = self.engine.planner.plan_batch(
-                n_rows=n_rows,
-                fragment_chars=self.engine.corpus.fragment_chars,
-                pattern_chars=first.pattern_chars, n_queries=n_q,
-                backend=first.backend, chunk_rows=first.chunk_rows,
-                predicate=first.predicate,
-                n_shards=self.engine.n_shards,
-                one_card=self.engine.one_card)
+            with tr.span("service.plan") as sp:
+                bp = self.engine.planner.plan_batch(
+                    n_rows=n_rows,
+                    fragment_chars=self.engine.corpus.fragment_chars,
+                    pattern_chars=first.pattern_chars, n_queries=n_q,
+                    backend=first.backend, chunk_rows=first.chunk_rows,
+                    predicate=first.predicate,
+                    n_shards=self.engine.n_shards,
+                    one_card=self.engine.one_card)
+                if tr.enabled:
+                    sp.set("n_queries", bp.n_queries)
+                    sp.set("coalesced", bp.coalesced)
+                    sp.set("est_coalesced_s", bp.est_coalesced_s)
+                    sp.set("est_sequential_s", bp.est_sequential_s)
+                    sp.set("reason", bp.reason)
         if bp is not None and bp.coalesced:
-            tr = self.obs.tracer
             with tr.span("service.coalesce",
                          {"n_queries": len(grp), "n_uniq": n_q}
                          if tr.enabled else None):
@@ -591,12 +598,20 @@ class MatchService:
                 self._note_filter(batched)
                 self._note_merge(batched)
                 self._note_timings(batched)
-                for q, mem in enumerate(members):
-                    k_q = mem[0].query.k[0] if mem[0].query.k else 0
-                    res = self._scatter(batched, q, n_q, k_q)
-                    self._cache_put(mem[0].query, res)
-                    for p in mem:
-                        self._complete(p, res, cached=False)
+                with tr.span("service.scatter") as sp:
+                    n_bytes = 0
+                    for q, mem in enumerate(members):
+                        k_q = mem[0].query.k[0] if mem[0].query.k else 0
+                        res = self._scatter(batched, q, n_q, k_q)
+                        if tr.enabled:
+                            n_bytes += result_nbytes(res)
+                        self._cache_put(mem[0].query, res)
+                        for p in mem:
+                            self._complete(p, res, cached=False)
+                    if tr.enabled:
+                        sp.set("n_queries", n_q)
+                        sp.set("n_requests", len(grp))
+                        sp.set("bytes", n_bytes)
         else:
             if n_q > 1:
                 self.stats.n_sequential_fallback += len(grp)
@@ -686,21 +701,15 @@ class MatchService:
     def _note_obs(self) -> None:
         """Mirror per-tick service health into the metrics registry.
 
-        Gauges carry the service-level facts no single span shows (queue
-        depth, hit rates, shard balance); the stats snapshot pulls the
-        registry's plan-vs-actual accounting back so estimate drift per
-        (kernel, shape-bucket) reads out of ``ServiceStats.snapshot()``.
+        The queue-depth gauge carries what no span or stats field shows
+        (``launch.serve --metrics-every`` reads it); the stats snapshot
+        pulls the registry's plan-vs-actual accounting back so estimate
+        drift per (kernel, shape-bucket) reads out of
+        ``ServiceStats.snapshot()``.
         """
         m = self.obs.metrics
         s = self.stats
         m.gauge("service.queue_depth").set(len(self._queue))
-        m.gauge("service.cache_hit_rate").set(s.cache_hit_rate)
-        m.gauge("service.launches_last_tick").set(s.launches_last_tick)
-        m.gauge("service.avg_survivor_frac").set(s.avg_survivor_frac)
-        m.gauge("service.shard_balance").set(s.shard_balance)
-        m.gauge("service.collective_bytes").set(s.collective_bytes)
-        m.gauge("service.n_evicted_rows").set(s.n_evicted_rows)
-        m.gauge("service.n_compactions").set(s.n_compactions)
         s.timings_last_tick = (dict(self._tick_timings)
                                if self._tick_timings else None)
         s.plan_actual = m.plan_actual_summary() or None

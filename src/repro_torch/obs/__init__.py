@@ -26,12 +26,13 @@ from repro_torch.obs.metrics import (Counter, Gauge, LogHistogram,
                                MetricsRegistry, PlanActual,
                                DEFAULT_BASE, DEFAULT_DRIFT_BOUND,
                                plan_key_str)
-from repro_torch.obs.trace import NOOP_SPAN, STAGES, Span, Tracer
+from repro_torch.obs.trace import (NOOP_SPAN, PORT_SPANS, STAGES, Span,
+                                   Tracer)
 
 __all__ = [
     "Counter", "Gauge", "LogHistogram", "MetricsRegistry",
-    "NULL_OBS", "NOOP_SPAN", "Observability", "PlanActual", "Span",
-    "STAGES", "Tracer", "plan_key_str",
+    "NULL_OBS", "NOOP_SPAN", "Observability", "PlanActual", "PORT_SPANS",
+    "Span", "STAGES", "Tracer", "plan_key_str",
     "DEFAULT_BASE", "DEFAULT_DRIFT_BOUND",
 ]
 

@@ -51,6 +51,19 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 STAGES: Tuple[str, ...] = ("plan", "pack", "filter", "launch", "merge",
                            "pull")
 
+# Spans the port records and ``repro.obs`` does not: host work between
+# the reference's spans, named so a traced run can charge it.  None is a
+# stage.
+PORT_SPANS: Dict[str, str] = {
+    "service.plan": "Planner.plan_batch pricing one group: fused or one "
+                    "launch a query",
+    "service.scatter": "a fused launch's per-query result views, cache "
+                       "entries and ticket completions",
+    "assemble": "the per-chunk blocks joined into the result's arrays",
+    "hits": "a gathered hot block's threshold hits found and mapped to "
+            "rows on the host",
+}
+
 _ATTR_TYPES = (str, int, float, bool, type(None))
 _np_generic = None   # cached numpy scalar base; resolved on first use
 
