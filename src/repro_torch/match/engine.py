@@ -91,8 +91,8 @@ class MatchResult:
     """Outcome of one engine query (reduced unless ``scores`` requested)."""
 
     plan: Plan
-    best_locs: np.ndarray                 # (R,) or (R, Q) int
-    best_scores: np.ndarray               # (R,) or (R, Q) int32
+    best_locs: np.ndarray                 # (R,) or F-contiguous (R, Q) int
+    best_scores: np.ndarray               # (R,) or F-contiguous (R, Q) int32
     scores: Optional[np.ndarray] = None   # (R, L[, Q]) when reduction="full"
     topk_rows: Optional[np.ndarray] = None     # (k,[Q]) best-matching rows
     topk_scores: Optional[np.ndarray] = None
@@ -503,12 +503,19 @@ class CompiledMatch:
                                            batched=plan.mode == "batched")
             else:
                 bl, bs = merger.chunk_best(scores)
-            bl_np = merger.pull(bl, unpermute=shard_phys)[:valid]
-            bs_np = merger.pull(bs, unpermute=shard_phys)[:valid]
+            # A batched best pair crosses query-major, (Q, rows): each
+            # query's column of the result is then contiguous memory for
+            # the service's per-request scatter.  Rows are the last axis
+            # either way.
+            qm = plan.mode == "batched"
+            bl_np = merger.pull(bl, unpermute=shard_phys,
+                                query_major=qm)[..., :valid]
+            bs_np = merger.pull(bs, unpermute=shard_phys,
+                                query_major=qm)[..., :valid]
             if alive is not None:
                 bl_np, bs_np = bl_np.copy(), bs_np.copy()
-                bl_np[~alive] = 0
-                bs_np[~alive] = -1        # dead-row best-score sentinel
+                bl_np[..., ~alive] = 0
+                bs_np[..., ~alive] = -1   # dead-row best-score sentinel
             best_l.append(bl_np)
             best_s.append(bs_np)
             if reduction == "threshold":
@@ -603,9 +610,14 @@ class CompiledMatch:
                                   scores=all_scores, n_chunks=n_chunks,
                                   n_shards=S, merge_path=merger.merge_path)
             else:
-                res = MatchResult(plan=plan,
-                                  best_locs=np.concatenate(best_l, 0),
-                                  best_scores=np.concatenate(best_s, 0),
+                # Blocks join along rows; a batched (Q, R) pair returns as
+                # its (R, Q) transpose, F-contiguous.
+                bl_all = np.concatenate(best_l, -1)
+                bs_all = np.concatenate(best_s, -1)
+                if plan.mode == "batched":
+                    bl_all, bs_all = bl_all.T, bs_all.T
+                res = MatchResult(plan=plan, best_locs=bl_all,
+                                  best_scores=bs_all,
                                   n_chunks=n_chunks, n_shards=S,
                                   merge_path=merger.merge_path)
             if reduction == "threshold":

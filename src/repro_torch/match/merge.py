@@ -23,7 +23,12 @@ to the host first waits for the device work queued before it).
 
 * ``pull`` -- a tensor or a sharded value -> host ndarray; a sharded one
   is joined first and, with ``unpermute=True``, put back in logical row
-  order on the device.
+  order on the device.  With ``query_major=True`` a (rows, Q) block is
+  then transposed on the device and crosses as a C-contiguous (Q, rows)
+  block: the engine pulls a batched query's best pair so, which makes
+  each query's column contiguous host memory for the service's
+  per-request scatter (a column of a row-major (R, Q) array is a strided
+  read, a cache line per element).
 * ``chunk_best``  -- per-row argmax / max over alignments.  Both
   ``torch.argmax`` and ``jnp.argmax`` return the first maximal index; the
   locations are cast to int32, ``jnp.argmax``'s type with x64 off.
@@ -129,13 +134,16 @@ class ShardMerger:
         return g
 
     def pull(self, x: Value, *, unpermute: bool = False,
-             kind: str = "reduced") -> np.ndarray:
+             kind: str = "reduced", query_major: bool = False
+             ) -> np.ndarray:
         """Device value -> host ndarray (blocks on the device).
 
         A sharded value joins on the join device first (one collective)
         and, with ``unpermute``, returns to logical row order there.
-        ``kind`` buckets the transfer accounting ("reduced" state vs.
-        score "block").
+        ``query_major`` takes a (rows, Q) value and returns it as a
+        C-contiguous (Q, rows) array, transposed on the device after the
+        join and un-permute.  ``kind`` buckets the transfer accounting
+        ("reduced" state vs. score "block").
         """
         tr = self.obs.tracer
         with tr.span("pull", {"kind": kind} if tr.enabled else None) as sp:
@@ -147,6 +155,8 @@ class ShardMerger:
                             g, len(x)).contiguous()
                     self._count_collective(g.numel() * g.element_size())
                 x = g
+            if query_major:
+                x = x.t().contiguous()
             out = x.cpu().numpy()
             self.n_pulls += 1
             if kind == "block":

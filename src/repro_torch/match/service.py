@@ -228,6 +228,21 @@ class ServiceStats:
         }
 
 
+def _query_columns(res: MatchResult, q: int, k_q: int
+                   ) -> Dict[str, np.ndarray]:
+    """Column ``q`` of each per-row and top-k array of a fused batched
+    result (views, by ``MatchResult`` field; top-k cut to ``k_q``)."""
+    cols = {"best_locs": res.best_locs[:, q],
+            "best_scores": res.best_scores[:, q]}
+    if res.scores is not None:
+        cols["scores"] = res.scores[:, :, q]
+    if res.topk_rows is not None:
+        kk = min(k_q, res.topk_rows.shape[0])
+        cols["topk_rows"] = res.topk_rows[:kk, q]
+        cols["topk_scores"] = res.topk_scores[:kk, q]
+    return cols
+
+
 def _drive_until_done(ticket, max_ticks: int, what: str) -> None:
     """Tick the ticket's service until it completes (shared wait loop)."""
     ticks = 0
@@ -503,35 +518,31 @@ class MatchService:
 
     def _scatter(self, res: MatchResult, q: int, n_q: int,
                  k_q: int) -> MatchResult:
-        """Per-query view of one fused batched result (column ``q``).
+        """Per-query result of one fused batched result (column ``q``).
 
         Bit-identical to the single shared-mode query: the batched kernels
         score each pattern column independently, so slicing column ``q``
         out of the (R, ..., Q) tensors reproduces the solo run exactly.
+        The engine assembles a batched best pair query-major (F-contiguous
+        (R, Q)), so its columns copy as contiguous memory; every array
+        returned is an owning copy, so a held result does not keep the
+        whole fused batch alive.
         """
         out = MatchResult(plan=res.plan,
-                          best_locs=np.ascontiguousarray(
-                              res.best_locs[:, q]),
-                          best_scores=np.ascontiguousarray(
-                              res.best_scores[:, q]),
                           n_chunks=res.n_chunks,
                           survivor_rows=res.survivor_rows,
                           survivor_frac=res.survivor_frac,
                           n_shards=res.n_shards,
                           merge_path=res.merge_path,
-                          collective_bytes=res.collective_bytes)
-        # Scatter views share the fused launch's stage breakdown: the
+                          collective_bytes=res.collective_bytes,
+                          **{f: c.copy() for f, c in
+                             _query_columns(res, q, k_q).items()})
+        # Scattered results share the fused launch's stage breakdown: the
         # stages ran once for the whole group.
         out.timings = res.timings
-        if res.scores is not None:
-            out.scores = np.ascontiguousarray(res.scores[:, :, q])
-        if res.topk_rows is not None:
-            kk = min(k_q, res.topk_rows.shape[0])
-            out.topk_rows = np.ascontiguousarray(res.topk_rows[:kk, q])
-            out.topk_scores = np.ascontiguousarray(res.topk_scores[:kk, q])
         if res.hits is not None:
             mine = res.hits[res.hits[:, 2] == q]
-            out.hits = np.ascontiguousarray(mine[:, [0, 1, 3]])
+            out.hits = np.take(mine, [0, 1, 3], axis=1)
         return out
 
     def _fuse_queries(self, members: List[List[_Pending]]) -> MatchQuery:
@@ -599,12 +610,15 @@ class MatchService:
                 self._note_merge(batched)
                 self._note_timings(batched)
                 with tr.span("service.scatter") as sp:
-                    n_bytes = 0
+                    n_bytes = n_strided = 0
                     for q, mem in enumerate(members):
                         k_q = mem[0].query.k[0] if mem[0].query.k else 0
                         res = self._scatter(batched, q, n_q, k_q)
                         if tr.enabled:
                             n_bytes += result_nbytes(res)
+                            n_strided += sum(
+                                not c.flags.c_contiguous for c in
+                                _query_columns(batched, q, k_q).values())
                         self._cache_put(mem[0].query, res)
                         for p in mem:
                             self._complete(p, res, cached=False)
@@ -612,6 +626,7 @@ class MatchService:
                         sp.set("n_queries", n_q)
                         sp.set("n_requests", len(grp))
                         sp.set("bytes", n_bytes)
+                        sp.set("n_strided", n_strided)
         else:
             if n_q > 1:
                 self.stats.n_sequential_fallback += len(grp)

@@ -6,7 +6,8 @@ coalesced service tick, on the CPU.
   each gathered hot block and nowhere else;
 * the attributes: ``bytes`` equal to the returned views' and the
   assembled arrays' ``nbytes``, ``n_queries``, ``n_requests``,
-  ``n_hits`` and the batch plan's verdict;
+  ``n_hits``, the batch plan's verdict, and ``n_strided`` 0: the
+  query-major best pair scatters from contiguous columns;
 * with the tracer off, nothing allocated by the tracer on that path.
 """
 
@@ -123,7 +124,7 @@ def test_port_span_attributes(reduction):
     views = {id(t.result): t.result for t in tickets}
     assert len(views) == 2
     assert scatter.attrs == {
-        "n_queries": 2, "n_requests": len(tickets),
+        "n_queries": 2, "n_requests": len(tickets), "n_strided": 0,
         "bytes": sum(nbytes(v.best_locs, v.best_scores, v.scores,
                             v.topk_rows, v.topk_scores, v.hits)
                      for v in views.values())}
